@@ -1,0 +1,483 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (open_pi_zero_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py              # the whole run, one card
+
+Phases, each of which raises on failure:
+  1. build   — nvcc builds csrc/mot_attention.cu into build/torch_kernels/;
+               prints the card's name and power limit as nvidia-smi
+               reports them
+  2. kernels — the MoT-attention kernel against its plain version on the
+               card, at the main path's shapes and edge cases, in bf16
+               (2e-2) and fp32 (1e-4); kernel, plain and library times per
+               launch, each on one input called back to back
+  3. parity  — bridge widths at depth 2 (bridge_width_dryrun_config), fp32:
+               the whole action inference on the card (kernel) against the
+               CPU (plain version), max|diff| <= 1e-3
+  4. main    — the main path: full-width PiZeroConfig() in bf16 with random
+               weights from a seed, infer_action at B=1 twice; exactly
+               L + L * steps kernel launches per chunk, bitwise-equal
+               chunks; warm chunk time and peak memory; then one chunk
+               under torch.profiler, with the counts set to 0 again: the
+               kernel's device time summed over its launches there is the
+               `ms` of the kernels line. The kernel's inputs of one more
+               chunk are kept and replayed, in the main path's order,
+               through the kernel (held against the plain version), the
+               plain version and one library attention call: their summed
+               device times are `plain_ms` and `library_ms`, and the
+               inputs' sizes give `bound_ms`
+  5. serve   — the port's BatchingPolicy over the full-width model: 4
+               requests from 4 threads and 1 through ActionServer on
+               localhost
+Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+Without a card, or outside a checkout, it exits non-zero before any result.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import threading
+import time
+
+import numpy as np
+import torch
+
+from open_pi_zero_torch import config as cfg_lib
+from open_pi_zero_torch import serving
+from open_pi_zero_torch.models import pizero
+from open_pi_zero_torch.models.tree import tree_map
+from open_pi_zero_torch.ops import _build
+from open_pi_zero_torch.ops import fused_attention as fa
+from open_pi_zero_torch.ops.attention import mot_attention_ref
+from open_pi_zero_torch.ops.masks import MASK_NEG
+
+# H100 SXM published peaks at the full 700 W limit: HBM bytes/s and dense
+# bf16 tensor-core FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+REPLACES = "open_pi_zero_tpu/ops/pallas_attention.py:123"
+KERNEL_SYMBOL = "mot_attention_fwd_kernel"  # the kernel's name in a profile
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, samples: int = 21, calls: int = 10) -> float:
+    """Median over `samples` of the mean device time of `calls` back-to-back
+    calls, between CUDA events, after a warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def example_batch(cfg, b: int, rng) -> dict:
+    """One observation per row: all image tokens, <bos> and 7 text tokens,
+    the rest padding; random pixels and proprio."""
+    n_img = cfg.siglip.num_image_tokens
+    ids = np.zeros((b, cfg.max_image_text_tokens), np.int32)
+    ids[:, :n_img] = cfg.image_token_index
+    ids[:, n_img] = 2
+    ids[:, n_img + 1 : n_img + 8] = 100
+    size = cfg.siglip.image_size
+    return {
+        "input_ids": ids,
+        "pixel_values": rng.uniform(-1, 1, size=(b, size, size, 3)).astype(np.float32),
+        "attention_mask": (ids != cfg.pad_token_id).astype(np.int32),
+        "proprios": rng.normal(size=(b, cfg.cond_steps, cfg.proprio_dim)).astype(np.float32),
+    }
+
+
+def run_infer(params, cfg, batch: dict, action0: np.ndarray, device, dtype):
+    t = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    return pizero.infer_action(
+        params, cfg, None, t["input_ids"], t["pixel_values"].to(dtype),
+        t["attention_mask"], t["proprios"].to(dtype),
+        action0=torch.as_tensor(action0, device=device),
+    )
+
+
+# --------------------------------------------------------------------------- #
+# phase 2: the kernel against its plain version
+# --------------------------------------------------------------------------- #
+
+
+def attention_cases(dev):
+    """(name, q/k/v shapes, fp32 mask, softcap): the main path's shapes with
+    the main path's masks (strided views of the block-causal mask), and
+    edge cases with random masks."""
+    cfg = cfg_lib.PiZeroConfig()
+    am = torch.zeros(2, cfg.max_image_text_tokens, dtype=torch.int32, device=dev)
+    am[0, :264] = 1
+    am[1, :200] = 1
+    _, prefix, action, _ = pizero.prepare_action_inputs(cfg, am)
+    rng = np.random.default_rng(0)
+
+    def rand_mask(b, lq, lkv):
+        m = np.where(rng.random((b, 1, lq, lkv)) > 0.3, 0.0, MASK_NEG).astype(np.float32)
+        m[..., 0] = 0.0
+        return torch.from_numpy(m).to(dev)
+
+    return [
+        ("prefill", (1, 277, 277, 8, 1, 256), prefix[:1], 50.0),
+        ("euler", (1, 4, 281, 8, 1, 256), action[:1], 50.0),
+        ("decode", (1, 1, 277, 8, 1, 256), rand_mask(1, 1, 277), 50.0),
+        ("prefill_b2", (2, 277, 277, 8, 1, 256), prefix, 50.0),
+        ("multi_kv", (1, 1, 300, 8, 2, 32), rand_mask(1, 1, 300), 50.0),
+        ("fully_masked", (1, 4, 281, 8, 1, 256), torch.full((1, 1, 4, 281), MASK_NEG, device=dev), 50.0),
+        ("no_softcap", (1, 4, 281, 8, 1, 256), action[:1], None),
+    ]
+
+
+def bound_ms(shape) -> tuple:
+    """Least time for the function in bf16 on an H100: q, k, v and the fp32
+    mask read once and the output written once, over HBM; 4*B*Hq*Lq*Lkv*D
+    FLOP over the bf16 peak. Returns (ms, "bytes" | "operations")."""
+    t_bytes, t_ops = bound_parts(shape)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_parts(shape) -> tuple:
+    """(ms to move the bytes, ms to do the operations) of one call."""
+    b, lq, lkv, hq, hkv, d = shape
+    moved = 2 * (2 * b * lq * hq * d + 2 * b * lkv * hkv * d) + 4 * b * lq * lkv
+    return moved / HBM_BYTES_PER_S * 1e3, 4 * b * hq * lq * lkv * d / BF16_FLOPS * 1e3
+
+
+def check_kernel(dev) -> dict:
+    results = {}
+    for name, shape, mask, softcap in attention_cases(dev):
+        b, lq, lkv, hq, hkv, d = shape
+        rng = np.random.default_rng(len(results))
+        base = [
+            torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
+            for s in ((b, lq, hq, d), (b, lkv, hkv, d), (b, lkv, hkv, d))
+        ]
+        row = {"shape": shape, "softcap": softcap}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (x.to(dtype) for x in base)
+            got = fa.mot_attention_fused(q, k, v, mask, softcap)
+            want = mot_attention_ref(q, k, v, mask, softcap)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{name} {dtype}: non-finite kernel output")
+            err = float((got.float() - want.float()).abs().max())
+            torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype],
+                                       msg=lambda m: f"{name} {dtype}: {m}")
+            row[f"max_abs_err_{str(dtype)[6:]}"] = err
+        # times in the main path's dtype
+        q, k, v = (x.to(torch.bfloat16) for x in base)
+        row["ms"] = time_ms(lambda: fa.mot_attention_fused(q, k, v, mask, softcap))
+        row["plain_ms"] = time_ms(lambda: mot_attention_ref(q, k, v, mask, softcap))
+        # yardstick: one library call of (unsoftcapped) masked attention on
+        # the same inputs, heads first, K/V expanded to the query heads
+        qh = q.transpose(1, 2)
+        kh = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+        vh = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+        mh = mask.clamp(min=float(torch.finfo(torch.bfloat16).min)).to(torch.bfloat16)
+        row["library_ms"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mh)
+        )
+        row["bound_ms"], row["bound_by"] = bound_ms(shape)
+        results[name] = row
+    return results
+
+
+# --------------------------------------------------------------------------- #
+# phases 3-5
+# --------------------------------------------------------------------------- #
+
+
+def check_parity_with_cpu(dev) -> float:
+    """Bridge widths, depth 2, fp32: card (kernel) vs CPU (plain version)."""
+    cfg = cfg_lib.bridge_width_dryrun_config()
+    params_cpu = pizero.init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
+    params_dev = tree_map(lambda x: x.to(dev), params_cpu)
+    rng = np.random.default_rng(1)
+    batch = example_batch(cfg, 2, rng)
+    batch["attention_mask"][1, 20:] = 0  # the second row is shorter
+    batch["input_ids"][1, 20:] = 0
+    a0 = rng.normal(size=(2, cfg.horizon_steps, cfg.action_dim)).astype(np.float32)
+    before = fa.launches
+    on_card = run_infer(params_dev, cfg, batch, a0, dev, torch.float32).cpu()
+    if fa.launches == before:
+        raise AssertionError("the card run did not launch the kernel")
+    on_cpu = run_infer(params_cpu, cfg, batch, a0, "cpu", torch.float32)
+    # fp32 on both sides (TF32 off): the two differ only in summation order,
+    # ~1e-6 relative per op, grown through 2 layers x 10 flow steps; 1e-3
+    # leaves room for that and catches any wrong mask, cast or layout
+    err = float((on_card - on_cpu).abs().max())
+    if not err <= 1e-3:
+        raise AssertionError(f"card vs CPU max|diff| {err} > 1e-3")
+    return err
+
+
+def check_main_path(dev, cfg, params) -> dict:
+    rng = np.random.default_rng(2)
+    batch = example_batch(cfg, 1, rng)
+    a0 = rng.normal(size=(1, cfg.horizon_steps, cfg.action_dim)).astype(np.float32)
+    L = cfg.joint.num_hidden_layers
+    evals = 2 if cfg.flow_integrator == "midpoint" else 1
+    expected = L + L * cfg.num_inference_steps * evals
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.launches = 0
+    first = run_infer(params, cfg, batch, a0, dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = fa.launches
+    second = run_infer(params, cfg, batch, a0, dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    if launches != expected or fa.launches != 2 * expected:
+        raise AssertionError(f"kernel launches {launches}, {fa.launches - launches}; want {expected} each")
+    if tuple(first.shape) != (1, cfg.horizon_steps, cfg.action_dim):
+        raise AssertionError(f"chunk shape {tuple(first.shape)}")
+    clip = cfg.final_action_clip_value
+    if not (torch.isfinite(first).all() and first.abs().max() <= clip):
+        raise AssertionError("chunk not finite or outside the clip")
+    if not torch.equal(first, second):
+        raise AssertionError("two runs with the same noise differ")
+    times = []
+    for _ in range(11):
+        t0 = time.perf_counter()
+        run_infer(params, cfg, batch, a0, dev, torch.bfloat16)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {
+        "launches": launches,
+        "chunk_ms": statistics.median(times),
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "chunk": first.float().cpu().numpy().round(4).tolist(),
+    }
+
+
+def check_serving(dev, cfg, params) -> int:
+    rng = np.random.default_rng(3)
+    policy = serving.BatchingPolicy(
+        serving.make_infer_fn(params, cfg, device=dev), batch_sizes=(1, 2)
+    )
+    requests = [{k: v[0] for k, v in example_batch(cfg, 1, rng).items()} for _ in range(5)]
+    policy.warmup(requests[0])
+    policy.start()
+    replies = [None] * 5
+    server = serving.ActionServer(("127.0.0.1", 0), policy)
+    srv = threading.Thread(target=server.serve_forever, daemon=True)
+    try:
+        threads = [
+            threading.Thread(target=lambda i=i: replies.__setitem__(i, policy.submit(requests[i], timeout=120)))
+            for i in range(4)
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=180)
+        srv.start()
+        replies[4] = serving.request_action("127.0.0.1", server.server_address[1], requests[4], timeout=120)
+    finally:
+        server.shutdown()
+        server.server_close()
+        policy.stop()
+    for r in replies:
+        if r is None or r.shape != (cfg.horizon_steps, cfg.action_dim) or not np.isfinite(r).all():
+            raise AssertionError(f"bad reply {None if r is None else r.shape}")
+    return policy.n_requests
+
+
+def device_ms(prof, match=None) -> tuple:
+    """(summed self device time in ms, number of calls) of the profiled
+    CUDA events whose name contains `match` (all of them when None)."""
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = [e for e in events if match is None or match in e.key]
+    return sum(e.self_device_time_total for e in events) / 1e3, sum(e.count for e in events)
+
+
+def profile_chunk(dev, cfg, params, expected: int) -> dict:
+    """One warm chunk of the main path under torch.profiler, the kernel
+    counts set to 0 just before it: the kernel's device time summed over
+    its launches, and the device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(4)
+    batch = example_batch(cfg, 1, rng)
+    a0 = rng.normal(size=(1, cfg.horizon_steps, cfg.action_dim)).astype(np.float32)
+    run_infer(params, cfg, batch, a0, dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    fa.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_infer(params, cfg, batch, a0, dev, torch.bfloat16)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    launches = fa.launches
+    ms, traced = device_ms(prof, KERNEL_SYMBOL)
+    if launches != expected or traced != expected:
+        raise AssertionError(f"profiled chunk: {launches} launches counted, {traced} traced; want {expected}")
+    busy, _ = device_ms(prof)
+    log(f"profile: wall {wall:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%)")
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    for e in events[:15]:
+        log(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
+    return {"launches": launches, "ms": ms, "wall_ms": wall, "busy_ms": busy}
+
+
+def record_main_path_calls(dev, cfg, params) -> list:
+    """The kernel's inputs, in order, over one chunk of the main path."""
+    calls = []
+    launch = fa.mot_attention_fused
+
+    def recording(q, k, v, mask, softcap=50.0):
+        calls.append((q.clone(), k.clone(), v.clone(), mask.clone(), softcap))
+        return launch(q, k, v, mask, softcap)
+
+    rng = np.random.default_rng(5)
+    batch = example_batch(cfg, 1, rng)
+    a0 = rng.normal(size=(1, cfg.horizon_steps, cfg.action_dim)).astype(np.float32)
+    fa.mot_attention_fused = recording  # ops.attention looks it up at each call
+    try:
+        run_infer(params, cfg, batch, a0, dev, torch.bfloat16)
+    finally:
+        fa.mot_attention_fused = launch
+    torch.cuda.synchronize()
+    return calls
+
+
+def replay(calls) -> dict:
+    """The main path's kernel calls replayed in order: the kernel held
+    against the plain version on each, then the device time of the kernel,
+    of the plain version and of one library attention call (without the
+    softcap) summed over all of them, and the bound of their sizes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    err = 0.0
+    for q, k, v, mask, softcap in calls:
+        got, want = fa.mot_attention_fused(q, k, v, mask, softcap), mot_attention_ref(q, k, v, mask, softcap)
+        torch.testing.assert_close(got, want, rtol=TOL[q.dtype], atol=TOL[q.dtype])
+        err = max(err, float((got.float() - want.float()).abs().max()))
+    # library inputs: heads first, K/V expanded to the query heads, the mask
+    # in the inputs' dtype; made before the timed calls
+    lib_inputs = []
+    for q, k, v, mask, _ in calls:
+        g = q.shape[2] // k.shape[2]
+        lib_inputs.append((
+            q.transpose(1, 2), k.repeat_interleave(g, dim=2).transpose(1, 2),
+            v.repeat_interleave(g, dim=2).transpose(1, 2),
+            mask.clamp(min=float(torch.finfo(q.dtype).min)).to(q.dtype),
+        ))
+    timed = {
+        "kernel": lambda: [fa.mot_attention_fused(*c) for c in calls],
+        "plain": lambda: [mot_attention_ref(*c) for c in calls],
+        "library": lambda: [torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=m)
+                            for q, k, v, m in lib_inputs],
+    }
+    out = {"max_abs_err": err}
+    for name, fn in timed.items():
+        fn()  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out[f"{name}_ms"] = device_ms(prof)[0]
+    t_bytes = t_ops = 0.0
+    for q, k, v, _, _ in calls:
+        (b, lq, hq, d), (_, lkv, hkv, _) = q.shape, k.shape
+        tb, to = bound_parts((b, lq, lkv, hq, hkv, d))
+        t_bytes, t_ops = t_bytes + tb, t_ops + to
+    out["bound_ms"], out["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return out
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this script runs on the card only")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
+
+    t0 = time.time()
+    _build.build(fa.SOURCE)
+    info = card()
+    log(f"build: {fa.SOURCE} in {time.time() - t0:.1f} s")
+    for line in _build.build_log(fa.SOURCE).splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"build: {line.strip()}")
+    log(f"card: {info}")
+
+    t0 = time.time()
+    kernel = check_kernel(dev)
+    log("kernel_vs_plain, per launch: " + json.dumps(kernel))
+    log(f"phase kernels ok in {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    err = check_parity_with_cpu(dev)
+    log(f"parity: bridge widths depth 2 fp32, card vs CPU max|diff| {err:.3e} (<= 1e-3), "
+        f"{time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    cfg = cfg_lib.PiZeroConfig()
+    params = pizero.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"main: full-width bf16 params built in {time.time() - t0:.1f} s")
+    main_path = check_main_path(dev, cfg, params)
+    log("main: " + json.dumps(main_path))
+    log(f"main: warm chunk {main_path['chunk_ms']:.3f} ms (median of 11), peak memory "
+        f"{main_path['peak_mem_gb']:.3f} GB, on {info}")
+    prof = profile_chunk(dev, cfg, params, main_path["launches"])
+    calls = record_main_path_calls(dev, cfg, params)
+    replayed = replay(calls)
+    log(f"main: kernel on the main path {prof['ms']:.3f} ms over {prof['launches']} launches; "
+        "replayed calls: " + json.dumps(replayed))
+
+    t0 = time.time()
+    served = check_serving(dev, cfg, params)
+    log(f"serve: {served} requests answered in {time.time() - t0:.1f} s")
+
+    entry = {
+        "name": "mot_attention_fwd",
+        "route": "cuda",
+        "source": "open_pi_zero_torch/csrc/mot_attention.cu",
+        "replaces": REPLACES,
+        "launches": prof["launches"],
+        "max_abs_err": max(replayed["max_abs_err"], *(r["max_abs_err_bfloat16"] for r in kernel.values())),
+        # one chunk: device time summed over its launches
+        "ms": prof["ms"],
+        "plain_ms": replayed["plain_ms"],
+        "bound_ms": replayed["bound_ms"],
+        "bound_by": replayed["bound_by"],
+        "library_ms": replayed["library_ms"],
+    }
+    log(f"total {time.time() - t_start:.1f} s")
+    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+
+
+if __name__ == "__main__":
+    main()

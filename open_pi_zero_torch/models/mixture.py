@@ -1,0 +1,98 @@
+"""Per-expert (mixture) layer ops (counterpart of the JAX package's
+``models/mixture.py``, float path without adaLN).
+
+One mixture is a PaliGemma-layout transformer expert: RMSNorm -> GQA
+attention -> RMSNorm -> geglu MLP, and an optional final RMSNorm.
+Projections carry no bias and are stored [in, out]; activations keep the
+[B, S, H, D] layout.
+
+Param tree for one mixture (L = num layers, D = hidden, I = intermediate,
+Hq/Hkv = query/kv heads, Dh = head_dim):
+  layers:
+    input_norm:  {weight [L, D]}
+    attn: {q [L, D, Hq*Dh], k [L, D, Hkv*Dh], v [L, D, Hkv*Dh], o [L, Hq*Dh, D]}
+    post_norm:   {weight [L, D]}
+    mlp: {gate [L, D, I], up [L, D, I], down [L, I, D]}
+  final_norm: {weight [D]} | absent (vlm w/o lm head)
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from open_pi_zero_torch.config import JointConfig, MixtureConfig
+from open_pi_zero_torch.ops.linear import proj
+from open_pi_zero_torch.ops.norms import rms_norm
+from open_pi_zero_torch.ops.rope import apply_rope
+
+
+def _no_adaptive(mix: MixtureConfig) -> None:
+    if mix.adaptive_mode is not None:
+        raise NotImplementedError(
+            f"adaptive_mode={mix.adaptive_mode!r}: adaLN is not ported yet"
+        )
+
+
+def norm(lp_norm: dict, mix: MixtureConfig, eps: float, x: torch.Tensor) -> torch.Tensor:
+    _no_adaptive(mix)
+    return rms_norm(x, lp_norm["weight"], eps)
+
+
+def q_proj(lp_attn: dict, joint: JointConfig, x: torch.Tensor, scaling: float = 1.0) -> torch.Tensor:
+    b, s, _ = x.shape
+    return proj(lp_attn, "q", x, scaling).reshape(
+        b, s, joint.num_attention_heads, joint.head_dim
+    )
+
+
+def kv_proj(
+    lp_attn: dict, joint: JointConfig, x: torch.Tensor, scaling: float = 1.0
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, s, _ = x.shape
+    shape = (b, s, joint.num_key_value_heads, joint.head_dim)
+    return (
+        proj(lp_attn, "k", x, scaling).reshape(shape),
+        proj(lp_attn, "v", x, scaling).reshape(shape),
+    )
+
+
+def qkv_proj(
+    lp_attn: dict, joint: JointConfig, x: torch.Tensor, scaling: float = 1.0
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(q, k, v) through separate projections (the fused serving layout
+    comes with the serving-layout slice)."""
+    if "qkv" in lp_attn:
+        raise NotImplementedError("the fused qkv serving layout is not ported yet")
+    return (q_proj(lp_attn, joint, x, scaling), *kv_proj(lp_attn, joint, x, scaling))
+
+
+def o_proj(lp_attn: dict, x: torch.Tensor, scaling: float = 1.0) -> torch.Tensor:
+    """x: [B, S, Hq*Dh] -> [B, S, D]."""
+    return proj(lp_attn, "o", x, scaling)
+
+
+def mlp(lp_mlp: dict, x: torch.Tensor, scaling: float = 1.0) -> torch.Tensor:
+    """geglu: down(gelu_tanh(gate(x)) * up(x)), the gelu in fp32."""
+    if "gateup" in lp_mlp:
+        raise NotImplementedError("the fused gate+up serving layout is not ported yet")
+    gate = proj(lp_mlp, "gate", x, scaling)
+    up = proj(lp_mlp, "up", x, scaling)
+    h = F.gelu(gate.to(torch.float32), approximate="tanh").to(x.dtype) * up
+    return proj(lp_mlp, "down", h, scaling)
+
+
+def rope_qk(
+    q: torch.Tensor, k: Optional[torch.Tensor], cos: torch.Tensor, sin: torch.Tensor
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    q = apply_rope(q, cos, sin)
+    if k is not None:
+        k = apply_rope(k, cos, sin)
+    return q, k
+
+
+def final_norm(params: dict, mix: MixtureConfig, eps: float, x: torch.Tensor) -> torch.Tensor:
+    """Mixture-level final norm (present only when use_final_norm)."""
+    return norm(params["final_norm"], mix, eps, x)

@@ -1,0 +1,312 @@
+"""PiZero: the full π0 VLA model (counterpart of the JAX package's
+``models/pizero.py``: init, encoders and KV-cached action inference).
+
+Everything is a plain function over a params tree + a static
+``PiZeroConfig``. ``infer_action`` prefills the VLM/proprio prefix once
+into a stacked [L, B, I+P, Hkv, Dh] K/V cache, then runs the Euler (or
+midpoint) steps of the action expert against it in a Python loop.
+
+Param tree (the JAX package's layout, so ``params_from_jax`` is a
+leaf-by-leaf copy):
+  embed_tokens: [V, Dv]
+  siglip: {...}                 (models/siglip.py)
+  projector: {kernel, bias}
+  joint: {mixtures: {vlm, action[, proprio]}}  (models/joint.py)
+  action_encoder: {linear_1, linear_2, linear_3}
+  proprio_encoder: {kernel, bias}
+  action_decoder: {kernel, bias}
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from open_pi_zero_torch import resolve_device
+from open_pi_zero_torch.config import PiZeroConfig
+from open_pi_zero_torch.models import joint as joint_lib
+from open_pi_zero_torch.models import siglip as siglip_lib
+from open_pi_zero_torch.ops.embeddings import sinusoidal_time_embedding
+from open_pi_zero_torch.ops.linear import linear
+from open_pi_zero_torch.ops.masks import (
+    action_position_ids,
+    build_block_causal_mask,
+    proprio_position_ids,
+    split_prefix_and_action_masks,
+    vlm_position_ids,
+)
+
+Tensor = torch.Tensor
+
+
+# --------------------------------------------------------------------------- #
+# init
+# --------------------------------------------------------------------------- #
+
+
+class _Init:
+    """Draws the params on the device with one ``torch.Generator``, with the
+    JAX package's distributions (torch ``nn.Linear``/``nn.Embedding``
+    defaults, zero-init Gemma norm weights). The numbers differ from JAX's:
+    tests that compare the two packages copy JAX's params instead."""
+
+    def __init__(self, seed: int, device: torch.device, dtype: torch.dtype):
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+        self.device, self.dtype = device, dtype
+
+    def uniform(self, shape, bound: float) -> Tensor:
+        x = torch.empty(shape, dtype=self.dtype, device=self.device)
+        return x.uniform_(-bound, bound, generator=self.gen)
+
+    def normal(self, shape, std: float = 1.0) -> Tensor:
+        x = torch.empty(shape, dtype=self.dtype, device=self.device)
+        return x.normal_(0.0, std, generator=self.gen)
+
+    def full(self, shape, value: float) -> Tensor:
+        return torch.full(shape, value, dtype=self.dtype, device=self.device)
+
+    def linear(self, din: int, dout: int, stack: int = 0) -> dict:
+        """U(+-1/sqrt(fan_in)) kernel [in, out] and bias, optionally stacked."""
+        lead = (stack,) if stack else ()
+        bound = 1.0 / din**0.5
+        return {
+            "kernel": self.uniform((*lead, din, dout), bound),
+            "bias": self.uniform((*lead, dout), bound),
+        }
+
+
+def _init_siglip(init: _Init, cfg) -> dict:
+    if cfg.use_lora or cfg.use_quantize:
+        raise NotImplementedError("SigLIP LoRA/quantization is not ported yet")
+    L, D, I = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
+    patch_in = cfg.patch_size * cfg.patch_size * cfg.num_channels
+    ln = lambda: {"scale": init.full((L, D), 1.0), "bias": init.full((L, D), 0.0)}  # noqa: E731
+    return {
+        "embeddings": {
+            "patch": init.linear(patch_in, D),
+            "position": init.normal((cfg.num_patches, D), 0.02),
+        },
+        "layers": {
+            "ln1": ln(),
+            "ln2": ln(),
+            "attn": {n: init.linear(D, D, stack=L) for n in ("q", "k", "v", "o")},
+            "mlp": {"fc1": init.linear(D, I, stack=L), "fc2": init.linear(I, D, stack=L)},
+        },
+        "post_layernorm": {"scale": init.full((D,), 1.0), "bias": init.full((D,), 0.0)},
+    }
+
+
+def _init_mixture(init: _Init, joint, mix) -> dict:
+    if mix.adaptive_mode is not None or mix.use_lora or mix.use_quantize:
+        raise NotImplementedError("adaLN/LoRA/quantized mixtures are not ported yet")
+    L, D, I = joint.num_hidden_layers, mix.hidden_size, mix.intermediate_size
+    q_out = joint.num_attention_heads * joint.head_dim
+    kv_out = joint.num_key_value_heads * joint.head_dim
+
+    def kernel(din, dout):
+        return init.uniform((L, din, dout), 1.0 / din**0.5)
+
+    params = {
+        "layers": {
+            "input_norm": {"weight": init.full((L, D), 0.0)},
+            "attn": {
+                "q": kernel(D, q_out),
+                "k": kernel(D, kv_out),
+                "v": kernel(D, kv_out),
+                "o": kernel(q_out, D),
+            },
+            "post_norm": {"weight": init.full((L, D), 0.0)},
+            "mlp": {"gate": kernel(D, I), "up": kernel(D, I), "down": kernel(I, D)},
+        }
+    }
+    if mix.use_final_norm:
+        params["final_norm"] = {"weight": init.full((D,), 0.0)}
+    return params
+
+
+def init_params(
+    cfg: PiZeroConfig, *, seed: int = 0, device="cuda", dtype=torch.float32
+) -> dict:
+    """Random params in the JAX package's tree layout, drawn on ``device``
+    (CUDA by default; raises without a card unless ``device='cpu'``)."""
+    if cfg.action_expert_adaptive_mode is not None:
+        raise NotImplementedError("adaptive action expert is not ported yet")
+    init = _Init(seed, resolve_device(device), dtype)
+    vlm_hidden = cfg.mixture("vlm").hidden_size
+    action_hidden = cfg.mixture("action").hidden_size
+    embed = init.normal((cfg.vocab_size, vlm_hidden))
+    embed[cfg.pad_token_id] = 0.0  # nn.Embedding padding_idx row
+    joint = cfg.joint
+    mixtures = {
+        n: _init_mixture(init, joint, joint.mixture(n))
+        for n in joint.mixture_names
+        if joint_lib.param_key(joint, n) == n
+    }
+    return {
+        "embed_tokens": embed,
+        "siglip": _init_siglip(init, cfg.siglip),
+        "projector": init.linear(cfg.siglip.hidden_size, cfg.siglip.projection_dim),
+        "joint": {"mixtures": mixtures},
+        "action_encoder": {
+            "linear_1": init.linear(cfg.action_dim, action_hidden),
+            "linear_2": init.linear(2 * action_hidden, action_hidden),
+            "linear_3": init.linear(action_hidden, action_hidden),
+        },
+        "proprio_encoder": init.linear(cfg.proprio_dim, cfg.mixture("proprio").hidden_size),
+        "action_decoder": init.linear(action_hidden, cfg.action_dim),
+    }
+
+
+# --------------------------------------------------------------------------- #
+# encoders
+# --------------------------------------------------------------------------- #
+
+
+def time_embedding(cfg: PiZeroConfig, t: Tensor, dtype) -> Tensor:
+    """[B] -> [B, W]: sinusoidal flow-time embedding of the action width."""
+    if cfg.action_expert_adaptive_mode:
+        raise NotImplementedError("adaptive action expert is not ported yet")
+    dim = cfg.mixture("action").hidden_size
+    return sinusoidal_time_embedding(t, dim, cfg.time_max_period, dtype)
+
+
+def encode_action(params: dict, cfg: PiZeroConfig, action: Tensor, time_emb: Tensor) -> Tensor:
+    """[B, A, act_dim] + [B, W] time -> [B, A, W] (time concatenated first)."""
+    p = params["action_encoder"]
+    emb = linear(action, p["linear_1"]["kernel"], p["linear_1"]["bias"])
+    tfull = time_emb[:, None, :].to(emb.dtype).expand(emb.shape[0], emb.shape[1], -1)
+    emb = torch.cat([tfull, emb], dim=-1)
+    emb = F.silu(linear(emb, p["linear_2"]["kernel"], p["linear_2"]["bias"]))
+    return linear(emb, p["linear_3"]["kernel"], p["linear_3"]["bias"])
+
+
+def encode_proprio(params: dict, proprios: Tensor) -> Tensor:
+    p = params["proprio_encoder"]
+    return linear(proprios, p["kernel"], p["bias"])
+
+
+def decode_action(params: dict, hidden: Tensor) -> Tensor:
+    p = params["action_decoder"]
+    return linear(hidden, p["kernel"], p["bias"])
+
+
+def embed_image_text(
+    params: dict, cfg: PiZeroConfig, input_ids: Tensor, pixel_values: Tensor
+) -> Tensor:
+    """Merge text embeddings and projected SigLIP features into one
+    [B, S, Dv] sequence: the i-th image token slot receives the i-th image
+    feature; padding slots are zero vectors."""
+    input_ids = input_ids.long()
+    text_embeds = params["embed_tokens"][input_ids]  # [B, S, Dv]
+    feats = siglip_lib.forward(params["siglip"], cfg.siglip, pixel_values)
+    feats = siglip_lib.project(params["projector"], feats, cfg.siglip.lora_scaling)
+    vlm_hidden = cfg.mixture("vlm").hidden_size
+    feats = feats / torch.tensor(vlm_hidden**0.5, dtype=feats.dtype, device=feats.device)
+
+    image_mask = input_ids == cfg.image_token_index  # [B, S]
+    text_mask = (input_ids != cfg.image_token_index) & (input_ids != cfg.pad_token_id)
+    slot = (torch.cumsum(image_mask, dim=1) - 1).clamp(0, feats.shape[1] - 1)
+    img_at_slot = torch.gather(feats, 1, slot[:, :, None].expand(-1, -1, feats.shape[-1]))
+
+    out = torch.where(image_mask[:, :, None], img_at_slot, 0.0)
+    out = torch.where(text_mask[:, :, None], text_embeds, out)
+    return out.to(text_embeds.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# masks & positions
+# --------------------------------------------------------------------------- #
+
+
+def prepare_action_inputs(cfg: PiZeroConfig, attention_mask: Tensor):
+    """attention_mask: [B, S] binary over image+text tokens -> (full_mask,
+    prefix_mask, action_mask, pos_ids dict)."""
+    device = attention_mask.device
+    cnt = attention_mask.sum(dim=1)
+    full = build_block_causal_mask(
+        cnt, cfg.max_image_text_tokens, cfg.num_proprio_tokens, cfg.num_action_tokens
+    )
+    prefix, action = split_prefix_and_action_masks(
+        full, cfg.max_image_text_tokens, cfg.num_proprio_tokens, cfg.num_action_tokens
+    )
+    positions = {
+        "vlm": vlm_position_ids(cfg.max_image_text_tokens, device),
+        "proprio": proprio_position_ids(cfg.num_proprio_tokens, device),
+        "action": action_position_ids(cfg.num_proprio_tokens, cfg.num_action_tokens, device),
+    }
+    return full, prefix, action, positions
+
+
+# --------------------------------------------------------------------------- #
+# inference
+# --------------------------------------------------------------------------- #
+
+
+@torch.no_grad()
+def infer_action(
+    params: dict,
+    cfg: PiZeroConfig,
+    generator: Optional[torch.Generator],
+    input_ids: Tensor,  # [B, S] int
+    pixel_values: Tensor,  # [B, H, W, C] normalized
+    attention_mask: Tensor,  # [B, S] binary (image+text valid)
+    proprios: Tensor,  # [B, P, proprio_dim]
+    action0: Optional[Tensor] = None,  # inject initial noise (tests/parity)
+    t_start: float = 0.0,  # resume the flow from this time
+    t_end: float = 1.0,  # stop early
+) -> Tensor:
+    """KV-cached action inference: one prefix prefill, then the flow steps.
+    Returns [B, A, act_dim]. The noise comes from ``generator`` (on the
+    inputs' device) unless ``action0`` is given.
+
+    ``t_start``/``t_end`` integrate a segment of the flow on the grid of the
+    full run (round(num_inference_steps * (t_end - t_start)) steps)."""
+    dtype = pixel_values.dtype
+    device = pixel_values.device
+    b = input_ids.shape[0]
+    if cfg.action_expert_adaptive_mode:
+        raise NotImplementedError("adaptive action expert is not ported yet")
+    _, prefix_mask, action_mask, pos = prepare_action_inputs(cfg, attention_mask)
+
+    inputs_embeds = embed_image_text(params, cfg, input_ids, pixel_values)
+    proprio_embeds = encode_proprio(params, proprios).to(dtype)
+    kv_cache = joint_lib.joint_prefill(
+        params["joint"],
+        cfg.joint,
+        {"vlm": inputs_embeds, "proprio": proprio_embeds},
+        {"vlm": pos["vlm"], "proprio": pos["proprio"]},
+        prefix_mask,
+    )
+
+    if action0 is None:
+        action0 = torch.randn(
+            (b, cfg.horizon_steps, cfg.action_dim),
+            generator=generator, device=device, dtype=dtype,
+        )
+    action = action0.to(device=device, dtype=dtype)
+    n_steps = max(1, round(cfg.num_inference_steps * (t_end - t_start)))
+    delta_t = (t_end - t_start) / n_steps
+
+    def vel_at(action, t):
+        t_emb = time_embedding(cfg, t, dtype)
+        action_embeds = encode_action(params, cfg, action, t_emb)
+        hidden = joint_lib.joint_action_step(
+            params["joint"], cfg.joint, action_embeds, kv_cache, pos["action"], action_mask
+        )
+        return decode_action(params, hidden)
+
+    t = torch.full((b,), t_start, dtype=dtype, device=device)
+    for _ in range(n_steps):
+        if cfg.flow_integrator == "midpoint":
+            half = action + 0.5 * delta_t * vel_at(action, t)
+            vel = vel_at(half, t + 0.5 * delta_t)
+        else:
+            vel = vel_at(action, t)
+        action = action + delta_t * vel
+        t = t + delta_t
+    if t_end >= 1.0 and cfg.final_action_clip_value is not None:
+        c = cfg.final_action_clip_value
+        action = action.clamp(-c, c)
+    return action

@@ -1,0 +1,85 @@
+"""SigLIP vision tower + multimodal projector (counterpart of the JAX
+package's ``models/siglip.py``, unfused float params).
+
+Patch embedding is a reshape + matmul on NHWC pixels (stride == kernel, so
+the conv is a per-patch dense layer); pre-LN blocks with plain softmax MHA,
+tanh-GELU MLP and a post-layernorm. The stacked ``[L, ...]`` layer params
+are walked by a Python loop.
+
+Param tree (L = num layers):
+  embeddings: patch: {kernel [P*P*C, D], bias [D]}, position: [N, D]
+  layers:     ln1/ln2: {scale [L,D], bias [L,D]}
+              attn:    q/k/v/o: {kernel [L,D,D], bias [L,D]}
+              mlp:     fc1 {kernel [L,D,I], bias [L,I]}, fc2 {kernel [L,I,D], bias [L,D]}
+  post_layernorm: {scale [D], bias [D]}
+  projector:  {kernel [D, proj], bias [proj]}
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from open_pi_zero_torch.config import SiglipConfig
+from open_pi_zero_torch.models.tree import layer_slice
+from open_pi_zero_torch.ops.attention import mha_attention
+from open_pi_zero_torch.ops.linear import linear, lora_delta
+from open_pi_zero_torch.ops.norms import layer_norm
+
+
+def patchify(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B, N, patch*patch*C] with per-patch (h, w, c) order."""
+    b, h, w, c = pixel_values.shape
+    gh, gw = h // patch, w // patch
+    x = pixel_values.reshape(b, gh, patch, gw, patch, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)  # [B, gh, gw, ph, pw, C]
+    return x.reshape(b, gh * gw, patch * patch * c)
+
+
+def _proj(group: dict, name: str, x: torch.Tensor, scaling: float) -> torch.Tensor:
+    """LoRA-aware biased projection."""
+    d = group[name]
+    out = linear(x, d["kernel"], d["bias"])
+    lora = group.get(f"{name}_lora")
+    if lora is not None:
+        out = (out.to(torch.float32) + lora_delta(x, lora, scaling)).to(x.dtype)
+    return out
+
+
+def _encoder_layer(x: torch.Tensor, lp: dict, cfg: SiglipConfig) -> torch.Tensor:
+    b, n, d = x.shape
+    s = cfg.lora_scaling
+    eps = cfg.layer_norm_eps
+    h = layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], eps)
+    shape = (b, n, cfg.num_attention_heads, cfg.head_dim)
+    q = _proj(lp["attn"], "q", h, s).reshape(shape)
+    k = _proj(lp["attn"], "k", h, s).reshape(shape)
+    v = _proj(lp["attn"], "v", h, s).reshape(shape)
+    attn = mha_attention(q, k, v).reshape(b, n, d)
+    x = x + _proj(lp["attn"], "o", attn, s)
+
+    h = layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"], eps)
+    h = F.gelu(_proj(lp["mlp"], "fc1", h, s), approximate="tanh")
+    return x + _proj(lp["mlp"], "fc2", h, s)
+
+
+def forward(params: dict, cfg: SiglipConfig, pixel_values: torch.Tensor) -> torch.Tensor:
+    """pixel_values: [B, H, W, C] normalized floats -> [B, N, D] features."""
+    emb = params["embeddings"]
+    x = linear(
+        patchify(pixel_values, cfg.patch_size), emb["patch"]["kernel"], emb["patch"]["bias"]
+    )
+    x = x + emb["position"].to(x.dtype)
+    for i in range(cfg.num_hidden_layers):
+        x = _encoder_layer(x, layer_slice(params["layers"], i), cfg)
+    post = params["post_layernorm"]
+    return layer_norm(x, post["scale"], post["bias"], cfg.layer_norm_eps)
+
+
+def project(projector_params: dict, features: torch.Tensor, scaling: float = 1.0) -> torch.Tensor:
+    """Multimodal projector: [B, N, D] -> [B, N, projection_dim]."""
+    out = linear(features, projector_params["kernel"], projector_params["bias"])
+    lora = projector_params.get("kernel_lora")
+    if lora is not None:
+        out = (out.to(torch.float32) + lora_delta(features, lora, scaling)).to(features.dtype)
+    return out

@@ -1,0 +1,129 @@
+"""Wrapper of the Hopper MoT-attention kernel (``csrc/mot_attention.cu``),
+the counterpart of ``mot_attention_fused`` in the JAX package's
+``ops/pallas_attention.py`` (forward only).
+
+``ops/attention.mot_attention`` is the one dispatcher: it sends a CPU
+tensor to the plain version and a CUDA tensor here. The wrapper checks what
+the kernel takes, allocates the output, launches on the current stream and
+raises if the launch was refused. It never falls back: an input the kernel
+does not take (a CPU tensor included) raises.
+
+``launches`` counts the kernel's launches, so that a run can show that its
+main path went through the kernel. Inputs that require grad are refused:
+the autograd wrapper (whose backward recomputes through the plain
+version, like the JAX package's custom VJP) comes with training.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from open_pi_zero_torch.ops import _build
+
+SOURCE = "mot_attention"
+HEAD_DIMS = (16, 32, 64, 128, 256)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_SMEM_BYTES = 232448  # dynamic shared memory one block may use on Hopper (kMaxSmem)
+
+launches = 0
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load(SOURCE)
+        lib.opz_mot_attention_fwd.argtypes = [
+            ctypes.c_int,
+            *[ctypes.c_void_p] * 5,  # q, k, v, mask, out
+            *[ctypes.c_int] * 6,  # batch, lq, lkv, hq, hkv, head_dim
+            ctypes.c_longlong, ctypes.c_longlong,  # mask batch / row strides
+            ctypes.c_float, ctypes.c_float,  # scale, softcap
+            ctypes.c_void_p,  # stream
+        ]
+        lib.opz_mot_attention_fwd.restype = ctypes.c_int
+        lib.opz_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.opz_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def max_lkv(head_dim: int) -> int:
+    """Longest K/V sequence the kernel's shared memory holds (2336 at D=256).
+    Mirrors ``smem_bytes`` in the source: 16 fp32 query rows, a 64-row fp32
+    K/V tile of stride D + 4, and 16 rows of fp32 scores over round4(Lkv)
+    columns."""
+    fixed = 4 * (16 * head_dim + 64 * (head_dim + 4))
+    return (MAX_SMEM_BYTES - fixed) // (4 * 16) // 4 * 4
+
+
+def _check(q, k, v, mask) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"the kernel takes CUDA tensors, got {q.device}")
+    for name, x in (("k", k), ("v", v), ("mask", mask)):
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(
+            f"q/k/v must share a dtype in {list(DTYPE_CODES)}, "
+            f"got {q.dtype}/{k.dtype}/{v.dtype}"
+        )
+    if mask.dtype != torch.float32:
+        raise ValueError(f"mask must be float32, got {mask.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    b, lq, hq, d = q.shape
+    _, lkv, hkv, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or hkv == 0 or hq % hkv:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if lq == 0 or lkv == 0 or b == 0:
+        raise ValueError("empty attention")
+    if lkv > max_lkv(d):
+        raise ValueError(f"Lkv={lkv} exceeds the kernel's limit {max_lkv(d)} at D={d}")
+    if tuple(mask.shape) != (b, 1, lq, lkv) or mask.stride(-1) != 1:
+        raise ValueError(
+            f"mask must be [B,1,Lq,Lkv]={(b, 1, lq, lkv)} with unit last stride, "
+            f"got {tuple(mask.shape)} strides {mask.stride()}"
+        )
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        raise ValueError("the kernel has no backward yet: inputs must not require grad")
+
+
+def mot_attention_fused(
+    q: torch.Tensor,  # [B, Lq, Hq, D]
+    k: torch.Tensor,  # [B, Lkv, Hkv, D]
+    v: torch.Tensor,  # [B, Lkv, Hkv, D]
+    mask: torch.Tensor,  # [B, 1, Lq, Lkv] additive fp32
+    softcap: Optional[float] = 50.0,
+) -> torch.Tensor:
+    """Softcapped masked GQA attention through the Hopper kernel. Same
+    contract as ``mot_attention_ref``; returns [B, Lq, Hq, D]."""
+    global launches
+    _check(q, k, v, mask)
+    b, lq, hq, d = q.shape
+    _, lkv, hkv, _ = k.shape
+    out = torch.empty_like(q)
+    lib = _library()
+    err = lib.opz_mot_attention_fwd(
+        DTYPE_CODES[q.dtype],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        b, lq, lkv, hq, hkv, d,
+        mask.stride(0), mask.stride(2),
+        1.0 / (d**0.5), 0.0 if softcap is None else float(softcap),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"mot_attention kernel launch failed: {lib.opz_cuda_error_string(err).decode()}"
+        )
+    launches += 1
+    return out

@@ -1,0 +1,115 @@
+"""The port's boundaries: it imports neither jax, yaml nor the JAX package;
+its source names none of them; and its serving loop answers concurrent
+requests with a tiny model on the CPU."""
+
+import json
+import os
+import re
+import subprocess
+import sys
+import threading
+from pathlib import Path
+
+import numpy as np
+
+from open_pi_zero_torch import config as t_config
+from open_pi_zero_torch import serving
+from open_pi_zero_torch.models import pizero as t_pizero
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "open_pi_zero_torch"
+
+
+def _port_sources():
+    files = sorted(p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+def test_import_leaves_jax_and_yaml_out():
+    # a subprocess: this test process has jax loaded by tests/conftest.py
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in PORT.rglob("*.py")
+        if p.name != "__init__.py"
+    )
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'yaml', 'open_pi_zero_tpu'))))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_sources_import_no_jax_package():
+    # the JAX package's name may appear in notes that say which TPU kernel
+    # a kernel replaces; what is refused is any import of it, jax or yaml
+    bad = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|yaml|open_pi_zero_tpu)\b"
+        r"|import_module\(\s*['\"](jax|jaxlib|yaml|open_pi_zero_tpu)\b",
+        re.M,
+    )
+    hits = [
+        f"{p.relative_to(REPO)}: {m.group(0).strip()}"
+        for p in _port_sources()
+        for m in bad.finditer(p.read_text())
+    ]
+    assert hits == []
+
+
+def _tiny_request(cfg, rng):
+    n_img = cfg.siglip.num_image_tokens
+    ids = np.zeros(cfg.max_image_text_tokens, np.int32)
+    ids[:n_img] = cfg.image_token_index
+    ids[n_img : n_img + 3] = [2, 10, 11]
+    size = cfg.siglip.image_size
+    return {
+        "input_ids": ids,
+        "pixel_values": rng.normal(size=(size, size, 3)).astype(np.float32),
+        "attention_mask": (ids != cfg.pad_token_id).astype(np.int32),
+        "proprios": rng.normal(size=(cfg.cond_steps, cfg.proprio_dim)).astype(np.float32),
+    }
+
+
+def test_batching_policy_serves_concurrent_requests_on_cpu():
+    cfg = t_config.tiny_pizero_config()
+    params = t_pizero.init_params(cfg, seed=0, device="cpu")
+    policy = serving.BatchingPolicy(
+        serving.make_infer_fn(params, cfg, device="cpu"), batch_sizes=(1, 2, 4)
+    ).start()
+    rng = np.random.default_rng(0)
+    requests = [_tiny_request(cfg, rng) for _ in range(3)]
+    results = [None] * 3
+    try:
+        threads = [
+            threading.Thread(target=lambda i=i: results.__setitem__(i, policy.submit(requests[i])))
+            for i in range(3)
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+
+        server = serving.ActionServer(("127.0.0.1", 0), policy)
+        srv = threading.Thread(target=server.serve_forever, daemon=True)
+        srv.start()
+        try:
+            port = server.server_address[1]
+            over_tcp = serving.request_action("127.0.0.1", port, requests[0], timeout=60)
+        finally:
+            server.shutdown()
+            server.server_close()
+            srv.join(timeout=10)
+    finally:
+        policy.stop()
+    for r in results + [over_tcp]:
+        assert r.shape == (cfg.horizon_steps, cfg.action_dim)
+        assert np.isfinite(r).all() and np.abs(r).max() <= cfg.final_action_clip_value
+    assert policy.n_requests == 4

@@ -1,0 +1,99 @@
+"""The Hopper MoT-attention kernel against its plain version, on the card.
+
+Marked ``cuda``: each test asks the ``cuda`` fixture for the device and
+skips when there is no card (the CPU run never reaches the kernel; the
+CPU-side dispatch is tested in tests/test_torch_ops.py). Run on a machine
+with a card: ``python -m pytest tests/test_torch_kernel.py -q``.
+
+Tolerances: fp32 1e-4 (same arithmetic, another summation order); bf16
+2e-2, as the JAX package's Pallas kernel tests (each side rounds p and the
+output to bf16 at its own point)."""
+
+import numpy as np
+import pytest
+import torch
+
+from open_pi_zero_torch.ops import fused_attention as fa
+from open_pi_zero_torch.ops.attention import mot_attention_ref
+from open_pi_zero_torch.ops.masks import MASK_NEG
+
+pytestmark = pytest.mark.cuda
+
+GEOMETRIES = [
+    # (B, Lq, Lkv, Hq, Hkv, D)
+    (1, 277, 277, 8, 1, 256),  # prefill
+    (1, 4, 281, 8, 1, 256),  # Euler step
+    (1, 1, 277, 8, 1, 256),  # text decode
+    (2, 281, 281, 8, 1, 32),
+    (1, 1, 300, 8, 2, 32),
+    (2, 7, 9, 4, 4, 16),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _inputs(device, b, lq, lkv, hq, hkv, d, dtype, seed=0, mask_p=0.3):
+    rng = np.random.default_rng(seed)
+    q, k, v = (
+        torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device, dtype)
+        for s in ((b, lq, hq, d), (b, lkv, hkv, d), (b, lkv, hkv, d))
+    )
+    mask = np.where(rng.random((b, 1, lq, lkv)) > mask_p, 0.0, MASK_NEG).astype(np.float32)
+    mask[..., 0] = 0.0
+    return q, k, v, torch.from_numpy(mask).to(device)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("geom", GEOMETRIES)
+def test_kernel_matches_plain(cuda, geom, dtype, tol):
+    q, k, v, mask = _inputs(cuda, *geom, dtype)
+    before = fa.launches
+    got = fa.mot_attention_fused(q, k, v, mask, 50.0)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, mot_attention_ref(q, k, v, mask, 50.0), rtol=tol, atol=tol)
+
+
+def test_kernel_no_softcap_and_fully_masked_rows(cuda):
+    q, k, v, mask = _inputs(cuda, 1, 4, 281, 8, 1, 256, torch.float32)
+    torch.testing.assert_close(
+        fa.mot_attention_fused(q, k, v, mask, None),
+        mot_attention_ref(q, k, v, mask, None), rtol=1e-4, atol=1e-4,
+    )
+    full = torch.full_like(mask, MASK_NEG)
+    out = fa.mot_attention_fused(q, k, v, full, 50.0)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, v.mean(dim=1, keepdim=True).expand_as(out), rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_takes_strided_mask_views(cuda):
+    q, k, v, mask = _inputs(cuda, 2, 4, 281, 8, 1, 256, torch.bfloat16)
+    big = torch.zeros(2, 1, 290, 290, device=cuda)
+    big[..., -4:, :281] = mask
+    view = big[..., -4:, :281]
+    torch.testing.assert_close(
+        fa.mot_attention_fused(q, k, v, view), mot_attention_ref(q, k, v, mask), rtol=2e-2, atol=2e-2
+    )
+
+
+def test_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v, mask = _inputs(cuda, 1, 4, 33, 8, 1, 256, torch.float32)
+    with pytest.raises(ValueError, match="grad"):
+        fa.mot_attention_fused(q.requires_grad_(), k, v, mask)
+    q = q.detach()
+    with pytest.raises(ValueError, match="float32"):
+        fa.mot_attention_fused(q, k, v, mask.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.mot_attention_fused(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, mask)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.mot_attention_fused(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                               v[..., :48].contiguous(), mask)
+    long_kv = torch.zeros(1, fa.max_lkv(256) + 4, 1, 256, device=cuda)
+    with pytest.raises(ValueError, match="limit"):
+        fa.mot_attention_fused(q, long_kv, long_kv, torch.zeros(1, 1, 4, long_kv.shape[1], device=cuda))
