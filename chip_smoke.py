@@ -28,13 +28,35 @@ Phases, each of which raises on failure:
                inputs' sizes give `bound_ms`
   5. serve   — the port's BatchingPolicy over the full-width model: 4
                requests from 4 threads and 1 through ActionServer on
-               localhost
+               localhost; then the bf16 params are freed
+  6. train-kernel — the kernel's autograd Function (K1-vjp) against plain
+               autograd through the plain version, at the training shape
+               (B=16, Lq=Lkv=281, the training mask) and with a fully
+               masked row: the output and dq, dk, dv of a random
+               cotangent, fp32 (1e-4) and bf16 (2e-2)
+  7. train-parity — bridge widths at depth 2, fp32, remat on, B=2,
+               grad_accum=2, injected flow times and noise, Adam eps 1e-3:
+               one update on the card (kernel) against the same update on
+               the CPU (plain version): loss and grad norm (relative 1e-3)
+               and the updated params (max|diff| <= 1e-6)
+  8. train-main — the training path: full-width PiZeroConfig() in fp32,
+               remat on, the bridge TrainingConfig, B=16 per microbatch,
+               grad_accum=2, 3 updates on synthetic batches from a seed;
+               exactly 3 * 2 * 2L kernel launches; finite losses; every
+               trained leaf changed, the frozen ones bitwise unchanged;
+               update time and peak memory; one more update under
+               torch.profiler. The kernel's inputs of one update are kept
+               and replayed as the training path runs them (two forwards,
+               the second with its VJP) through the Function, the plain
+               version and one library attention call: `ms`, `plain_ms`,
+               `library_ms` and `bound_ms` of the mot_attention_vjp entry
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Without a card, or outside a checkout, it exits non-zero before any result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -47,18 +69,22 @@ import torch
 from open_pi_zero_torch import config as cfg_lib
 from open_pi_zero_torch import serving
 from open_pi_zero_torch.models import pizero
-from open_pi_zero_torch.models.tree import tree_map
+from open_pi_zero_torch.models.tree import tree_leaves, tree_map
 from open_pi_zero_torch.ops import _build
 from open_pi_zero_torch.ops import fused_attention as fa
 from open_pi_zero_torch.ops.attention import mot_attention_ref
 from open_pi_zero_torch.ops.masks import MASK_NEG
+from open_pi_zero_torch.training import optimizer as opt_lib
+from open_pi_zero_torch.training import train_step
 
-# H100 SXM published peaks at the full 700 W limit: HBM bytes/s and dense
-# bf16 tensor-core FLOP/s
+# H100 SXM published peaks at the full 700 W limit: HBM bytes/s, dense
+# bf16 tensor-core FLOP/s and fp32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 REPLACES = "open_pi_zero_tpu/ops/pallas_attention.py:123"
+REPLACES_VJP = "open_pi_zero_tpu/ops/pallas_attention.py:165"
 KERNEL_SYMBOL = "mot_attention_fwd_kernel"  # the kernel's name in a profile
 
 
@@ -305,8 +331,10 @@ def check_serving(dev, cfg, params) -> int:
 
 def device_ms(prof, match=None) -> tuple:
     """(summed self device time in ms, number of calls) of the profiled
-    CUDA events whose name contains `match` (all of them when None)."""
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    CUDA events whose name contains `match` (all of them when None). User
+    annotations (such as the optimizer's step) span kernels counted on
+    their own and are left out."""
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and not e.is_user_annotation]
     events = [e for e in events if match is None or match in e.key]
     return sum(e.self_device_time_total for e in events) / 1e3, sum(e.count for e in events)
 
@@ -332,13 +360,20 @@ def profile_chunk(dev, cfg, params, expected: int) -> dict:
     ms, traced = device_ms(prof, KERNEL_SYMBOL)
     if launches != expected or traced != expected:
         raise AssertionError(f"profiled chunk: {launches} launches counted, {traced} traced; want {expected}")
+    busy = log_profile("profile", prof, wall)
+    return {"launches": launches, "ms": ms, "wall_ms": wall, "busy_ms": busy}
+
+
+def log_profile(label: str, prof, wall: float) -> float:
+    """Log the device-busy share of a profiled window and its top kernels
+    by device time; returns the busy ms."""
     busy, _ = device_ms(prof)
-    log(f"profile: wall {wall:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%)")
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    log(f"{label}: wall {wall:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%)")
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and not e.is_user_annotation]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in events[:15]:
-        log(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
-    return {"launches": launches, "ms": ms, "wall_ms": wall, "busy_ms": busy}
+        log(f"{label}:   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
+    return busy
 
 
 def record_main_path_calls(dev, cfg, params) -> list:
@@ -407,6 +442,331 @@ def replay(calls) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phases 6-8: training
+# --------------------------------------------------------------------------- #
+
+TRAIN_B = 16  # per microbatch: the bridge config's per-device batch
+GRAD_ACCUM = 2
+
+
+def training_attention_inputs(dev, dtype, fully_masked_row: bool = False):
+    """The training path's attention at full width: q [16, 281, 8, 256],
+    k/v [16, 281, 1, 256], the block-causal mask of rows with 257..272
+    valid image+text tokens, and a random cotangent."""
+    cfg = cfg_lib.PiZeroConfig()
+    am = torch.zeros(TRAIN_B, cfg.max_image_text_tokens, dtype=torch.int32, device=dev)
+    for i in range(TRAIN_B):
+        am[i, : 257 + i] = 1
+    mask, _, _, _ = pizero.prepare_action_inputs(cfg, am)
+    if fully_masked_row:
+        mask = mask.clone()
+        mask[0, 0, 3] = MASK_NEG
+    rng = np.random.default_rng(6)
+    q_shape, kv_shape = (TRAIN_B, cfg.total_tokens, 8, 256), (TRAIN_B, cfg.total_tokens, 1, 256)
+    q, k, v, g = (
+        torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev, dtype)
+        for s in (q_shape, kv_shape, kv_shape, q_shape)
+    )
+    return q, k, v, mask, g
+
+
+def out_and_grads(attention, q, k, v, mask, g, softcap=50.0) -> tuple:
+    """(out, dq, dk, dv) of ``attention`` for the cotangent ``g``."""
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = attention(q, k, v, mask, softcap)
+    return (out.detach(), *torch.autograd.grad(out, (q, k, v), g))
+
+
+def check_vjp(dev) -> dict:
+    """Phase 6: the kernel's autograd Function against plain autograd
+    through the plain version; max|diff| of the output and of each grad."""
+    errs = {}
+    for case in ("train", "fully_masked"):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, mask, g = training_attention_inputs(dev, dtype, case == "fully_masked")
+            got = out_and_grads(fa.mot_attention_fused, q, k, v, mask, g)
+            want = out_and_grads(mot_attention_ref, q, k, v, mask, g)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+                label = f"{case} {str(dtype)[6:]} {name}"
+                if not torch.isfinite(a).all():
+                    raise AssertionError(f"{label}: not finite")
+                torch.testing.assert_close(a, b, rtol=TOL[dtype], atol=TOL[dtype], msg=lambda m, n=label: f"{n}: {m}")
+                errs[label] = float((a.float() - b.float()).abs().max())
+    return errs
+
+
+def train_batch(cfg, b: int, rng, inject: bool = False) -> dict:
+    """GRAD_ACCUM microbatches of the example_batch pattern with random
+    actions, stacked on a leading axis; with ``inject``, fixed flow times
+    and noise as well."""
+    micro = [example_batch(cfg, b, rng) for _ in range(GRAD_ACCUM)]
+    batch = {k: np.stack([m[k] for m in micro]) for k in micro[0]}
+    shape = (GRAD_ACCUM, b, cfg.horizon_steps, cfg.action_dim)
+    batch["actions"] = rng.normal(size=shape).astype(np.float32)
+    if inject:
+        batch["t"] = rng.uniform(0.05, 0.95, size=(GRAD_ACCUM, b)).astype(np.float32)
+        batch["x0"] = rng.normal(size=shape).astype(np.float32)
+    return batch
+
+
+def on(device, batch: dict) -> dict:
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def with_remat(cfg):
+    return dataclasses.replace(cfg, joint=dataclasses.replace(cfg.joint, remat=True))
+
+
+def new_trainer(cfg, train_cfg, params, device):
+    """(state, step) over ``params``, the generator seeded on ``device``."""
+    optimizer = opt_lib.build_optimizer(train_cfg, params)
+    generator = torch.Generator(device).manual_seed(0)
+    state = train_step.init_train_state(params, optimizer, generator, train_cfg)
+    return state, train_step.make_train_step(cfg, train_cfg, optimizer, GRAD_ACCUM)
+
+
+def check_train_parity(dev) -> dict:
+    """Phase 7: one update at bridge widths, depth 2, fp32, on the card
+    (kernel) and on the CPU (plain version) from the same params, batch,
+    flow times and noise."""
+    cfg = with_remat(cfg_lib.bridge_width_dryrun_config())
+    # warmup 0: the first update takes the full lr, so that it shows. Adam
+    # eps 1e-3: at the config's 1e-8, a grad that is rounding noise on both
+    # sides (SigLIP's key bias, zero in exact arithmetic) steps by about
+    # +-lr whatever its size, so the two sides' params could differ by 2 lr
+    # with nothing wrong; at 1e-3 the update is linear in such grads
+    sched = cfg_lib.LRSchedulerConfig(warmup_steps=0)
+    train_cfg = cfg_lib.TrainingConfig(action_lr_scheduler=sched, vlm_lr_scheduler=sched, adam_eps=1e-3)
+    batch = train_batch(cfg, 2, np.random.default_rng(7), inject=True)
+    params_cpu = pizero.init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
+    params_dev = tree_map(lambda x: x.to(dev, copy=True), params_cpu)
+    metrics = {}
+    for name, params, device in (("card", params_dev, dev), ("cpu", params_cpu, "cpu")):
+        state, step = new_trainer(cfg, train_cfg, params, device)
+        before = fa.launches
+        metrics[name] = {k: float(v) for k, v in step(state, on(device, batch)).items()}
+        if name == "card":
+            launches = fa.launches - before
+    expected = GRAD_ACCUM * 2 * cfg.joint.num_hidden_layers
+    if launches != expected:
+        raise AssertionError(f"card update launched the kernel {launches} times, want {expected}")
+    rel = {k: abs(metrics["card"][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k]) for k in ("loss", "grad_norm")}
+    param_err = max(
+        float((a.detach().cpu() - b.detach()).abs().max())
+        for a, b in zip(tree_leaves(params_dev), tree_leaves(params_cpu))
+    )
+    # fp32 on both sides (TF32 off): the two differ in summation order. The
+    # loss and the grad norm agreed to 1.0e-7 and 3.3e-5 relative on an
+    # H100; 1e-3 catches a wrong mask, cast or layout, as in phase 3. The
+    # first Adam update lr * g / (|g| + eps) moves by at most
+    # lr * |dg| / (4 eps) when g moves by dg, which is below 1e-9 here, so
+    # the params differ by their own rounding (an ulp of 1.0 is 1.2e-7);
+    # 1e-6 = lr / 50 catches a wrong group, lr, clip or surgery, each of
+    # which moves a param by a good part of lr = 5e-5
+    if not (max(rel.values()) <= 1e-3 and param_err <= 1e-6):
+        raise AssertionError(f"card vs CPU: relative {rel}, params max|diff| {param_err}")
+    return {"launches": launches, "metrics": metrics, "rel_diff": rel, "param_max_abs_diff": param_err}
+
+
+def leaves_with_paths(tree, prefix: str = "") -> list:
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in leaves_with_paths(v, f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def fingerprint(x: torch.Tensor) -> int:
+    """The int64 sum of an fp32 tensor's bit patterns: it differs once the
+    tensor changed, unless the changes cancel exactly."""
+    return int(x.detach().view(torch.int32).sum(dtype=torch.int64))
+
+
+def frozen_parts(params: dict) -> dict:
+    """Copies of what an update must leave bitwise unchanged: embed_tokens
+    and the unused last-layer slices of the vlm layers."""
+    vlm = params["joint"]["mixtures"]["vlm"]["layers"]
+    parts = {"embed_tokens": params["embed_tokens"]}
+    for path in opt_lib.UNUSED_LAST_LAYER_PATHS:
+        leaf = vlm
+        for key in path:
+            leaf = leaf[key]
+        parts["vlm/" + "/".join(path) + "[-1]"] = leaf[-1]
+    return {k: v.detach().clone() for k, v in parts.items()}
+
+
+def check_train_main(dev) -> tuple:
+    """Phase 8: 3 full-width fp32 updates on the card. Returns (result,
+    cfg, params, state, step, a batch)."""
+    cfg = with_remat(cfg_lib.PiZeroConfig())
+    train_cfg = cfg_lib.TrainingConfig()  # the bridge config's values
+    t0 = time.time()
+    params = pizero.init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    state, step = new_trainer(cfg, train_cfg, params, dev)
+    rng = np.random.default_rng(8)
+    batches = [on(dev, train_batch(cfg, TRAIN_B, rng)) for _ in range(3)]
+    trained = [(p, x) for p, x in leaves_with_paths(params) if x.requires_grad]
+    prints = {p: fingerprint(x) for p, x in trained}
+    frozen = frozen_parts(params)
+    torch.cuda.synchronize()
+    log(f"train-main: full-width fp32 params, {len(trained)} trained leaves, "
+        f"{opt_lib.trainable_param_count(params)} (1e9), built in {time.time() - t0:.1f} s")
+
+    L = cfg.joint.num_hidden_layers
+    expected = 3 * GRAD_ACCUM * 2 * L
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.launches = 0
+    losses, norms, times = [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    launches = fa.launches
+    if launches != expected:
+        raise AssertionError(f"{launches} kernel launches over 3 updates, want {expected}")
+    if state.step != 3 or not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"step {state.step}, losses {losses}, grad norms {norms}")
+    # SigLIP's key bias adds the same q.b to every score of a query row,
+    # which the softmax cancels: its gradient is zero in exact arithmetic,
+    # rounding noise here, and Adam's steps on that noise are below its ulp
+    unchanged = [p for p, x in trained if fingerprint(x) == prints[p] and p != "/siglip/layers/attn/k/bias"]
+    if unchanged:
+        raise AssertionError(f"trained leaves unchanged after 3 updates: {unchanged}")
+    moved = [k for k, v in frozen_parts(params).items() if not torch.equal(v, frozen[k])]
+    if moved:
+        raise AssertionError(f"frozen parts changed: {moved}")
+    result = {
+        "launches": launches,
+        "losses": losses,
+        "grad_norms": norms,
+        "update_ms": times,
+        "update_ms_median_after_first": statistics.median(times[1:]),
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+    }
+    return result, cfg, params, state, step, batches[0]
+
+
+def profile_update(state, step, batch, expected: int) -> dict:
+    """One more update under torch.profiler, the counts set to 0 just
+    before it: the kernel's launches and device time, the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fa.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    launches = fa.launches
+    ms, traced = device_ms(prof, KERNEL_SYMBOL)
+    if launches != expected or traced != expected:
+        raise AssertionError(f"profiled update: {launches} launches counted, {traced} traced; want {expected}")
+    busy = log_profile("train-profile", prof, wall)
+    return {"launches": launches, "kernel_ms": ms, "wall_ms": wall, "busy_ms": busy}
+
+
+def record_training_calls(dev, cfg, params, batch) -> list:
+    """The kernel's inputs, in order, over the forwards of one update's
+    GRAD_ACCUM microbatches (a rematerialized layer runs its forward again
+    on the same inputs in the backward pass)."""
+    calls = []
+    launch = fa.mot_attention_fused
+
+    def recording(q, k, v, mask, softcap=50.0):
+        calls.append((*(x.detach().clone() for x in (q, k, v, mask)), softcap))
+        return launch(q, k, v, mask, softcap)
+
+    fa.mot_attention_fused = recording  # ops.attention looks it up at each call
+    try:
+        with torch.no_grad():
+            for i in range(GRAD_ACCUM):
+                train_step.batch_loss(params, cfg, torch.Generator(dev).manual_seed(1), {k: v[i] for k, v in batch.items()})
+    finally:
+        fa.mot_attention_fused = launch
+    torch.cuda.synchronize()
+    return calls
+
+
+def vjp_bound_parts(q, k) -> tuple:
+    """(ms to move the bytes, ms to do the operations) of the training
+    path's attention for one (layer, microbatch): two forwards (the second
+    a remat recompute) and one VJP. Bytes: each forward reads q, k, v and
+    the fp32 mask and writes the output; the VJP reads q, k, v, the mask
+    and the cotangent and writes dq, dk, dv. Operations: 4N per forward
+    (q k^T and p v) and 8N for the VJP (dv, dp, dq, dk), N = B Hq Lq Lkv D,
+    at the peak rate of the inputs' type."""
+    (b, lq, hq, d), (_, lkv, hkv, _) = q.shape, k.shape
+    size = q.element_size()
+    q_bytes, kv_bytes, mask_bytes = b * lq * hq * d * size, 2 * b * lkv * hkv * d * size, 4 * b * lq * lkv
+    forward = 2 * q_bytes + kv_bytes + mask_bytes
+    vjp = 3 * q_bytes + 2 * kv_bytes + mask_bytes
+    peak = FP32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
+    ops = 16 * b * hq * lq * lkv * d
+    return (2 * forward + vjp) / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+
+
+def replay_vjp(calls) -> dict:
+    """One update's kernel calls replayed as the training path runs them:
+    for each, a forward, then a forward and its VJP for a random cotangent.
+    The Function is held against plain autograd on each; then the summed
+    device time of that work through the Function, through the plain
+    version and through one library attention call (without the softcap,
+    K/V expanded to the query heads outside the timed calls), and the
+    bound of the calls' sizes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(calls[0][0].device).manual_seed(9)
+    cots = [torch.randn(c[0].shape, generator=gen, device=c[0].device, dtype=c[0].dtype) for c in calls]
+    err = 0.0
+    for (q, k, v, mask, softcap), g in zip(calls, cots):
+        got = out_and_grads(fa.mot_attention_fused, q, k, v, mask, g, softcap)
+        want = out_and_grads(mot_attention_ref, q, k, v, mask, g, softcap)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=TOL[q.dtype], atol=TOL[q.dtype])
+            err = max(err, float((a.float() - b.float()).abs().max()))
+
+    def route(attention, inputs):
+        def run():
+            for (q, k, v, mask, softcap), g in inputs:
+                attention(q, k, v, mask, softcap)  # the forward whose activations remat drops
+                out_and_grads(attention, q, k, v, mask, g, softcap)
+        return run
+
+    def sdpa(q, k, v, mask, _softcap):
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    lib_inputs = []
+    for (q, k, v, mask, softcap), g in zip(calls, cots):
+        group = q.shape[2] // k.shape[2]
+        lib_inputs.append((
+            (q.transpose(1, 2), k.repeat_interleave(group, dim=2).transpose(1, 2),
+             v.repeat_interleave(group, dim=2).transpose(1, 2), mask, softcap),
+            g.transpose(1, 2),
+        ))
+    timed = {
+        "kernel": route(fa.mot_attention_fused, list(zip(calls, cots))),
+        "plain": route(mot_attention_ref, list(zip(calls, cots))),
+        "library": route(sdpa, lib_inputs),
+    }
+    out = {"max_abs_err": err, "calls": len(calls)}
+    for name, fn in timed.items():
+        fn()  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out[f"{name}_ms"] = device_ms(prof)[0]
+    t_bytes = t_ops = 0.0
+    for q, k, *_ in calls:
+        tb, to = vjp_bound_parts(q, k)
+        t_bytes, t_ops = t_bytes + tb, t_ops + to
+    out["bound_ms"], out["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the card only")
@@ -452,6 +812,35 @@ def main() -> None:
     t0 = time.time()
     served = check_serving(dev, cfg, params)
     log(f"serve: {served} requests answered in {time.time() - t0:.1f} s")
+    del params, calls
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    vjp_errs = check_vjp(dev)
+    log("train-kernel, max|diff| vs plain autograd: " + json.dumps(vjp_errs))
+    log(f"phase train-kernel ok in {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    parity = check_train_parity(dev)
+    log(f"train-parity: bridge widths depth 2 fp32, one update card vs CPU: {json.dumps(parity)}, "
+        f"{time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    trained, cfg, params, state, step, batch = check_train_main(dev)
+    log("train-main: " + json.dumps(trained))
+    log(f"train-main: update {trained['update_ms_median_after_first']:.1f} ms (median of updates 2-3), "
+        f"peak memory {trained['peak_mem_gb']:.3f} GB, B={TRAIN_B} x {GRAD_ACCUM}, on {info}")
+    per_update = GRAD_ACCUM * 2 * cfg.joint.num_hidden_layers
+    update_prof = profile_update(state, step, batch, per_update)
+    log(f"train-main: kernel in the profiled update {update_prof['kernel_ms']:.3f} ms over "
+        f"{update_prof['launches']} launches, {100 * update_prof['kernel_ms'] / update_prof['wall_ms']:.2f}% "
+        f"of the update's {update_prof['wall_ms']:.1f} ms")
+    train_calls = record_training_calls(dev, cfg, params, batch)
+    del params, state, step, batch
+    torch.cuda.empty_cache()
+    replayed_vjp = replay_vjp(train_calls)
+    log("train-main: replayed calls of one update: " + json.dumps(replayed_vjp))
+    log(f"phase train-main ok in {time.time() - t0:.1f} s")
 
     entry = {
         "name": "mot_attention_fwd",
@@ -467,8 +856,23 @@ def main() -> None:
         "bound_by": replayed["bound_by"],
         "library_ms": replayed["library_ms"],
     }
+    vjp_entry = {
+        "name": "mot_attention_vjp",
+        "route": "cuda",
+        "source": "open_pi_zero_torch/csrc/mot_attention.cu",
+        "replaces": REPLACES_VJP,
+        "launches": update_prof["launches"],
+        "max_abs_err": max(replayed_vjp["max_abs_err"], *vjp_errs.values()),
+        # one update: the two forwards and the VJP of every (layer,
+        # microbatch), device time summed over the replayed calls
+        "ms": replayed_vjp["kernel_ms"],
+        "plain_ms": replayed_vjp["plain_ms"],
+        "bound_ms": replayed_vjp["bound_ms"],
+        "bound_by": replayed_vjp["bound_by"],
+        "library_ms": replayed_vjp["library_ms"],
+    }
     log(f"total {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, vjp_entry]}))
     print(json.dumps({
         "ok": True,
         "device": {

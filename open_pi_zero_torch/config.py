@@ -1,10 +1,11 @@
-"""Typed model configs: the dataclasses that describe the π0 geometry.
+"""Typed configs: the dataclasses that describe the π0 geometry and its
+training.
 
 A copy of the typed part of the JAX package's ``config.py`` (the YAML
-loader and the training configs stay there: the port imports no ``yaml``
-and nothing of the JAX package). Field names, defaults and the
-``tiny_pizero_config`` / ``bridge_width_dryrun_config`` constructors are
-the same, so a config built on one side describes the same model on the
+loader stays there: the port imports no ``yaml`` and nothing of the JAX
+package). Field names, defaults and the ``tiny_pizero_config`` /
+``bridge_width_dryrun_config`` constructors are the same, so a config
+built on one side describes the same model and the same training on the
 other.
 """
 
@@ -95,7 +96,7 @@ class JointConfig:
     # pizero.py:262-264 tie_action_proprio_weights; structural here)
     tie_proprio: bool = True
     # rematerialize each trunk layer in the backward pass (training-memory
-    # vs FLOPs trade); read by training, which the port does not have yet
+    # vs FLOPs trade); read by joint_forward
     remat: bool = False
 
     def mixture(self, name: str) -> MixtureConfig:
@@ -261,3 +262,48 @@ def bridge_width_dryrun_config() -> PiZeroConfig:
         siglip=siglip,
         joint=joint,
     )
+
+
+@dataclass(frozen=True)
+class LRSchedulerConfig:
+    """Cosine-annealing-with-warmup-restarts knobs (reference
+    src/utils/optim.py:31; config/train/bridge.yaml `*_lr_scheduler`)."""
+
+    first_cycle_steps: int = 10_000_000
+    min_lr: float = 1e-8
+    warmup_steps: int = 200
+    cycle_mult: float = 1.0
+    gamma: float = 1.0
+
+
+@dataclass(frozen=True)
+class TrainingConfig:
+    """Optimization hyperparameters (reference config/train/bridge.yaml:68-86
+    and src/agent/train.py:169-210). The defaults are the bridge config's."""
+
+    global_batch_size: int = 1024
+    per_device_batch_size: int = 16
+    action_lr: float = 5e-5
+    vlm_lr: float = 5e-5
+    action_weight_decay: float = 0.0
+    vlm_weight_decay: float = 0.0
+    max_grad_norm: float = 1.0
+    train_vlm: bool = True
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    action_lr_scheduler: LRSchedulerConfig = field(default_factory=LRSchedulerConfig)
+    vlm_lr_scheduler: LRSchedulerConfig = field(default_factory=LRSchedulerConfig)
+    # model averaging (reference src/agent/model_averaging.py)
+    use_ema: bool = False
+    ema_decay: float = 0.99
+    ema_start: int = 0
+    ema_freq: int = 1
+    use_swa: bool = False
+    swa_start: int = 0
+    swa_freq: int = 1
+    # 8-bit optimizer states (reference bnb AdamW8bit); not ported yet
+    quantize_optimizer_states: bool = False
+    # LoRA fine-tune of the VLM side (reference freeze_non_lora_weights_in_vlm);
+    # not ported yet
+    lora: bool = False

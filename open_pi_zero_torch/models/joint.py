@@ -1,15 +1,20 @@
 """Joint mixture-of-transformers trunk (counterpart of the JAX package's
-``models/joint.py``: the two cached inference modes).
+``models/joint.py``: the training forward and the two cached inference
+modes).
 
 Each expert ("mixture") has its own weights; experts interact only through
 one global softcapped attention per layer over the concatenated sequence,
 under a block-causal mask.
 
+  joint_forward       training: any set of active experts, full-sequence
+                      attention, no cache; each layer rematerialized in the
+                      backward pass when ``JointConfig.remat``
   joint_prefill       run vlm+proprio once, emit K/V for all layers as a
                       stacked [L, B, S, Hkv, Dh] cache
   joint_action_step   action expert only; K/V = cached prefix + fresh action K/V
 
-Both walk the stacked layer params with a Python loop and run every layer
+All three split the stacked layer params into per-layer views once per call
+(``tree.layer_split``), walk them with a Python loop and run every layer
 uniformly, the last included, as the JAX package does (its final-layer
 outputs that nothing consumes are computed and dropped). The proprio
 expert shares the action expert's weights when ``JointConfig.tie_proprio``.
@@ -20,10 +25,11 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from open_pi_zero_torch.config import JointConfig
 from open_pi_zero_torch.models import mixture as mx
-from open_pi_zero_torch.models.tree import layer_slice
+from open_pi_zero_torch.models.tree import layer_split
 from open_pi_zero_torch.ops.attention import mot_attention
 from open_pi_zero_torch.ops.rope import rope_cos_sin
 
@@ -97,6 +103,59 @@ def _layer(
     return out, (k_new, v_new)
 
 
+def _layer_params(params: dict, cfg: JointConfig, names) -> list:
+    """Per-layer param views ``[{name: layer tree}] * L`` of the active
+    mixtures. Each stacked tree is split once, so a tied proprio expert
+    shares the action expert's views and its grads meet theirs before the
+    one ``stack`` of the backward pass."""
+    keys = {param_key(cfg, n) for n in names}
+    split = {
+        key: layer_split(params["mixtures"][key]["layers"], cfg.num_hidden_layers)
+        for key in keys
+    }
+    return [
+        {n: split[param_key(cfg, n)][i] for n in names} for i in range(cfg.num_hidden_layers)
+    ]
+
+
+def joint_forward(
+    params: dict,
+    cfg: JointConfig,
+    embeds: Dict[str, Tensor],  # in canonical order, e.g. vlm, proprio, action
+    position_ids: Dict[str, Tensor],
+    mask: Tensor,  # [B, 1, T, T]
+    final_skip: Tuple[str, ...] = ("vlm", "proprio"),
+) -> Dict[str, Tensor]:
+    """Full-sequence forward, no cache (training). Returns final-normed
+    hidden states for every active mixture not in ``final_skip``.
+
+    With ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
+    (non-reentrant): only the layer boundaries are kept, and the backward
+    pass runs each layer's forward again, the attention kernel included,
+    so a forward and backward launch it 2 * L times."""
+    names = tuple(embeds.keys())
+    ropes = _rope_tables(cfg, names, position_ids)
+    hiddens = {n: _scale_embeds(embeds[n], cfg.mixture(n).hidden_size) for n in names}
+
+    def one_layer(hiddens, lps):
+        return _layer(cfg, names, lps, hiddens, ropes, mask)[0]
+
+    for lps in _layer_params(params, cfg, names):
+        if cfg.remat:
+            hiddens = checkpoint(one_layer, hiddens, lps, use_reentrant=False)
+        else:
+            hiddens = one_layer(hiddens, lps)
+
+    out = {}
+    for n in names:
+        if n in final_skip:
+            continue
+        mcfg = cfg.mixture(n)
+        mp = _mixture_params(params, cfg, n)
+        out[n] = mx.final_norm(mp, mcfg, cfg.rms_norm_eps, hiddens[n]) if mcfg.use_final_norm else hiddens[n]
+    return out
+
+
 def joint_prefill(
     params: dict,
     cfg: JointConfig,
@@ -109,15 +168,12 @@ def joint_prefill(
     names = tuple(embeds.keys())
     ropes = _rope_tables(cfg, names, position_ids)
     hiddens = {n: _scale_embeds(embeds[n], cfg.mixture(n).hidden_size) for n in names}
-    stacked = {n: _mixture_params(params, cfg, n)["layers"] for n in names}
-
     first = hiddens[names[0]]
     s = sum(h.shape[1] for h in hiddens.values())
     shape = (cfg.num_hidden_layers, first.shape[0], s, cfg.num_key_value_heads, cfg.head_dim)
     k_cache = torch.empty(shape, dtype=first.dtype, device=first.device)
     v_cache = torch.empty_like(k_cache)
-    for i in range(cfg.num_hidden_layers):
-        lps = {n: layer_slice(stacked[n], i) for n in names}
+    for i, lps in enumerate(_layer_params(params, cfg, names)):
         hiddens, (k_new, v_new) = _layer(cfg, names, lps, hiddens, ropes, mask)
         k_cache[i] = k_new
         v_cache[i] = v_new
@@ -140,10 +196,9 @@ def joint_action_step(
     hidden = _scale_embeds(action_embeds, mcfg.hidden_size)
     mp = _mixture_params(params, cfg, name)
     k_cache, v_cache = kv_cache
-    for i in range(cfg.num_hidden_layers):
+    for i, lps in enumerate(_layer_params(params, cfg, (name,))):
         new, _ = _layer(
-            cfg, (name,), {name: layer_slice(mp["layers"], i)}, {name: hidden},
-            ropes, mask, cached_kv=(k_cache[i], v_cache[i]),
+            cfg, (name,), lps, {name: hidden}, ropes, mask, cached_kv=(k_cache[i], v_cache[i]),
         )
         hidden = new[name]
     return mx.final_norm(mp, mcfg, cfg.rms_norm_eps, hidden)

@@ -1,10 +1,13 @@
 """PiZero: the full π0 VLA model (counterpart of the JAX package's
-``models/pizero.py``: init, encoders and KV-cached action inference).
+``models/pizero.py``: init, encoders, KV-cached action inference and the
+flow-matching training loss).
 
 Everything is a plain function over a params tree + a static
 ``PiZeroConfig``. ``infer_action`` prefills the VLM/proprio prefix once
 into a stacked [L, B, I+P, Hkv, Dh] K/V cache, then runs the Euler (or
 midpoint) steps of the action expert against it in a Python loop.
+``flow_matching_loss`` runs the whole sequence through ``joint_forward``
+with no cache.
 
 Param tree (the JAX package's layout, so ``params_from_jax`` is a
 leaf-by-leaf copy):
@@ -310,3 +313,55 @@ def infer_action(
         c = cfg.final_action_clip_value
         action = action.clamp(-c, c)
     return action
+
+
+# --------------------------------------------------------------------------- #
+# flow-matching training loss
+# --------------------------------------------------------------------------- #
+
+
+def psi_t(cfg: PiZeroConfig, x0: Tensor, x1: Tensor, t: Tensor) -> Tensor:
+    """Conditional flow interpolant (reference pizero.py:597-605)."""
+    t = t[:, None, None]
+    return (1 - (1 - cfg.flow_sig_min) * t) * x0 + t * x1
+
+
+def flow_matching_loss(
+    params: dict,
+    cfg: PiZeroConfig,
+    generator: Optional[torch.Generator],
+    input_ids: Tensor,  # [B, S] int
+    pixel_values: Tensor,  # [B, H, W, C] normalized
+    attention_mask: Tensor,  # [B, S] binary
+    proprios: Tensor,  # [B, P, proprio_dim]
+    actions: Tensor,  # [B, A, act_dim] ground truth
+    t: Tensor,  # [B] flow times in (0, 1)
+    x0: Optional[Tensor] = None,  # inject the noise (tests/parity)
+) -> Tensor:
+    """MSE between the predicted velocity and x1 - (1-σmin)·x0 (reference
+    pizero.py:607-661), no KV cache. Runs in ``pixel_values``' dtype; the
+    noise comes from ``generator`` (on the inputs' device) unless ``x0`` is
+    given."""
+    dtype = pixel_values.dtype
+    if cfg.action_expert_adaptive_mode:
+        raise NotImplementedError("adaptive action expert is not ported yet")
+    full_mask, _, _, pos = prepare_action_inputs(cfg, attention_mask)
+
+    if x0 is None:
+        x0 = torch.randn(actions.shape, generator=generator, device=t.device, dtype=t.dtype)
+    x1 = actions.to(t.dtype)
+    xt = psi_t(cfg, x0, x1, t).to(dtype)
+
+    inputs_embeds = embed_image_text(params, cfg, input_ids, pixel_values)
+    proprio_embeds = encode_proprio(params, proprios).to(dtype)
+    action_embeds = encode_action(params, cfg, xt, time_embedding(cfg, t, dtype))
+    hidden = joint_lib.joint_forward(
+        params["joint"],
+        cfg.joint,
+        {"vlm": inputs_embeds, "proprio": proprio_embeds, "action": action_embeds},
+        pos,
+        full_mask,
+    )["action"]
+    v_psi = decode_action(params, hidden).to(torch.float32)
+    d_psi = (x1 - (1 - cfg.flow_sig_min) * x0).to(torch.float32)
+    return torch.mean(torch.square(v_psi - d_psi))

@@ -4,7 +4,7 @@ package's ``models/siglip.py``, unfused float params).
 Patch embedding is a reshape + matmul on NHWC pixels (stride == kernel, so
 the conv is a per-patch dense layer); pre-LN blocks with plain softmax MHA,
 tanh-GELU MLP and a post-layernorm. The stacked ``[L, ...]`` layer params
-are walked by a Python loop.
+are split into per-layer views once per call and walked by a Python loop.
 
 Param tree (L = num layers):
   embeddings: patch: {kernel [P*P*C, D], bias [D]}, position: [N, D]
@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from open_pi_zero_torch.config import SiglipConfig
-from open_pi_zero_torch.models.tree import layer_slice
+from open_pi_zero_torch.models.tree import layer_split
 from open_pi_zero_torch.ops.attention import mha_attention
 from open_pi_zero_torch.ops.linear import linear, lora_delta
 from open_pi_zero_torch.ops.norms import layer_norm
@@ -70,8 +70,8 @@ def forward(params: dict, cfg: SiglipConfig, pixel_values: torch.Tensor) -> torc
         patchify(pixel_values, cfg.patch_size), emb["patch"]["kernel"], emb["patch"]["bias"]
     )
     x = x + emb["position"].to(x.dtype)
-    for i in range(cfg.num_hidden_layers):
-        x = _encoder_layer(x, layer_slice(params["layers"], i), cfg)
+    for lp in layer_split(params["layers"], cfg.num_hidden_layers):
+        x = _encoder_layer(x, lp, cfg)
     post = params["post_layernorm"]
     return layer_norm(x, post["scale"], post["bias"], cfg.layer_norm_eps)
 

@@ -4,7 +4,9 @@
 Gemma tanh soft-capping and an additive block mask. It dispatches by the
 tensor's device and nothing else: a CPU tensor goes to the plain version
 ``mot_attention_ref``; a CUDA tensor goes to the Hopper kernel
-(``ops/fused_attention.py``), which launches or raises.
+(``ops/fused_attention.py``), whether or not it requires grad: the
+kernel's autograd Function launches or raises, and its backward recomputes
+through ``mot_attention_ref`` as the JAX package's custom VJP does.
 
 Precision contract:
   - QK^T accumulated in fp32
@@ -31,7 +33,7 @@ def mot_attention(
     softcap: Optional[float] = 50.0,
 ) -> torch.Tensor:
     """Dispatch: CPU tensor -> ``mot_attention_ref``; CUDA tensor -> the
-    Hopper kernel."""
+    Hopper kernel and its VJP."""
     if q.device.type == "cpu":
         return mot_attention_ref(q, k, v, mask, softcap)
     from open_pi_zero_torch.ops.fused_attention import mot_attention_fused

@@ -1,17 +1,26 @@
 """Wrapper of the Hopper MoT-attention kernel (``csrc/mot_attention.cu``),
 the counterpart of ``mot_attention_fused`` in the JAX package's
-``ops/pallas_attention.py`` (forward only).
+``ops/pallas_attention.py``, with its custom VJP.
 
 ``ops/attention.mot_attention`` is the one dispatcher: it sends a CPU
-tensor to the plain version and a CUDA tensor here. The wrapper checks what
-the kernel takes, allocates the output, launches on the current stream and
-raises if the launch was refused. It never falls back: an input the kernel
-does not take (a CPU tensor included) raises.
+tensor to the plain version and a CUDA tensor here, whether or not it
+requires grad. The wrapper checks what the kernel takes, allocates the
+output, launches on the current stream and raises if the launch was
+refused. It never falls back: an input the kernel does not take (a CPU
+tensor included) raises.
 
-``launches`` counts the kernel's launches, so that a run can show that its
-main path went through the kernel. Inputs that require grad are refused:
-the autograd wrapper (whose backward recomputes through the plain
-version, like the JAX package's custom VJP) comes with training.
+Autograd (``MotAttention``, the counterpart of ``_vjp_fwd``/``_vjp_bwd``,
+``pallas_attention.py:165-178``): the forward launches the kernel and
+saves q, k and v; the backward recomputes the attention through the plain
+version ``mot_attention_ref`` and returns dq, dk and dv from
+``torch.autograd.grad``, as the JAX VJP does through
+``mot_attention_xla``. The JAX package has no Pallas backward kernel (its
+backward is XLA einsums), so the port's backward is PyTorch ops by design,
+not a fallback. The mask takes no grad.
+
+``launches`` counts the kernel's launches (a forward that a rematerialized
+layer runs again counts again), so that a run can show that its main path
+went through the kernel.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from typing import Optional
 import torch
 
 from open_pi_zero_torch.ops import _build
+from open_pi_zero_torch.ops.attention import mot_attention_ref
 
 SOURCE = "mot_attention"
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -94,19 +104,11 @@ def _check(q, k, v, mask) -> None:
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise ValueError("the kernel has no backward yet: inputs must not require grad")
+    if mask.requires_grad:
+        raise ValueError("the mask takes no grad")
 
 
-def mot_attention_fused(
-    q: torch.Tensor,  # [B, Lq, Hq, D]
-    k: torch.Tensor,  # [B, Lkv, Hkv, D]
-    v: torch.Tensor,  # [B, Lkv, Hkv, D]
-    mask: torch.Tensor,  # [B, 1, Lq, Lkv] additive fp32
-    softcap: Optional[float] = 50.0,
-) -> torch.Tensor:
-    """Softcapped masked GQA attention through the Hopper kernel. Same
-    contract as ``mot_attention_ref``; returns [B, Lq, Hq, D]."""
+def _launch(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
     global launches
     _check(q, k, v, mask)
     b, lq, hq, d = q.shape
@@ -127,3 +129,36 @@ def mot_attention_fused(
         )
     launches += 1
     return out
+
+
+class MotAttention(torch.autograd.Function):
+    """The kernel under autograd: forward through the kernel, backward by
+    recomputing through the plain version (the JAX package's custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, softcap):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.softcap = softcap
+        return _launch(q, k, v, mask, softcap)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [x.detach().requires_grad_() for x in (q, k, v)]
+            out = mot_attention_ref(*inputs, mask, ctx.softcap)
+            dq, dk, dv = torch.autograd.grad(out, inputs, grad)
+        return dq, dk, dv, None, None
+
+
+def mot_attention_fused(
+    q: torch.Tensor,  # [B, Lq, Hq, D]
+    k: torch.Tensor,  # [B, Lkv, Hkv, D]
+    v: torch.Tensor,  # [B, Lkv, Hkv, D]
+    mask: torch.Tensor,  # [B, 1, Lq, Lkv] additive fp32
+    softcap: Optional[float] = 50.0,
+) -> torch.Tensor:
+    """Softcapped masked GQA attention through the Hopper kernel, with the
+    VJP above. Same contract as ``mot_attention_ref``; returns
+    [B, Lq, Hq, D]."""
+    return MotAttention.apply(q, k, v, mask, softcap)

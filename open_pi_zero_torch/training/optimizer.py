@@ -1,0 +1,212 @@
+"""Dual-group optimizer with freeze surgery (counterpart of the JAX
+package's ``training/optimizer.py``; reference src/agent/train.py:169-210):
+
+  - "action" group: action encoder/decoder, proprio encoder, action-expert
+    mixture (proprio shares its weights) — AdamW at ``action_lr``.
+  - "vlm" group: SigLIP tower, projector, vlm mixture — AdamW at ``vlm_lr``,
+    or frozen entirely when ``train_vlm=False``.
+  - "frozen": embed_tokens (reference pizero.py:251-256).
+
+Frozen leaves take ``requires_grad=False``, so they get no grad buffer and
+no Adam state. The reference also leaves the *last layer's* vlm
+post-attention norm, MLP, o_proj and v_proj untrained; with stacked
+``[L, ...]`` params those are slices, not leaves, so their grads are zeroed
+by surgery before the global-norm clip, and Adam, whose moments then stay
+zero, leaves them bitwise unchanged.
+
+One update: freeze surgery -> global-norm clip -> AdamW per group, each
+group's lr set from its schedule at the update count first. Where optax
+differs from ``torch.optim``, the port writes optax's arithmetic: the first
+update takes ``schedule(0)``; the clip scales by ``max_norm / norm`` only
+when ``norm >= max_norm`` (``clip_grad_norm_`` would scale by
+``max_norm / (norm + 1e-6)`` always). ``torch.optim.AdamW`` is
+optax.adamw's update (eps outside the sqrt, the same bias corrections,
+decoupled decay ``p * (1 - lr * wd)``); the vlm decay must stay 0, as in
+the JAX package. The surgery and the clip work in place on the ``.grad``
+tensors, where JAX builds new trees.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+
+from open_pi_zero_torch.config import TrainingConfig
+from open_pi_zero_torch.models.tree import tree_leaves, tree_map
+from open_pi_zero_torch.training import schedules
+
+# vlm layer-stacked leaves whose last-layer slice is untrained
+# (path inside joint.mixtures.vlm.layers)
+UNUSED_LAST_LAYER_PATHS = (
+    ("post_norm", "weight"),
+    ("mlp", "gate"),
+    ("mlp", "up"),
+    ("mlp", "down"),
+    ("attn", "o"),
+    ("attn", "v"),
+)
+GROUPS = ("action", "vlm")
+
+
+def _at(tree: dict, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def zero_unused_vlm_last_layer(grads: dict) -> dict:
+    """Zero, in place, the last-layer slices of the untrained vlm leaves in
+    a tree of grads (None leaves are skipped). Returns the tree."""
+    vlm_layers = grads["joint"]["mixtures"]["vlm"]["layers"]
+    for path in UNUSED_LAST_LAYER_PATHS:
+        g = _at(vlm_layers, path)
+        if g is not None:
+            g[-1] = 0.0
+    return grads
+
+
+def apply_freeze_surgery(grads: dict) -> dict:
+    """Zero, in place, the grads of the permanently frozen parts:
+    embed_tokens (when it has a grad at all) and the unused last-layer vlm
+    slices. Returns the tree."""
+    if grads["embed_tokens"] is not None:
+        grads["embed_tokens"].zero_()
+    return zero_unused_vlm_last_layer(grads)
+
+
+def _is_quantized_base(d) -> bool:
+    """A quantized kernel payload ({q4, absmax} NF4, {q|qa, scale} int8)."""
+    if not isinstance(d, dict):
+        return False
+    if "q4" in d and "absmax" in d:
+        return True
+    return "scale" in d and ("qa" in d or ("q" in d and not isinstance(d["q"], dict)))
+
+
+def _refuse_lora_and_quantized(tree, path="") -> None:
+    if _is_quantized_base(tree):
+        raise NotImplementedError(f"quantized base at {path}: not ported yet")
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k.endswith("_lora"):
+                raise NotImplementedError(f"LoRA adapter at {path}/{k}: not ported yet")
+            _refuse_lora_and_quantized(v, f"{path}/{k}")
+
+
+def param_labels(params: dict, train_vlm: bool = True, lora: bool = False) -> dict:
+    """Label tree ("action" | "vlm" | "frozen") of a float param tree, the
+    JAX package's routing (reference pizero.py:114-158). LoRA and quantized
+    trees are not ported and raise."""
+    if lora:
+        raise NotImplementedError("LoRA training is not ported yet")
+    _refuse_lora_and_quantized(params)
+    vlm_label = "vlm" if train_vlm else "frozen"
+    top = {
+        "embed_tokens": "frozen",
+        "siglip": vlm_label,
+        "projector": vlm_label,
+        "action_encoder": "action",
+        "proprio_encoder": "action",
+        "action_decoder": "action",
+    }
+    out = {}
+    for k, sub in params.items():
+        if k == "joint":
+            out[k] = {
+                "mixtures": {
+                    name: tree_map(lambda _, n=name: vlm_label if n == "vlm" else "action", t)
+                    for name, t in sub["mixtures"].items()
+                }
+            }
+        else:
+            out[k] = tree_map(lambda _, lab=top[k]: lab, sub)
+    return out
+
+
+def trainable_param_count(params: dict, train_vlm: bool = True) -> Dict[str, float]:
+    """Param counts per group in units of 1e9, the reference's logging
+    (train.py:167-208). The action group includes proprio via weight tying
+    exactly once (params hold one subtree)."""
+    labels = param_labels(params, train_vlm)
+    counts = {"action": 0, "vlm": 0, "frozen": 0}
+    for lab, leaf in zip(tree_leaves(labels), tree_leaves(params)):
+        counts[lab] += leaf.numel()
+    if train_vlm:  # the surgically frozen last-layer vlm slices
+        vlm_layers = params["joint"]["mixtures"]["vlm"]["layers"]
+        for path in UNUSED_LAST_LAYER_PATHS:
+            n = _at(vlm_layers, path)[0].numel()
+            counts["vlm"] -= n
+            counts["frozen"] += n
+    return {k: v / 1e9 for k, v in counts.items()}
+
+
+def global_norm(tensors: List[Optional[torch.Tensor]]) -> torch.Tensor:
+    """sqrt of the sum of squares over all tensors (None skipped), in fp32:
+    the norm of the per-tensor norms, which needs no squared copy of a
+    tensor."""
+    norms = [torch.linalg.vector_norm(t.detach(), dtype=torch.float32) for t in tensors if t is not None]
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+class Optimizer:
+    """freeze surgery -> global-norm clip -> per-group AdamW with
+    cosine-warmup schedules: the counterpart of ``build_optimizer``'s optax
+    chain. Like an optax transformation it holds no state: ``init`` returns
+    the state (a ``torch.optim.AdamW`` over the trained leaves, whose
+    moments are the Adam state) and ``update`` applies one update."""
+
+    def __init__(self, cfg: TrainingConfig, labels: dict):
+        if cfg.quantize_optimizer_states:
+            raise NotImplementedError("8-bit optimizer states are not ported yet")
+        if cfg.train_vlm and cfg.vlm_weight_decay:
+            raise NotImplementedError(
+                "nonzero vlm weight decay would decay the frozen last-layer "
+                "slices; mask it per-slice before enabling"
+            )
+        self.cfg = cfg
+        self.labels = labels
+        self.schedules = {
+            "action": schedules.from_config(cfg.action_lr, cfg.action_lr_scheduler),
+            "vlm": schedules.from_config(cfg.vlm_lr, cfg.vlm_lr_scheduler),
+        }
+
+    def init(self, params: dict) -> torch.optim.AdamW:
+        """Mark each leaf trained or frozen (``requires_grad``) and return
+        the AdamW state over the trained leaves, one param group per
+        label."""
+        groups = {g: [] for g in GROUPS}
+        for lab, leaf in zip(tree_leaves(self.labels), tree_leaves(params)):
+            leaf.requires_grad_(lab != "frozen")
+            if lab != "frozen":
+                groups[lab].append(leaf)
+        cfg = self.cfg
+        decay = {"action": cfg.action_weight_decay, "vlm": cfg.vlm_weight_decay}
+        return torch.optim.AdamW(
+            [{"params": groups[g], "name": g, "weight_decay": decay[g]} for g in GROUPS if groups[g]],
+            lr=0.0, betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps,
+        )
+
+    def update(self, params: dict, state: torch.optim.AdamW, count: int) -> torch.Tensor:
+        """Apply one update from the params' ``.grad`` (then cleared), the
+        ``count``-th (0 for the first). Returns the global grad norm after
+        the surgery and before the clip."""
+        grads = apply_freeze_surgery(tree_map(lambda p: p.grad, params))
+        flat = [g for g in tree_leaves(grads) if g is not None]
+        norm = global_norm(flat)
+        # optax.clip_by_global_norm: t if norm < max_norm else (t / norm) * max_norm
+        max_norm = self.cfg.max_grad_norm
+        if float(norm) >= max_norm:
+            for g in flat:
+                g.div_(norm).mul_(max_norm)
+        for group in state.param_groups:
+            group["lr"] = self.schedules[group["name"]](count)
+        state.step()
+        state.zero_grad(set_to_none=True)
+        return norm
+
+
+def build_optimizer(cfg: TrainingConfig, params: dict) -> Optimizer:
+    """The optimizer for ``params``' tree under ``cfg`` (labels from
+    ``param_labels``)."""
+    return Optimizer(cfg, param_labels(params, cfg.train_vlm, lora=cfg.lora))

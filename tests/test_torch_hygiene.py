@@ -32,6 +32,9 @@ def test_import_leaves_jax_and_yaml_out():
         for p in PORT.rglob("*.py")
         if p.name != "__init__.py"
     )
+    # the training slice is among them
+    for name in ("sampling", "schedules", "optimizer", "averaging", "train_step"):
+        assert f"open_pi_zero_torch.training.{name}" in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -1,4 +1,5 @@
-"""The Hopper MoT-attention kernel against its plain version, on the card.
+"""The Hopper MoT-attention kernel and its autograd Function (K1-vjp)
+against the plain version, on the card.
 
 Marked ``cuda``: each test asks the ``cuda`` fixture for the device and
 skips when there is no card (the CPU run never reaches the kernel; the
@@ -7,14 +8,18 @@ with a card: ``python -m pytest tests/test_torch_kernel.py -q``.
 
 Tolerances: fp32 1e-4 (same arithmetic, another summation order); bf16
 2e-2, as the JAX package's Pallas kernel tests (each side rounds p and the
-output to bf16 at its own point)."""
+output to bf16 at its own point). The Function's backward recomputes
+through the plain version, so its grads differ from plain autograd's only
+through the cotangent, which is the same here."""
 
 import numpy as np
 import pytest
 import torch
 
+from open_pi_zero_torch import config as cfg_lib
+from open_pi_zero_torch.models import pizero
 from open_pi_zero_torch.ops import fused_attention as fa
-from open_pi_zero_torch.ops.attention import mot_attention_ref
+from open_pi_zero_torch.ops.attention import mot_attention, mot_attention_ref
 from open_pi_zero_torch.ops.masks import MASK_NEG
 
 pytestmark = pytest.mark.cuda
@@ -85,8 +90,8 @@ def test_kernel_takes_strided_mask_views(cuda):
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v, mask = _inputs(cuda, 1, 4, 33, 8, 1, 256, torch.float32)
     with pytest.raises(ValueError, match="grad"):
-        fa.mot_attention_fused(q.requires_grad_(), k, v, mask)
-    q = q.detach()
+        fa.mot_attention_fused(q, k, v, mask.requires_grad_())
+    mask = mask.detach()
     with pytest.raises(ValueError, match="float32"):
         fa.mot_attention_fused(q, k, v, mask.half())
     with pytest.raises(ValueError, match="contiguous"):
@@ -97,3 +102,39 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     long_kv = torch.zeros(1, fa.max_lkv(256) + 4, 1, 256, device=cuda)
     with pytest.raises(ValueError, match="limit"):
         fa.mot_attention_fused(q, long_kv, long_kv, torch.zeros(1, 1, 4, long_kv.shape[1], device=cuda))
+
+
+def _training_inputs(device, dtype, fully_masked_row=False):
+    """The training path's attention at full width: B=16, Lq=Lkv=281, 8 Q /
+    1 KV heads of 256, the block-causal training mask."""
+    cfg = cfg_lib.PiZeroConfig()
+    am = torch.zeros(16, cfg.max_image_text_tokens, dtype=torch.int32, device=device)
+    for i in range(16):
+        am[i, : 257 + i] = 1
+    full, _, _, _ = pizero.prepare_action_inputs(cfg, am)
+    if fully_masked_row:
+        full = full.clone()
+        full[0, 0, 3] = MASK_NEG
+    q, k, v, _ = _inputs(device, 16, 281, 281, 8, 1, 256, dtype, seed=5)
+    g = torch.randn(q.shape, generator=torch.Generator(device).manual_seed(6), device=device).to(dtype)
+    return q, k, v, full, g
+
+
+def _out_and_grads(attention, q, k, v, mask, g):
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = attention(q, k, v, mask, 50.0)
+    return (out.detach(), *torch.autograd.grad(out, (q, k, v), g))
+
+
+@pytest.mark.parametrize("fully_masked_row", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_vjp_matches_plain_autograd_at_training_shape(cuda, dtype, tol, fully_masked_row):
+    q, k, v, mask, g = _training_inputs(cuda, dtype, fully_masked_row)
+    before = fa.launches
+    got = _out_and_grads(mot_attention, q, k, v, mask, g)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1  # the forward only: the backward recomputes in PyTorch
+    want = _out_and_grads(mot_attention_ref, q, k, v, mask, g)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol, msg=lambda m, n=name: f"{n}: {m}")
