@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (open_pi_zero_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py              # the whole run, one card
+    python3 chip_smoke.py
 
 Phases, each of which raises on failure:
   1. build   — nvcc builds csrc/mot_attention.cu into build/torch_kernels/;
@@ -50,6 +50,33 @@ Phases, each of which raises on failure:
                the second with its VJP) through the Function, the plain
                version and one library attention call: `ms`, `plain_ms`,
                `library_ms` and `bound_ms` of the mot_attention_vjp entry
+  9. shard-kernel — K1-shard (the kernel on one rank's shard under a
+               mesh) in 2 spawned ranks, mesh (data=1, model=2): each rank's
+               shard against the plain version on the whole inputs sliced
+               to it, at the main path's prefill and Euler shapes at B=1
+               and B=2, a fully masked row, bf16 (2e-2) and fp32 (1e-4);
+               and the training shape in fp32 with the VJP (dq per shard,
+               dk and dv after the all-reduce over the model ranks)
+ 10. shard-parity — bridge widths at depth 2, fp32, B=4, injected noise,
+               mesh (data=2, model=2), 4 ranks: the TP x DP chunk gathered
+               to rank 0 against the CPU's single-process chunk (plain
+               version), max|diff| <= 1e-3
+ 11. shard-main — the fp32 2-card TP recipe: full-width PiZeroConfig() in
+               fp32, mesh (data=1, model=2), B=1. Every rank builds the
+               params from seed 0 on its card; rank 0 first runs one
+               unsharded chunk; then each rank keeps its shard. Exactly
+               L + L * steps K1 launches per rank per chunk, all through
+               K1-shard; the TP chunk against the unsharded one (<= 1e-3);
+               two TP chunks bitwise equal; the backend, the ranks' cards,
+               the warm chunk time (median of 5) and each rank's peak
+               memory. Rank 0's K1-shard inputs of one chunk are replayed
+               here, with no rank left on the card, through K1 (the
+               forward K1-shard launches), the plain version and one
+               library call: `ms`, `plain_ms`,
+               `library_ms` and `bound_ms` of the mot_attention_shard entry
+The ranks share the one card over gloo (CUDA tensors staged through host
+memory: NCCL refuses two ranks on one card); with a card per rank they
+would take NCCL, a path no run has exercised yet. The run prints which.
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Without a card, or outside a checkout, it exits non-zero before any result.
 """
@@ -74,6 +101,7 @@ from open_pi_zero_torch.ops import _build
 from open_pi_zero_torch.ops import fused_attention as fa
 from open_pi_zero_torch.ops.attention import mot_attention_ref
 from open_pi_zero_torch.ops.masks import MASK_NEG
+from open_pi_zero_torch.parallel import ranks, run_ranks
 from open_pi_zero_torch.training import optimizer as opt_lib
 from open_pi_zero_torch.training import train_step
 
@@ -85,6 +113,8 @@ FP32_FLOPS = 67e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 REPLACES = "open_pi_zero_tpu/ops/pallas_attention.py:123"
 REPLACES_VJP = "open_pi_zero_tpu/ops/pallas_attention.py:165"
+REPLACES_SHARD = "open_pi_zero_tpu/ops/pallas_attention.py:221"
+RANK_TIMEOUT_S = 600  # every collective of a spawned world
 KERNEL_SYMBOL = "mot_attention_fwd_kernel"  # the kernel's name in a profile
 
 
@@ -184,11 +214,15 @@ def bound_ms(shape) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bound_parts(shape) -> tuple:
-    """(ms to move the bytes, ms to do the operations) of one call."""
+def bound_parts(shape, dtype=torch.bfloat16) -> tuple:
+    """(ms to move the bytes, ms to do the operations) of one call: q, k,
+    v in ``dtype`` and the fp32 mask read once, the output written once;
+    4*B*Hq*Lq*Lkv*D FLOP at the peak rate of ``dtype``."""
     b, lq, lkv, hq, hkv, d = shape
-    moved = 2 * (2 * b * lq * hq * d + 2 * b * lkv * hkv * d) + 4 * b * lq * lkv
-    return moved / HBM_BYTES_PER_S * 1e3, 4 * b * hq * lq * lkv * d / BF16_FLOPS * 1e3
+    size = torch.finfo(dtype).bits // 8
+    moved = size * (2 * b * lq * hq * d + 2 * b * lkv * hkv * d) + 4 * b * lq * lkv
+    peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    return moved / HBM_BYTES_PER_S * 1e3, 4 * b * hq * lq * lkv * d / peak * 1e3
 
 
 def check_kernel(dev) -> dict:
@@ -397,16 +431,17 @@ def record_main_path_calls(dev, cfg, params) -> list:
     return calls
 
 
-def replay(calls) -> dict:
-    """The main path's kernel calls replayed in order: the kernel held
-    against the plain version on each, then the device time of the kernel,
-    of the plain version and of one library attention call (without the
-    softcap) summed over all of them, and the bound of their sizes."""
+def replay(calls, attention=fa.mot_attention_fused) -> dict:
+    """The main path's kernel calls replayed in order: ``attention`` (the
+    kernel's wrapper) held against the plain version on each, then the
+    device time of the wrapper, of the plain version and of one library
+    attention call (without the softcap) summed over all of them, and the
+    bound of their sizes."""
     from torch.profiler import ProfilerActivity, profile
 
     err = 0.0
     for q, k, v, mask, softcap in calls:
-        got, want = fa.mot_attention_fused(q, k, v, mask, softcap), mot_attention_ref(q, k, v, mask, softcap)
+        got, want = attention(q, k, v, mask, softcap), mot_attention_ref(q, k, v, mask, softcap)
         torch.testing.assert_close(got, want, rtol=TOL[q.dtype], atol=TOL[q.dtype])
         err = max(err, float((got.float() - want.float()).abs().max()))
     # library inputs: heads first, K/V expanded to the query heads, the mask
@@ -420,7 +455,7 @@ def replay(calls) -> dict:
             mask.clamp(min=float(torch.finfo(q.dtype).min)).to(q.dtype),
         ))
     timed = {
-        "kernel": lambda: [fa.mot_attention_fused(*c) for c in calls],
+        "kernel": lambda: [attention(*c) for c in calls],
         "plain": lambda: [mot_attention_ref(*c) for c in calls],
         "library": lambda: [torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=m)
                             for q, k, v, m in lib_inputs],
@@ -436,7 +471,7 @@ def replay(calls) -> dict:
     t_bytes = t_ops = 0.0
     for q, k, v, _, _ in calls:
         (b, lq, hq, d), (_, lkv, hkv, _) = q.shape, k.shape
-        tb, to = bound_parts((b, lq, lkv, hq, hkv, d))
+        tb, to = bound_parts((b, lq, lkv, hq, hkv, d), q.dtype)
         t_bytes, t_ops = t_bytes + tb, t_ops + to
     out["bound_ms"], out["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     return out
@@ -767,23 +802,115 @@ def replay_vjp(calls) -> dict:
     return out
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device; this script runs on the card only")
-    dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t_start = time.time()
+# --------------------------------------------------------------------------- #
+# phases 9-11: inference under a mesh of processes
+# --------------------------------------------------------------------------- #
 
-    t0 = time.time()
-    _build.build(fa.SOURCE)
-    info = card()
-    log(f"build: {fa.SOURCE} in {time.time() - t0:.1f} s")
-    for line in _build.build_log(fa.SOURCE).splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"build: {line.strip()}")
-    log(f"card: {info}")
 
+def shard_cases() -> list:
+    """Phase 9's inputs, whole (numpy), each sliced by the ranks: the main
+    path's prefill and Euler shapes at B=1 and B=2 with their masks, a
+    fully masked row, in bf16 and fp32; the training shape in fp32 with a
+    cotangent."""
+    cfg = cfg_lib.PiZeroConfig()
+    am = torch.zeros(2, cfg.max_image_text_tokens, dtype=torch.int32)
+    am[0, :264] = 1
+    am[1, :200] = 1
+    _, prefix, action, _ = pizero.prepare_action_inputs(cfg, am)
+    masks = {
+        "prefill": prefix[:1], "euler": action[:1], "prefill_b2": prefix, "euler_b2": action,
+        "fully_masked": torch.full((1, 1, 4, 281), MASK_NEG),
+    }
+    cases = []
+    for i, (name, mask) in enumerate(masks.items()):
+        b, _, lq, lkv = mask.shape
+        rng = np.random.default_rng(20 + i)
+        q, k, v = (rng.normal(size=s).astype(np.float32) for s in ((b, lq, 8, 256), (b, lkv, 1, 256), (b, lkv, 1, 256)))
+        for dtype in (torch.float32, torch.bfloat16):
+            cases.append(dict(name=f"{name} {str(dtype)[6:]}", q=q, k=k, v=v, mask=mask.numpy().copy(),
+                              softcap=50.0, dtype=str(dtype)[6:], tol=TOL[dtype]))
+    q, k, v, mask, g = (x.numpy() for x in training_attention_inputs("cpu", torch.float32))
+    cases.append(dict(name="train float32", q=q, k=k, v=v, mask=mask, g=g, softcap=50.0,
+                      dtype="float32", tol=TOL[torch.float32]))
+    return cases
+
+
+def check_shard_kernel() -> dict:
+    """Phase 9: K1-shard in 2 ranks on the card against the plain version."""
+    rows = run_ranks(ranks.attention_rank, 1, 2, shard_cases(), device="cuda", timeout_s=RANK_TIMEOUT_S)
+    errs = {}
+    for row in rows:
+        for key in [k for k in row if k.startswith("not_close_")]:
+            part = key[len("not_close_"):]
+            if row[key]:
+                raise AssertionError(f"shard {row['name']} {part}: {row[key]} elements off, "
+                                     f"max|diff| {row['max_abs_err_' + part]}")
+            errs[f"{row['name']} {part}"] = row[f"max_abs_err_{part}"]
+    return errs
+
+
+def check_shard_parity() -> dict:
+    """Phase 10: bridge widths, depth 2, fp32, B=4 on a (2, 2) mesh of
+    ranks on the card against the CPU's single-process chunk."""
+    cfg = cfg_lib.bridge_width_dryrun_config()
+    rng = np.random.default_rng(10)
+    batch = example_batch(cfg, 4, rng)
+    batch["attention_mask"][1, 20:] = 0  # a shorter row
+    batch["input_ids"][1, 20:] = 0
+    a0 = rng.normal(size=(4, cfg.horizon_steps, cfg.action_dim)).astype(np.float32)
+    got = run_ranks(ranks.infer_rank, 2, 2, cfg, batch, a0, None, 1, device="cuda", timeout_s=RANK_TIMEOUT_S)
+    L = cfg.joint.num_hidden_layers
+    expected = L + L * cfg.num_inference_steps
+    if got["launches"] != expected:
+        raise AssertionError(f"rank 0 launched K1 {got['launches']} times under the mesh, want {expected}")
+    params_cpu = pizero.init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
+    on_cpu = run_infer(params_cpu, cfg, batch, a0, "cpu", torch.float32).numpy()
+    # fp32 on both sides (TF32 off): TP reassociates the row-parallel sums and
+    # the card sums in another order, ~1e-6 relative per op; as phase 3
+    err = float(np.abs(got["chunk"] - on_cpu).max())
+    if not (got["chunk"].shape == on_cpu.shape and err <= 1e-3):
+        raise AssertionError(f"TP x DP chunk {got['chunk'].shape} vs CPU max|diff| {err} > 1e-3")
+    return {"launches_per_rank": got["launches"], "max_abs_diff": err}
+
+
+def check_shard_main(dev) -> dict:
+    """Phase 11: full-width fp32 TP=2 inference in 2 ranks."""
+    cfg = cfg_lib.PiZeroConfig()
+    rng = np.random.default_rng(11)
+    batch = example_batch(cfg, 1, rng)
+    a0 = rng.normal(size=(1, cfg.horizon_steps, cfg.action_dim)).astype(np.float32)
+    got = run_ranks(ranks.main_path_rank, 1, 2, cfg, 0, batch, a0, 5, device="cuda", timeout_s=RANK_TIMEOUT_S)
+    L = cfg.joint.num_hidden_layers
+    expected = L + L * cfg.num_inference_steps
+    for i, r in enumerate(got["ranks"]):
+        if r["launches"] != expected:
+            raise AssertionError(f"rank {i}: {r['launches']} K1 launches per chunk under the mesh, "
+                                 f"want {expected}")
+        if not r["bitwise_equal_chunks"]:
+            raise AssertionError(f"rank {i}: two TP chunks with the same noise differ")
+    chunk, ref = got["chunk"], got["unsharded"]
+    clip = cfg.final_action_clip_value
+    if chunk.shape != (1, cfg.horizon_steps, cfg.action_dim) or not (np.isfinite(chunk).all() and np.abs(chunk).max() <= clip):
+        raise AssertionError(f"TP chunk {chunk.shape} not finite or outside the clip")
+    # fp32 on both sides (TF32 off): TP only reassociates the sums of the
+    # row-parallel projections
+    err = float(np.abs(chunk - ref).max())
+    if not err <= 1e-3:
+        raise AssertionError(f"TP chunk vs unsharded chunk max|diff| {err} > 1e-3")
+    calls = [tuple(x.to(dev) for x in c[:4]) + (softcap,) for *c, softcap in got.pop("calls")]
+    if len(calls) != expected:
+        raise AssertionError(f"{len(calls)} K1-shard calls recorded, want {expected}")
+    replayed = replay(calls)  # K1-shard's forward is K1 on the shard
+    return {
+        "backend": got["backend"], "card": got["card"], "ranks": got["ranks"],
+        "chunk_ms": got["chunk_ms"], "unsharded_chunk_ms": got["unsharded_ms"],
+        "profile": got["profile"], "max_abs_diff_vs_unsharded": err,
+        "chunk": chunk.round(4).tolist(), "replayed": replayed,
+    }
+
+
+def single_card_phases(dev, info: str) -> list:
+    """Phases 2-8 on card 0; returns their entries of the kernels line."""
     t0 = time.time()
     kernel = check_kernel(dev)
     log("kernel_vs_plain, per launch: " + json.dumps(kernel))
@@ -841,6 +968,8 @@ def main() -> None:
     replayed_vjp = replay_vjp(train_calls)
     log("train-main: replayed calls of one update: " + json.dumps(replayed_vjp))
     log(f"phase train-main ok in {time.time() - t0:.1f} s")
+    del train_calls
+    torch.cuda.empty_cache()
 
     entry = {
         "name": "mot_attention_fwd",
@@ -871,8 +1000,70 @@ def main() -> None:
         "bound_by": replayed_vjp["bound_by"],
         "library_ms": replayed_vjp["library_ms"],
     }
+    return [entry, vjp_entry]
+
+
+def mesh_phases(dev, info: str) -> dict:
+    """Phases 9-11 in spawned ranks; returns the K1-shard entry of the
+    kernels line."""
+    t0 = time.time()
+    shard_errs = check_shard_kernel()
+    log("shard-kernel, 2 ranks, mesh (1, 2), max|diff| vs the plain version: " + json.dumps(shard_errs))
+    log(f"phase shard-kernel ok in {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    shard_parity = check_shard_parity()
+    log(f"shard-parity: bridge widths depth 2 fp32 B=4, mesh (2, 2) on the card vs CPU: "
+        f"{json.dumps(shard_parity)}, {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    shard = check_shard_main(dev)
+    log("shard-main: " + json.dumps(shard))
+    log(f"shard-main: full-width fp32 TP=2, backend {shard['backend']}, ranks on "
+        f"{[r['device'] for r in shard['ranks']]} ({shard['card']}); warm TP chunk "
+        f"{statistics.median(shard['chunk_ms']):.3f} ms (median of 5, rank 0; host-staged gloo "
+        f"transport when the ranks share a card), unsharded fp32 chunk on one rank "
+        f"{statistics.median(shard['unsharded_chunk_ms']):.3f} ms (median of 3); peak memory per rank "
+        f"{[round(r['peak_mem_gb'], 3) for r in shard['ranks']]} GB, on {info}")
+    log(f"phase shard-main ok in {time.time() - t0:.1f} s")
+
+    return {
+        "name": "mot_attention_shard",
+        "route": "cuda",
+        "source": "open_pi_zero_torch/csrc/mot_attention.cu",
+        "replaces": REPLACES_SHARD,
+        "launches": shard["ranks"][0]["launches"],
+        "max_abs_err": max(shard["replayed"]["max_abs_err"], *shard_errs.values()),
+        # one TP chunk of rank 0, fp32: device time summed over the replayed calls
+        "ms": shard["replayed"]["kernel_ms"],
+        "plain_ms": shard["replayed"]["plain_ms"],
+        "bound_ms": shard["replayed"]["bound_ms"],
+        "bound_by": shard["replayed"]["bound_by"],
+        "library_ms": shard["replayed"]["library_ms"],
+    }
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this script runs on the card only")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
+
+    t0 = time.time()
+    _build.build(fa.SOURCE)
+    info = card()
+    log(f"build: {fa.SOURCE} in {time.time() - t0:.1f} s")
+    for line in _build.build_log(fa.SOURCE).splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"build: {line.strip()}")
+    log(f"card: {info}")
+
+    kernels = single_card_phases(dev, info)
+    kernels.append(mesh_phases(dev, info))
     log(f"total {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": [entry, vjp_entry]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -87,19 +87,22 @@ def _layer(
     else:
         k_all, v_all = k_new, v_new
 
-    attn = mot_attention(torch.cat(qs, dim=1), k_all, v_all, mask, cfg.attn_softclamp)
+    q_all = torch.cat(qs, dim=1)
+    # under TP with one replicated kv head, q holds this rank's heads only
+    kv_replicated = q_all.shape[2] < cfg.num_attention_heads and k_all.shape[2] == cfg.num_key_value_heads
+    attn = mot_attention(q_all, k_all, v_all, mask, cfg.attn_softclamp, kv_replicated)
     b, lq = attn.shape[:2]
-    attn = attn.reshape(b, lq, cfg.num_attention_heads * cfg.head_dim)
+    attn = attn.reshape(b, lq, -1)
 
     out, off = {}, 0
     for n in names:
         mcfg = cfg.mixture(n)
         lp = lps[n]
         ln = hiddens[n].shape[1]
-        x = hiddens[n] + mx.o_proj(lp["attn"], attn[:, off : off + ln], mcfg.lora_scaling)
+        x = hiddens[n] + mx.o_proj(lp["attn"], cfg, attn[:, off : off + ln], mcfg.lora_scaling)
         off += ln
         h = mx.norm(lp["post_norm"], mcfg, eps, x)
-        out[n] = x + mx.mlp(lp["mlp"], h, mcfg.lora_scaling)
+        out[n] = x + mx.mlp(lp["mlp"], mcfg, h, mcfg.lora_scaling)
     return out, (k_new, v_new)
 
 
@@ -168,13 +171,12 @@ def joint_prefill(
     names = tuple(embeds.keys())
     ropes = _rope_tables(cfg, names, position_ids)
     hiddens = {n: _scale_embeds(embeds[n], cfg.mixture(n).hidden_size) for n in names}
-    first = hiddens[names[0]]
-    s = sum(h.shape[1] for h in hiddens.values())
-    shape = (cfg.num_hidden_layers, first.shape[0], s, cfg.num_key_value_heads, cfg.head_dim)
-    k_cache = torch.empty(shape, dtype=first.dtype, device=first.device)
-    v_cache = torch.empty_like(k_cache)
+    k_cache = v_cache = None
     for i, lps in enumerate(_layer_params(params, cfg, names)):
         hiddens, (k_new, v_new) = _layer(cfg, names, lps, hiddens, ropes, mask)
+        if k_cache is None:  # sized from the rank's K/V heads
+            k_cache = k_new.new_empty((cfg.num_hidden_layers, *k_new.shape))
+            v_cache = torch.empty_like(k_cache)
         k_cache[i] = k_new
         v_cache[i] = v_new
     return k_cache, v_cache

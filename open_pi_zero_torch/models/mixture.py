@@ -14,6 +14,11 @@ Hq/Hkv = query/kv heads, Dh = head_dim):
     post_norm:   {weight [L, D]}
     mlp: {gate [L, D, I], up [L, D, I], down [L, I, D]}
   final_norm: {weight [D]} | absent (vlm w/o lm head)
+
+Under tensor parallelism (``parallel/sharding.py``) a rank holds a slice
+of the heads and of the MLP width: q/k/v reshape by their own width, and
+the row-parallel o and down all-reduce their partial sums over the model
+group (``parallel.collectives.sum_row_parallel``).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from open_pi_zero_torch.config import JointConfig, MixtureConfig
 from open_pi_zero_torch.ops.linear import proj
 from open_pi_zero_torch.ops.norms import rms_norm
 from open_pi_zero_torch.ops.rope import apply_rope
+from open_pi_zero_torch.parallel.collectives import sum_row_parallel
 
 
 def _no_adaptive(mix: MixtureConfig) -> None:
@@ -43,16 +49,14 @@ def norm(lp_norm: dict, mix: MixtureConfig, eps: float, x: torch.Tensor) -> torc
 
 def q_proj(lp_attn: dict, joint: JointConfig, x: torch.Tensor, scaling: float = 1.0) -> torch.Tensor:
     b, s, _ = x.shape
-    return proj(lp_attn, "q", x, scaling).reshape(
-        b, s, joint.num_attention_heads, joint.head_dim
-    )
+    return proj(lp_attn, "q", x, scaling).reshape(b, s, -1, joint.head_dim)
 
 
 def kv_proj(
     lp_attn: dict, joint: JointConfig, x: torch.Tensor, scaling: float = 1.0
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, s, _ = x.shape
-    shape = (b, s, joint.num_key_value_heads, joint.head_dim)
+    shape = (b, s, -1, joint.head_dim)
     return (
         proj(lp_attn, "k", x, scaling).reshape(shape),
         proj(lp_attn, "v", x, scaling).reshape(shape),
@@ -69,19 +73,20 @@ def qkv_proj(
     return (q_proj(lp_attn, joint, x, scaling), *kv_proj(lp_attn, joint, x, scaling))
 
 
-def o_proj(lp_attn: dict, x: torch.Tensor, scaling: float = 1.0) -> torch.Tensor:
-    """x: [B, S, Hq*Dh] -> [B, S, D]."""
-    return proj(lp_attn, "o", x, scaling)
+def o_proj(lp_attn: dict, joint: JointConfig, x: torch.Tensor, scaling: float = 1.0) -> torch.Tensor:
+    """x: [B, S, Hq*Dh] (this rank's heads) -> [B, S, D]."""
+    out = proj(lp_attn, "o", x, scaling)
+    return sum_row_parallel(out, x.shape[-1], joint.num_attention_heads * joint.head_dim)
 
 
-def mlp(lp_mlp: dict, x: torch.Tensor, scaling: float = 1.0) -> torch.Tensor:
+def mlp(lp_mlp: dict, mix: MixtureConfig, x: torch.Tensor, scaling: float = 1.0) -> torch.Tensor:
     """geglu: down(gelu_tanh(gate(x)) * up(x)), the gelu in fp32."""
     if "gateup" in lp_mlp:
         raise NotImplementedError("the fused gate+up serving layout is not ported yet")
     gate = proj(lp_mlp, "gate", x, scaling)
     up = proj(lp_mlp, "up", x, scaling)
     h = F.gelu(gate.to(torch.float32), approximate="tanh").to(x.dtype) * up
-    return proj(lp_mlp, "down", h, scaling)
+    return sum_row_parallel(proj(lp_mlp, "down", h, scaling), h.shape[-1], mix.intermediate_size)
 
 
 def rope_qk(

@@ -40,6 +40,7 @@ from open_pi_zero_torch.ops.masks import (
     split_prefix_and_action_masks,
     vlm_position_ids,
 )
+from open_pi_zero_torch.parallel.mesh import get_mesh
 
 Tensor = torch.Tensor
 
@@ -264,6 +265,12 @@ def infer_action(
     Returns [B, A, act_dim]. The noise comes from ``generator`` (on the
     inputs' device) unless ``action0`` is given.
 
+    Under a registered mesh (``parallel.make_mesh``) the inputs, and an
+    injected ``action0``, are this data rank's rows and the params its TP
+    shard; every rank draws the whole batch's noise from its generator
+    (seeded alike on every rank) and keeps its rows, so the rows of a
+    sharded chunk are those of the single-device chunk of the same seed.
+
     ``t_start``/``t_end`` integrate a segment of the flow on the grid of the
     full run (round(num_inference_steps * (t_end - t_start)) steps)."""
     dtype = pixel_values.dtype
@@ -284,10 +291,12 @@ def infer_action(
     )
 
     if action0 is None:
+        mesh = get_mesh()
+        n_data, row0 = (1, 0) if mesh is None else (mesh.n_data, mesh.data_index * b)
         action0 = torch.randn(
-            (b, cfg.horizon_steps, cfg.action_dim),
+            (n_data * b, cfg.horizon_steps, cfg.action_dim),
             generator=generator, device=device, dtype=dtype,
-        )
+        )[row0 : row0 + b]
     action = action0.to(device=device, dtype=dtype)
     n_steps = max(1, round(cfg.num_inference_steps * (t_end - t_start)))
     delta_t = (t_end - t_start) / n_steps

@@ -13,9 +13,16 @@ Param tree (L = num layers):
               mlp:     fc1 {kernel [L,D,I], bias [L,I]}, fc2 {kernel [L,I,D], bias [L,D]}
   post_layernorm: {scale [D], bias [D]}
   projector:  {kernel [D, proj], bias [proj]}
+
+Under tensor parallelism (``parallel/sharding.py``) a rank holds a slice
+of the heads (q/k/v and their biases) and of the MLP width (fc1 and its
+bias); the row-parallel o and fc2 all-reduce their partial sums over the
+model group, and their biases, kept whole, are added once after it.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +32,7 @@ from open_pi_zero_torch.models.tree import layer_split
 from open_pi_zero_torch.ops.attention import mha_attention
 from open_pi_zero_torch.ops.linear import linear, lora_delta
 from open_pi_zero_torch.ops.norms import layer_norm
+from open_pi_zero_torch.parallel.collectives import sum_row_parallel
 
 
 def patchify(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
@@ -36,10 +44,17 @@ def patchify(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, patch * patch * c)
 
 
-def _proj(group: dict, name: str, x: torch.Tensor, scaling: float) -> torch.Tensor:
-    """LoRA-aware biased projection."""
+def _proj(
+    group: dict, name: str, x: torch.Tensor, scaling: float, full_in: Optional[int] = None
+) -> torch.Tensor:
+    """LoRA-aware biased projection. With ``full_in`` (the kernel's whole
+    input width) a row-parallel one: its partial sums are reduced over the
+    model group before the bias."""
     d = group[name]
-    out = linear(x, d["kernel"], d["bias"])
+    out = linear(x, d["kernel"])
+    if full_in is not None:
+        out = sum_row_parallel(out, x.shape[-1], full_in)
+    out = out + d["bias"].to(out.dtype)
     lora = group.get(f"{name}_lora")
     if lora is not None:
         out = (out.to(torch.float32) + lora_delta(x, lora, scaling)).to(x.dtype)
@@ -47,20 +62,20 @@ def _proj(group: dict, name: str, x: torch.Tensor, scaling: float) -> torch.Tens
 
 
 def _encoder_layer(x: torch.Tensor, lp: dict, cfg: SiglipConfig) -> torch.Tensor:
-    b, n, d = x.shape
+    b, n, _ = x.shape
     s = cfg.lora_scaling
     eps = cfg.layer_norm_eps
     h = layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], eps)
-    shape = (b, n, cfg.num_attention_heads, cfg.head_dim)
+    shape = (b, n, -1, cfg.head_dim)  # this rank's heads
     q = _proj(lp["attn"], "q", h, s).reshape(shape)
     k = _proj(lp["attn"], "k", h, s).reshape(shape)
     v = _proj(lp["attn"], "v", h, s).reshape(shape)
-    attn = mha_attention(q, k, v).reshape(b, n, d)
-    x = x + _proj(lp["attn"], "o", attn, s)
+    attn = mha_attention(q, k, v).reshape(b, n, -1)
+    x = x + _proj(lp["attn"], "o", attn, s, cfg.hidden_size)
 
     h = layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"], eps)
     h = F.gelu(_proj(lp["mlp"], "fc1", h, s), approximate="tanh")
-    return x + _proj(lp["mlp"], "fc2", h, s)
+    return x + _proj(lp["mlp"], "fc2", h, s, cfg.intermediate_size)
 
 
 def forward(params: dict, cfg: SiglipConfig, pixel_values: torch.Tensor) -> torch.Tensor:

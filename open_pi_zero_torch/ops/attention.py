@@ -2,11 +2,14 @@
 
 ``mot_attention`` is the joint mixture-of-transformers attention with
 Gemma tanh soft-capping and an additive block mask. It dispatches by the
-tensor's device and nothing else: a CPU tensor goes to the plain version
-``mot_attention_ref``; a CUDA tensor goes to the Hopper kernel
-(``ops/fused_attention.py``), whether or not it requires grad: the
-kernel's autograd Function launches or raises, and its backward recomputes
-through ``mot_attention_ref`` as the JAX package's custom VJP does.
+registered mesh and the tensor's device, as the JAX package's ``:40-48``:
+under a mesh of more than one rank (``parallel.make_mesh``) every call
+goes to K1-shard on the rank's shard (``ops/fused_attention.py``), which
+launches K1 on a CUDA tensor or raises; without one, a CPU tensor goes to
+the plain version ``mot_attention_ref`` and a CUDA tensor to the Hopper
+kernel, whether or not it requires grad: the kernel's autograd Function
+launches or raises, and its backward recomputes through
+``mot_attention_ref`` as the JAX package's custom VJP does.
 
 Precision contract:
   - QK^T accumulated in fp32
@@ -31,14 +34,20 @@ def mot_attention(
     v: torch.Tensor,  # [B, Lkv, Hkv, D]
     mask: torch.Tensor,  # [B, 1, Lq, Lkv] additive (0 / MASK_NEG)
     softcap: Optional[float] = 50.0,
+    kv_replicated: bool = False,  # under a mesh: K/V whole while q holds a head slice
 ) -> torch.Tensor:
-    """Dispatch: CPU tensor -> ``mot_attention_ref``; CUDA tensor -> the
-    Hopper kernel and its VJP."""
+    """Dispatch: a registered mesh of more than one rank -> K1-shard;
+    else a CPU tensor -> ``mot_attention_ref``, a CUDA tensor -> the Hopper
+    kernel and its VJP."""
+    from open_pi_zero_torch.ops import fused_attention as fa
+    from open_pi_zero_torch.parallel.mesh import get_mesh
+
+    mesh = get_mesh()
+    if mesh is not None and mesh.size > 1:
+        return fa.mot_attention_fused_sharded(q, k, v, mask, softcap, kv_replicated)
     if q.device.type == "cpu":
         return mot_attention_ref(q, k, v, mask, softcap)
-    from open_pi_zero_torch.ops.fused_attention import mot_attention_fused
-
-    return mot_attention_fused(q, k, v, mask, softcap)
+    return fa.mot_attention_fused(q, k, v, mask, softcap)
 
 
 def mot_attention_ref(

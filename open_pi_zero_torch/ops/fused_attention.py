@@ -21,6 +21,18 @@ not a fallback. The mask takes no grad.
 ``launches`` counts the kernel's launches (a forward that a rematerialized
 layer runs again counts again), so that a run can show that its main path
 went through the kernel.
+
+K1-shard (``mot_attention_fused_sharded``, the counterpart of
+``pallas_attention.py:185-247``) is K1 on one rank's shard under a
+(data, model) mesh of processes: the rank's batch rows and its query
+heads, with K/V either its own heads (Hkv % tp == 0) or every rank's
+replicated single head (Hkv == 1, the MoT trunk). JAX wraps the kernel in
+``shard_map``, whose transpose sums the replicated K/V's cotangents over
+``model``; here each rank already holds its shard (``parallel/``), and
+the same ``MotAttention`` launches K1 on it, given the model group to sum
+dk and dv over when K/V are replicated. Under a registered mesh the
+dispatcher sends every call here, so ``launches`` counted in a rank are
+K1-shard's.
 """
 
 from __future__ import annotations
@@ -32,6 +44,8 @@ import torch
 
 from open_pi_zero_torch.ops import _build
 from open_pi_zero_torch.ops.attention import mot_attention_ref
+from open_pi_zero_torch.parallel import collectives
+from open_pi_zero_torch.parallel.mesh import get_mesh
 
 SOURCE = "mot_attention"
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -131,24 +145,39 @@ def _launch(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
     return out
 
 
+def _recompute_grads(q, k, v, mask, softcap, grad):
+    """dq, dk, dv through the plain version, as ``_vjp_bwd`` recomputes
+    through ``mot_attention_xla``."""
+    with torch.enable_grad():
+        inputs = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = mot_attention_ref(*inputs, mask, softcap)
+        return torch.autograd.grad(out, inputs, grad)
+
+
 class MotAttention(torch.autograd.Function):
     """The kernel under autograd: forward through the kernel, backward by
-    recomputing through the plain version (the JAX package's custom VJP)."""
+    recomputing through the plain version (the JAX package's custom VJP).
+
+    ``kv_group``: the process group whose ranks hold the same K/V (K1-shard
+    with replicated K/V); the backward sums dk and dv over it, as
+    shard_map's transpose psums them. None on one card. ``plain``: the
+    forward goes through the plain version, for K1-shard on a CPU tensor."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, softcap):
+    def forward(ctx, q, k, v, mask, softcap, kv_group=None, plain=False):
         ctx.save_for_backward(q, k, v, mask)
-        ctx.softcap = softcap
+        ctx.softcap, ctx.kv_group = softcap, kv_group
+        if plain:
+            return mot_attention_ref(q, k, v, mask, softcap)
         return _launch(q, k, v, mask, softcap)
 
     @staticmethod
     def backward(ctx, grad):
         q, k, v, mask = ctx.saved_tensors
-        with torch.enable_grad():
-            inputs = [x.detach().requires_grad_() for x in (q, k, v)]
-            out = mot_attention_ref(*inputs, mask, ctx.softcap)
-            dq, dk, dv = torch.autograd.grad(out, inputs, grad)
-        return dq, dk, dv, None, None
+        dq, dk, dv = _recompute_grads(q, k, v, mask, ctx.softcap, grad)
+        if ctx.kv_group is not None:
+            dk, dv = collectives.all_reduce(dk, ctx.kv_group), collectives.all_reduce(dv, ctx.kv_group)
+        return dq, dk, dv, None, None, None, None
 
 
 def mot_attention_fused(
@@ -161,4 +190,45 @@ def mot_attention_fused(
     """Softcapped masked GQA attention through the Hopper kernel, with the
     VJP above. Same contract as ``mot_attention_ref``; returns
     [B, Lq, Hq, D]."""
-    return MotAttention.apply(q, k, v, mask, softcap)
+    return MotAttention.apply(q, k, v, mask, softcap, None, False)
+
+
+# --------------------------------------------------------------------------- #
+# K1-shard: K1 on one rank's shard under a mesh
+# --------------------------------------------------------------------------- #
+
+
+def shardable_attention(q: torch.Tensor, k: torch.Tensor, kv_replicated: bool = False) -> bool:
+    """True if the rank's shard is one K1-shard takes: a mesh of more than
+    one rank is registered, q's local heads group evenly over k's, and
+    replicated K/V are a single head. The TP rules
+    (``parallel.sharding.attention_split``) only ever make such shards:
+    where JAX's ``shardable_attention`` is false, they leave q whole, so
+    the rank holds every head and K1 runs on all of them."""
+    mesh = get_mesh()
+    if mesh is None or mesh.size == 1:
+        return False
+    hq, hkv = q.shape[2], k.shape[2]
+    return q.shape[0] == k.shape[0] and hq % hkv == 0 and (hkv == 1 or not kv_replicated)
+
+
+def mot_attention_fused_sharded(
+    q: torch.Tensor,  # [B / dp, Lq, Hq / tp, D]: this rank's rows and query heads
+    k: torch.Tensor,  # [B / dp, Lkv, Hkv / tp or 1, D]
+    v: torch.Tensor,
+    mask: torch.Tensor,  # [B / dp, 1, Lq, Lkv] additive fp32
+    softcap: Optional[float] = 50.0,
+    kv_replicated: bool = False,  # K/V are the same on every rank of the model group
+) -> torch.Tensor:
+    """K1-shard: attention of one rank's shard under the registered mesh,
+    through K1 on a CUDA tensor (the plain version on a CPU tensor), with
+    ``MotAttention``'s VJP, whose dk and dv are summed over the model group
+    when K/V are replicated. Returns the rank's [B / dp, Lq, Hq / tp, D]."""
+    mesh = get_mesh()
+    if not shardable_attention(q, k, kv_replicated):
+        raise ValueError(
+            f"not a shard K1-shard takes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"kv_replicated={kv_replicated}, mesh {None if mesh is None else mesh.shape}"
+        )
+    group = mesh.model_group if kv_replicated else None
+    return MotAttention.apply(q, k, v, mask, softcap, group, q.device.type == "cpu")

@@ -1,0 +1,115 @@
+"""Tensor-parallel sharding rules for the PiZero param tree (counterpart of
+the JAX package's ``parallel/sharding.py``): Megatron-style TP over the
+``model`` axis of the mesh.
+
+Rules (kernels are stored ``[(L,) in, out]``), as in JAX:
+  column-parallel (split the out dim): attn q/k/v, mlp gate/up, SigLIP fc1
+  row-parallel (split the in dim):     attn o, mlp down, SigLIP fc2
+  replicated:                          norms, embeddings, encoders, decoders
+and a dim that does not divide over the model axis stays replicated.
+Quantized and LoRA leaves raise: they are not ported.
+
+A spec is a tuple like JAX's ``PartitionSpec``: ``()`` for a replicated
+leaf, else one entry per dim with ``MODEL_AXIS`` at the split dim.
+
+Deliberate differences from JAX, which can leave the split to GSPMD while
+each rank here runs its own program on whole heads:
+  (a) attention projections split by whole heads. Query heads (q, o) split
+      when the attention is shardable (``attention_split``, JAX's
+      ``shardable_attention``); K/V (k, v) only when Hkv % tp == 0. JAX
+      splits the trunk's 256-wide k/v out dim at tp = 2 (Hkv = 1) and
+      GSPMD gathers it again before RoPE, which rotates pairs across the
+      two halves of a head; K1-shard replicates K/V in that case anyway
+      (``pallas_attention.py:236``), so the function is the same.
+  (b) biases: JAX leaves every stacked bias replicated. Here a
+      column-parallel bias is split with its kernel, and a row-parallel
+      bias (SigLIP o, fc2) stays whole and is added once, after the
+      reduce: added on every rank it would count tp times.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from open_pi_zero_torch.config import PiZeroConfig
+from open_pi_zero_torch.parallel.mesh import MODEL_AXIS, Mesh
+
+COLUMN = frozenset({"q", "k", "v", "gate", "up", "fc1"})
+ROW = frozenset({"o", "down", "fc2"})
+
+
+def attention_split(num_heads: int, num_kv_heads: int, tp: int) -> Tuple[bool, bool]:
+    """(query heads split, K/V heads split) over ``tp`` model ranks. Query
+    heads split when the attention is shardable as in JAX: Hq % tp == 0
+    with K/V either split (Hkv % tp == 0) or one replicated head (MQA, the
+    MoT trunk), so each rank's GQA grouping stays whole."""
+    q_split = num_heads % tp == 0 and (num_kv_heads % tp == 0 or num_kv_heads == 1)
+    return q_split, q_split and num_kv_heads % tp == 0
+
+
+def _split_dim(path: Tuple[str, ...], leaf, cfg: PiZeroConfig, tp: int) -> Optional[int]:
+    """The dim (counted from the end) a leaf splits along, or None."""
+    if any(name.endswith("_lora") for name in path):
+        raise NotImplementedError(f"{'/'.join(path)}: LoRA leaves are not ported to TP")
+    last, parent = path[-1], (path[-2] if len(path) >= 2 else None)
+    if parent in COLUMN | ROW:
+        if last not in ("kernel", "bias"):
+            raise NotImplementedError(f"{'/'.join(path)}: quantized leaves are not ported to TP")
+        name, part = parent, last
+    elif last in COLUMN | ROW:
+        name, part = last, "kernel"
+    else:
+        return None
+    if part == "kernel" and leaf.ndim < 2:
+        return None
+    dim = -1 if name in COLUMN else -2
+    if part == "bias":
+        if name in ROW:
+            return None  # (b): added once, after the reduce
+        dim = -1
+    if "attn" in path:  # (a): whole heads
+        if path[0] == "siglip":
+            heads = cfg.siglip.num_attention_heads
+            q_split = kv_split = heads % tp == 0
+        else:
+            q_split, kv_split = attention_split(
+                cfg.joint.num_attention_heads, cfg.joint.num_key_value_heads, tp
+            )
+        return dim if (kv_split if name in ("k", "v") else q_split) else None
+    return dim if leaf.shape[dim] % tp == 0 else None
+
+
+def tp_param_specs(params: dict, cfg: PiZeroConfig, tp: int) -> dict:
+    """Spec tree matching ``params`` for TP over ``tp`` model ranks."""
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        dim = _split_dim(path, node, cfg, tp) if tp > 1 else None
+        if dim is None:
+            return ()
+        spec = [None] * node.ndim
+        spec[node.ndim + dim] = MODEL_AXIS
+        return tuple(spec)
+
+    return walk(params, ())
+
+
+def shard_params_tp(params: dict, cfg: PiZeroConfig, mesh: Mesh) -> dict:
+    """This rank's params: its slice of every split leaf, copied so that
+    the full tree can be freed; replicated leaves are the same tensors."""
+    specs = tp_param_specs(params, cfg, mesh.n_model)
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        if not spec:
+            return node
+        dim = spec.index(MODEL_AXIS)
+        size = node.shape[dim] // mesh.n_model
+        part = node.narrow(dim, mesh.model_index * size, size)
+        return part.clone(memory_format=torch.contiguous_format)
+
+    return walk(params, specs)

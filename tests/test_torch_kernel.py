@@ -65,6 +65,38 @@ def test_kernel_matches_plain(cuda, geom, dtype, tol):
     torch.testing.assert_close(got, mot_attention_ref(q, k, v, mask, 50.0), rtol=tol, atol=tol)
 
 
+SHARD_GEOMETRIES = [
+    # one rank's shard at TP = 2: 4 of the 8 query heads, the one K/V head
+    (1, 277, 277, 4, 1, 256),  # prefill: 70 blocks of 16 folded rows
+    (1, 4, 281, 4, 1, 256),  # Euler step: 1 block
+    (2, 4, 281, 4, 1, 256),
+    (16, 281, 281, 4, 1, 256),  # training
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("geom", SHARD_GEOMETRIES)
+def test_kernel_matches_plain_at_the_shard_shapes(cuda, geom, dtype, tol):
+    q, k, v, mask = _inputs(cuda, *geom, dtype, seed=3)
+    got = fa.mot_attention_fused(q, k, v, mask, 50.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, mot_attention_ref(q, k, v, mask, 50.0), rtol=tol, atol=tol)
+
+
+def test_k1_shard_in_two_ranks_matches_plain(cuda):
+    """K1-shard in a (data=1, model=2) world of spawned ranks sharing the
+    card: each rank's out, dq and its all-reduced dk, dv against the plain
+    version on the whole inputs."""
+    from open_pi_zero_torch.parallel import ranks, run_ranks
+
+    q, k, v, mask = (x.cpu().numpy() for x in _inputs("cpu", 2, 37, 41, 8, 1, 256, torch.float32, seed=4))
+    g = np.random.default_rng(5).normal(size=q.shape).astype(np.float32)
+    case = dict(name="mqa", q=q, k=k, v=v, mask=mask, g=g, softcap=50.0, dtype="float32", tol=1e-4)
+    (row,) = run_ranks(ranks.attention_rank, 1, 2, [case], device="cuda", timeout_s=300)
+    for part in ("out", "dq", "dk", "dv"):
+        assert row[f"not_close_{part}"] == 0, (part, row[f"max_abs_err_{part}"])
+
+
 def test_kernel_no_softcap_and_fully_masked_rows(cuda):
     q, k, v, mask = _inputs(cuda, 1, 4, 281, 8, 1, 256, torch.float32)
     torch.testing.assert_close(
