@@ -7,10 +7,17 @@ Phases, each of which raises on failure:
   1. build   — nvcc builds csrc/mot_attention.cu into build/torch_kernels/;
                prints the card's name and power limit as nvidia-smi
                reports them
-  2. kernels — the MoT-attention kernel against its plain version on the
-               card, at the main path's shapes and edge cases, in bf16
-               (2e-2) and fp32 (1e-4); kernel, plain and library times per
-               launch, each on one input called back to back
+  2. kernels — the launch floor: an empty kernel's device time per
+               launch and the interval between back-to-back launches. Then
+               the MoT-attention kernel against its plain version on the
+               card, at the main path's shapes (prefill, Euler, decode,
+               K1-shard's Euler step, the training shape) and edge cases (a
+               fully masked row, a cluster block whose whole Lkv slice is
+               masked), in bf16 (2e-2) and fp32 (1e-4), two calls bitwise
+               equal; kernel, plain and library times per launch in the
+               dtype of the path that runs the shape (fp32 for K1-shard's
+               Euler step and training), each on one input called back to
+               back, beside the bound and the launch geometry
   3. parity  — bridge widths at depth 2 (bridge_width_dryrun_config), fp32:
                the whole action inference on the card (kernel) against the
                CPU (plain version), max|diff| <= 1e-3
@@ -23,9 +30,12 @@ Phases, each of which raises on failure:
                `ms` of the kernels line. The kernel's inputs of one more
                chunk are kept and replayed, in the main path's order,
                through the kernel (held against the plain version), the
-               plain version and one library attention call: their summed
-               device times are `plain_ms` and `library_ms`, and the
-               inputs' sizes give `bound_ms`
+               plain version and one library attention call, in a
+               process of its own (the profiler loses device events in a
+               process that has profiled much before): their summed
+               device times are `plain_ms` and `library_ms`, the
+               kernel's counted by its symbol with every launch traced,
+               and the inputs' sizes give `bound_ms`
   5. serve   — the port's BatchingPolicy over the full-width model: 4
                requests from 4 threads and 1 through ActionServer on
                localhost; then the bf16 params are freed
@@ -48,7 +58,8 @@ Phases, each of which raises on failure:
                torch.profiler. The kernel's inputs of one update are kept
                and replayed as the training path runs them (two forwards,
                the second with its VJP) through the Function, the plain
-               version and one library attention call: `ms`, `plain_ms`,
+               version and one library attention call, timed as in phase
+               4: `ms`, `plain_ms`,
                `library_ms` and `bound_ms` of the mot_attention_vjp entry
   9. shard-kernel — K1-shard (the kernel on one rank's shard under a
                mesh) in 2 spawned ranks, mesh (data=1, model=2): each rank's
@@ -72,7 +83,7 @@ Phases, each of which raises on failure:
                memory. Rank 0's K1-shard inputs of one chunk are replayed
                here, with no rank left on the card, through K1 (the
                forward K1-shard launches), the plain version and one
-               library call: `ms`, `plain_ms`,
+               library call, timed as in phase 4: `ms`, `plain_ms`,
                `library_ms` and `bound_ms` of the mot_attention_shard entry
 The ranks share the one card over gloo (CUDA tensors staged through host
 memory: NCCL refuses two ranks on one card); with a card per rank they
@@ -85,8 +96,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import re
 import statistics
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -105,21 +119,40 @@ from open_pi_zero_torch.parallel import ranks, run_ranks
 from open_pi_zero_torch.training import optimizer as opt_lib
 from open_pi_zero_torch.training import train_step
 
-# H100 SXM published peaks at the full 700 W limit: HBM bytes/s, dense
-# bf16 tensor-core FLOP/s and fp32 FLOP/s outside the tensor cores
+# H100 SXM published peaks at the full 700 W limit: HBM bytes/s and dense
+# bf16 tensor-core FLOP/s. fp32-accurate products run on the tensor cores
+# as three TF32 products each (3xTF32, K1's route), so fp32 work is bound
+# at a third of the dense TF32 peak (495 TFLOP/s), not at the 67 TFLOP/s
+# of fp32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
-FP32_FLOPS = 67e12
+FP32_FLOPS = 495e12 / 3
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 REPLACES = "open_pi_zero_tpu/ops/pallas_attention.py:123"
 REPLACES_VJP = "open_pi_zero_tpu/ops/pallas_attention.py:165"
 REPLACES_SHARD = "open_pi_zero_tpu/ops/pallas_attention.py:221"
 RANK_TIMEOUT_S = 600  # every collective of a spawned world
 KERNEL_SYMBOL = "mot_attention_fwd_kernel"  # the kernel's name in a profile
+MARKERS = 128  # empty kernels before and after the work of a profiled window
+WINDOW_TRIES = 4  # windows that profiled_ms takes at most
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def log_build_instances(build_log: str) -> None:
+    """One line per kernel instance from ptxas -v: its dtype, head dim and
+    rows per block, registers and spills (its shared memory is dynamic:
+    ``fused_attention.smem_bytes``)."""
+    name = None
+    for line in build_log.splitlines():
+        found = re.search(r"mot_attention_fwd_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", line)
+        if "Compiling entry function" in line:
+            name = (f"{'bf16' if found.group(1) != 'f' else 'fp32'} D={found.group(2)} rows={found.group(3)}"
+                    if found else line.split("'")[1])
+        elif name and ("spill" in line or "registers" in line):
+            log(f"build: {name}: {line.replace('ptxas info    :', '').strip()}")
 
 
 def card() -> str:
@@ -146,6 +179,68 @@ def time_ms(fn, samples: int = 21, calls: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def profiled_ms(fn, match=None, expected=None) -> tuple:
+    """(device ms, events) of one run of ``fn`` under torch.profiler: the
+    device events whose name contains ``match``, all of them when None
+    (``expected`` of them, if given). The profiler loses device events in
+    some windows on an H100: mostly the first ones (all 128 empty kernels
+    that opened one window), once about half of a replayed training
+    update. So ``fn`` runs between MARKERS empty kernels before and
+    MARKERS after, left out of the sums, and a window counts only if every
+    marker was traced (and ``expected`` matched); one that does not is
+    logged and taken again, WINDOW_TRIES times at most; then it raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for _ in range(WINDOW_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(MARKERS):
+                fa.empty_launch(dev)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            for _ in range(MARKERS):
+                fa.empty_launch(dev)
+            torch.cuda.synchronize()
+        marker_ms, markers = device_ms(prof, "opz_empty_kernel")
+        ms, count = device_ms(prof, match)
+        if match is None:
+            ms, count = ms - marker_ms, count - markers
+        if markers == 2 * MARKERS and expected in (None, count):
+            return ms, count
+        log(f"profiler: window taken again: {markers} of {2 * MARKERS} markers traced, "
+            f"{count} events matching {match!r}, {expected} expected")
+    raise AssertionError(f"the profiler lost events in {WINDOW_TRIES} windows running")
+
+
+def kernel_ms(fn, calls: int) -> float:
+    """K1's device time over one run of ``fn``, which launches it
+    ``calls`` times, summed by the kernel's symbol; raises unless the
+    wrapper counted and the profiler traced every launch."""
+    before = fa.launches
+    ms, _ = profiled_ms(fn, KERNEL_SYMBOL, expected=calls)
+    if (fa.launches - before) % calls:
+        raise AssertionError(f"{fa.launches - before} K1 launches counted over windows of {calls} calls")
+    return ms
+
+
+def device_time_ms(fn, match=None, calls: int = 20) -> float:
+    """Mean device time per call of ``fn`` under torch.profiler over
+    ``calls`` calls, after a warm-up: for the kernel's symbol, K1's
+    launches (every one traced), else every device event. Host time
+    between launches is left out, so a kernel faster than its launch is
+    timed, not the host."""
+    for _ in range(3):
+        fn()
+
+    def run():
+        for _ in range(calls):
+            fn()
+
+    return (kernel_ms(run, calls) if match == KERNEL_SYMBOL else profiled_ms(run, match)[0]) / calls
 
 
 def example_batch(cfg, b: int, rng) -> dict:
@@ -195,22 +290,36 @@ def attention_cases(dev):
         m[..., 0] = 0.0
         return torch.from_numpy(m).to(dev)
 
+    euler = (1, 4, 281, 8, 1, 256)
+    _, split = fa.launch_geometry(*euler, 2, fa.card_limits(dev))
+    size = -(-281 // split)
+    slice_masked = action[:1].clone()
+    slice_masked[..., size : 2 * size] = MASK_NEG  # the cluster's second block sees no key
+    train_am = torch.zeros(TRAIN_B, cfg.max_image_text_tokens, dtype=torch.int32, device=dev)
+    for i in range(TRAIN_B):
+        train_am[i, : 257 + i] = 1
+    train_mask = pizero.prepare_action_inputs(cfg, train_am)[0]
+    bf16, fp32 = torch.bfloat16, torch.float32
     return [
-        ("prefill", (1, 277, 277, 8, 1, 256), prefix[:1], 50.0),
-        ("euler", (1, 4, 281, 8, 1, 256), action[:1], 50.0),
-        ("decode", (1, 1, 277, 8, 1, 256), rand_mask(1, 1, 277), 50.0),
-        ("prefill_b2", (2, 277, 277, 8, 1, 256), prefix, 50.0),
-        ("multi_kv", (1, 1, 300, 8, 2, 32), rand_mask(1, 1, 300), 50.0),
-        ("fully_masked", (1, 4, 281, 8, 1, 256), torch.full((1, 1, 4, 281), MASK_NEG, device=dev), 50.0),
-        ("no_softcap", (1, 4, 281, 8, 1, 256), action[:1], None),
+        ("prefill", (1, 277, 277, 8, 1, 256), prefix[:1], 50.0, bf16),
+        ("euler", euler, action[:1], 50.0, bf16),
+        ("decode", (1, 1, 277, 8, 1, 256), rand_mask(1, 1, 277), 50.0, bf16),
+        ("shard_euler", (1, 4, 281, 4, 1, 256), action[:1], 50.0, fp32),
+        ("train", (TRAIN_B, 281, 281, 8, 1, 256), train_mask, 50.0, fp32),
+        ("prefill_b2", (2, 277, 277, 8, 1, 256), prefix, 50.0, bf16),
+        ("multi_kv", (1, 1, 300, 8, 2, 32), rand_mask(1, 1, 300), 50.0, bf16),
+        ("fully_masked", euler, torch.full((1, 1, 4, 281), MASK_NEG, device=dev), 50.0, bf16),
+        ("slice_masked", euler, slice_masked, 50.0, bf16),
+        ("no_softcap", euler, action[:1], None, bf16),
     ]
 
 
-def bound_ms(shape) -> tuple:
-    """Least time for the function in bf16 on an H100: q, k, v and the fp32
-    mask read once and the output written once, over HBM; 4*B*Hq*Lq*Lkv*D
-    FLOP over the bf16 peak. Returns (ms, "bytes" | "operations")."""
-    t_bytes, t_ops = bound_parts(shape)
+def bound_ms(shape, dtype=torch.bfloat16) -> tuple:
+    """Least time for the function in ``dtype`` on an H100: q, k, v and the
+    fp32 mask read once and the output written once, over HBM;
+    4*B*Hq*Lq*Lkv*D FLOP over the peak of ``dtype``. Returns (ms, "bytes" |
+    "operations")."""
+    t_bytes, t_ops = bound_parts(shape, dtype)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -225,9 +334,28 @@ def bound_parts(shape, dtype=torch.bfloat16) -> tuple:
     return moved / HBM_BYTES_PER_S * 1e3, 4 * b * hq * lq * lkv * d / peak * 1e3
 
 
+def launch_floor(dev) -> dict:
+    """The empty kernel's device time per launch (profiled over 200
+    launches) and the interval between back-to-back launches (events): the
+    floor under each of K1's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    interval = time_ms(lambda: fa.empty_launch(dev), calls=100)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(200):
+            fa.empty_launch(dev)
+        torch.cuda.synchronize()
+    ms, count = device_ms(prof, "opz_empty_kernel")
+    return {"device_ms_per_launch": ms / count, "interval_ms": interval}
+
+
 def check_kernel(dev) -> dict:
+    """Each case against the plain version in fp32 and bf16, then the
+    kernel's, the plain version's and the library call's time per launch in
+    the case's dtype, beside the bound, the launch geometry and the
+    determinism of two calls."""
     results = {}
-    for name, shape, mask, softcap in attention_cases(dev):
+    for name, shape, mask, softcap, time_dtype in attention_cases(dev):
         b, lq, lkv, hq, hkv, d = shape
         rng = np.random.default_rng(len(results))
         base = [
@@ -246,20 +374,24 @@ def check_kernel(dev) -> dict:
             torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype],
                                        msg=lambda m: f"{name} {dtype}: {m}")
             row[f"max_abs_err_{str(dtype)[6:]}"] = err
-        # times in the main path's dtype
-        q, k, v = (x.to(torch.bfloat16) for x in base)
-        row["ms"] = time_ms(lambda: fa.mot_attention_fused(q, k, v, mask, softcap))
-        row["plain_ms"] = time_ms(lambda: mot_attention_ref(q, k, v, mask, softcap))
+            if not torch.equal(got, fa.mot_attention_fused(q, k, v, mask, softcap)):
+                raise AssertionError(f"{name} {dtype}: two calls differ")
+        # times in the dtype of the path that runs the shape
+        q, k, v = (x.to(time_dtype) for x in base)
+        row["time_dtype"] = str(time_dtype)[6:]
+        row["rows_per_block"], row["split"] = fa.launch_geometry(*shape, q.element_size(), fa.card_limits(dev))
+        row["ms"] = device_time_ms(lambda: fa.mot_attention_fused(q, k, v, mask, softcap), KERNEL_SYMBOL)
+        row["plain_ms"] = device_time_ms(lambda: mot_attention_ref(q, k, v, mask, softcap))
         # yardstick: one library call of (unsoftcapped) masked attention on
         # the same inputs, heads first, K/V expanded to the query heads
         qh = q.transpose(1, 2)
         kh = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
         vh = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
-        mh = mask.clamp(min=float(torch.finfo(torch.bfloat16).min)).to(torch.bfloat16)
-        row["library_ms"] = time_ms(
+        mh = mask.clamp(min=float(torch.finfo(time_dtype).min)).to(time_dtype)
+        row["library_ms"] = device_time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mh)
         )
-        row["bound_ms"], row["bound_by"] = bound_ms(shape)
+        row["bound_ms"], row["bound_by"] = bound_ms(shape, time_dtype)
         results[name] = row
     return results
 
@@ -435,10 +567,9 @@ def replay(calls, attention=fa.mot_attention_fused) -> dict:
     """The main path's kernel calls replayed in order: ``attention`` (the
     kernel's wrapper) held against the plain version on each, then the
     device time of the wrapper, of the plain version and of one library
-    attention call (without the softcap) summed over all of them, and the
-    bound of their sizes."""
-    from torch.profiler import ProfilerActivity, profile
-
+    attention call (without the softcap) summed over all of them (the
+    kernel's by its symbol, every launch traced), and the bound of their
+    sizes. Run it in a fresh process (``replay_in_fresh_process``)."""
     err = 0.0
     for q, k, v, mask, softcap in calls:
         got, want = attention(q, k, v, mask, softcap), mot_attention_ref(q, k, v, mask, softcap)
@@ -463,11 +594,9 @@ def replay(calls, attention=fa.mot_attention_fused) -> dict:
     out = {"max_abs_err": err}
     for name, fn in timed.items():
         fn()  # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        out[f"{name}_ms"] = device_ms(prof)[0]
+        # the kernel counted by its symbol, as the main path's profile
+        # counts it: one traced launch per call
+        out[f"{name}_ms"] = kernel_ms(fn, len(calls)) if name == "kernel" else profiled_ms(fn)[0]
     t_bytes = t_ops = 0.0
     for q, k, v, _, _ in calls:
         (b, lq, hq, d), (_, lkv, hkv, _) = q.shape, k.shape
@@ -475,6 +604,28 @@ def replay(calls, attention=fa.mot_attention_fused) -> dict:
         t_bytes, t_ops = t_bytes + tb, t_ops + to
     out["bound_ms"], out["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     return out
+
+
+def replay_process(_index: int, kind: str, path: str, result: str) -> None:
+    """``replay`` (kind "forward") or ``replay_vjp`` (kind "vjp") of the
+    calls saved at ``path``, in a spawned process; the result goes to
+    ``result``."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    calls = [tuple(x.to(dev) if torch.is_tensor(x) else x for x in c) for c in torch.load(path)]
+    torch.save(replay(calls) if kind == "forward" else replay_vjp(calls), result)
+
+
+def replay_in_fresh_process(calls, kind: str) -> dict:
+    """The replay of ``calls`` in a process of its own, whose profiler has
+    traced nothing before: late in a process that has profiled much, the
+    profiler lost the first events of every window (15 of 128 openers in
+    each of K1-shard's), so that taking a window again did not help."""
+    with tempfile.TemporaryDirectory(prefix="opz_replay_") as tmp:
+        path, result = os.path.join(tmp, "calls.pt"), os.path.join(tmp, "result.pt")
+        torch.save([tuple(x.cpu() if torch.is_tensor(x) else x for x in c) for c in calls], path)
+        torch.multiprocessing.spawn(replay_process, args=(kind, path, result), nprocs=1, join=True)
+        return torch.load(result, weights_only=False)
 
 
 # --------------------------------------------------------------------------- #
@@ -746,13 +897,11 @@ def vjp_bound_parts(q, k) -> tuple:
 def replay_vjp(calls) -> dict:
     """One update's kernel calls replayed as the training path runs them:
     for each, a forward, then a forward and its VJP for a random cotangent.
-    The Function is held against plain autograd on each; then the summed
-    device time of that work through the Function, through the plain
-    version and through one library attention call (without the softcap,
-    K/V expanded to the query heads outside the timed calls), and the
-    bound of the calls' sizes."""
-    from torch.profiler import ProfilerActivity, profile
-
+    The Function is held against plain autograd on each; then the device
+    time of that work through the Function, through the plain version and
+    through one library attention call (without the softcap, K/V expanded
+    to the query heads outside the timed calls), and the bound of the
+    calls' sizes. Run it in a fresh process (``replay_in_fresh_process``)."""
     gen = torch.Generator(calls[0][0].device).manual_seed(9)
     cots = [torch.randn(c[0].shape, generator=gen, device=c[0].device, dtype=c[0].dtype) for c in calls]
     err = 0.0
@@ -789,11 +938,7 @@ def replay_vjp(calls) -> dict:
     out = {"max_abs_err": err, "calls": len(calls)}
     for name, fn in timed.items():
         fn()  # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        out[f"{name}_ms"] = device_ms(prof)[0]
+        out[f"{name}_ms"] = profiled_ms(fn)[0]
     t_bytes = t_ops = 0.0
     for q, k, *_ in calls:
         tb, to = vjp_bound_parts(q, k)
@@ -897,10 +1042,10 @@ def check_shard_main(dev) -> dict:
     err = float(np.abs(chunk - ref).max())
     if not err <= 1e-3:
         raise AssertionError(f"TP chunk vs unsharded chunk max|diff| {err} > 1e-3")
-    calls = [tuple(x.to(dev) for x in c[:4]) + (softcap,) for *c, softcap in got.pop("calls")]
+    calls = got.pop("calls")
     if len(calls) != expected:
         raise AssertionError(f"{len(calls)} K1-shard calls recorded, want {expected}")
-    replayed = replay(calls)  # K1-shard's forward is K1 on the shard
+    replayed = replay_in_fresh_process(calls, "forward")  # K1-shard's forward is K1 on the shard
     return {
         "backend": got["backend"], "card": got["card"], "ranks": got["ranks"],
         "chunk_ms": got["chunk_ms"], "unsharded_chunk_ms": got["unsharded_ms"],
@@ -912,8 +1057,16 @@ def check_shard_main(dev) -> dict:
 def single_card_phases(dev, info: str) -> list:
     """Phases 2-8 on card 0; returns their entries of the kernels line."""
     t0 = time.time()
+    floor = launch_floor(dev)
+    log(f"launch floor: empty kernel {floor['device_ms_per_launch']:.5f} ms device time per launch, "
+        f"{floor['interval_ms']:.5f} ms between back-to-back launches, on {info}")
     kernel = check_kernel(dev)
     log("kernel_vs_plain, per launch: " + json.dumps(kernel))
+    for name in ("euler", "prefill", "decode", "shard_euler", "train"):
+        r = kernel[name]
+        log(f"kernel per launch {name} {r['shape']} {r['time_dtype']}: {r['ms']:.5f} ms "
+            f"(bound {r['bound_ms']:.5f} ms, {r['bound_by']}; plain {r['plain_ms']:.5f}, library "
+            f"{r['library_ms']:.5f}; {r['rows_per_block']} rows per block, split {r['split']}), on {info}")
     log(f"phase kernels ok in {time.time() - t0:.1f} s")
 
     t0 = time.time()
@@ -932,7 +1085,7 @@ def single_card_phases(dev, info: str) -> list:
         f"{main_path['peak_mem_gb']:.3f} GB, on {info}")
     prof = profile_chunk(dev, cfg, params, main_path["launches"])
     calls = record_main_path_calls(dev, cfg, params)
-    replayed = replay(calls)
+    replayed = replay_in_fresh_process(calls, "forward")
     log(f"main: kernel on the main path {prof['ms']:.3f} ms over {prof['launches']} launches; "
         "replayed calls: " + json.dumps(replayed))
 
@@ -965,7 +1118,7 @@ def single_card_phases(dev, info: str) -> list:
     train_calls = record_training_calls(dev, cfg, params, batch)
     del params, state, step, batch
     torch.cuda.empty_cache()
-    replayed_vjp = replay_vjp(train_calls)
+    replayed_vjp = replay_in_fresh_process(train_calls, "vjp")
     log("train-main: replayed calls of one update: " + json.dumps(replayed_vjp))
     log(f"phase train-main ok in {time.time() - t0:.1f} s")
     del train_calls
@@ -1055,9 +1208,7 @@ def main() -> None:
     _build.build(fa.SOURCE)
     info = card()
     log(f"build: {fa.SOURCE} in {time.time() - t0:.1f} s")
-    for line in _build.build_log(fa.SOURCE).splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"build: {line.strip()}")
+    log_build_instances(_build.build_log(fa.SOURCE))
     log(f"card: {info}")
 
     kernels = single_card_phases(dev, info)

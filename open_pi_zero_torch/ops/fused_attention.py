@@ -18,6 +18,14 @@ version ``mot_attention_ref`` and returns dq, dk and dv from
 backward is XLA einsums), so the port's backward is PyTorch ops by design,
 not a fallback. The mask takes no grad.
 
+Launch geometry (``launch_geometry``, chosen here so that the CPU tests
+reach it): blocks of 16 or 64 folded query rows, and the Lkv axis split
+over a thread block cluster of up to 16 blocks, so that the latency-bound
+Euler step runs on 32 SMs instead of 2; the card's SM count and shared
+memory are read at launch (``card_limits``). ``smem_bytes`` mirrors the
+source's shared-memory plan, and ``mot_attention_split_ref`` repeats the
+kernel's split arithmetic in plain PyTorch for the tests.
+
 ``launches`` counts the kernel's launches (a forward that a rematerialized
 layer runs again counts again), so that a run can show that its main path
 went through the kernel.
@@ -38,6 +46,7 @@ K1-shard's.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -51,6 +60,10 @@ SOURCE = "mot_attention"
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM_BYTES = 232448  # dynamic shared memory one block may use on Hopper (kMaxSmem)
+BLOCK_SMEM_RESERVED = 1024  # shared memory the runtime reserves per block
+KEYS_PER_TILE = 32  # kKeys: K/V rows per ring stage
+MAX_SPLIT = 16  # blocks per cluster (16 is the non-portable size)
+MAX_LKV_SPLIT = 8  # the split that max_lkv's slices assume
 
 launches = 0
 
@@ -67,22 +80,134 @@ def _library() -> ctypes.CDLL:
             *[ctypes.c_int] * 6,  # batch, lq, lkv, hq, hkv, head_dim
             ctypes.c_longlong, ctypes.c_longlong,  # mask batch / row strides
             ctypes.c_float, ctypes.c_float,  # scale, softcap
+            ctypes.c_int, ctypes.c_int,  # rows per block, split
             ctypes.c_void_p,  # stream
         ]
         lib.opz_mot_attention_fwd.restype = ctypes.c_int
+        lib.opz_empty_launch.argtypes = [ctypes.c_void_p]
+        lib.opz_empty_launch.restype = ctypes.c_int
+        lib.opz_mot_attention_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.opz_mot_attention_smem_bytes.restype = ctypes.c_int
         lib.opz_cuda_error_string.argtypes = [ctypes.c_int]
         lib.opz_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
+def smem_bytes(element_size: int, head_dim: int, rows: int, slice_len: int) -> int:
+    """Dynamic shared memory of one block: ``make_plan`` in the source. q
+    rows of stride D + 16 B; a ring of 2 stages of 32 K/V rows of stride
+    D + 8, or the fp32 partial out [rows, D + 4] if larger; fp32 scores
+    [rows, round32(slice) + 4]; bf16 p [rows, round32(slice) + 8] (bf16
+    only); the rows' max and sum."""
+    slice_pad = -(-slice_len // KEYS_PER_TILE) * KEYS_PER_TILE
+    q_bytes = rows * (head_dim + 16 // element_size) * element_size
+    ring = 2 * KEYS_PER_TILE * (head_dim + 8) * element_size
+    partial_out = rows * (head_dim + 4) * 4  # overlays q and the ring at the end
+    scores = rows * (slice_pad + 4) * 4
+    p_bytes = rows * (slice_pad + 8) * 2 if element_size == 2 else 0
+    return max(q_bytes + ring, partial_out) + scores + p_bytes + 2 * rows * 4
+
+
+def block_threads(rows: int, element_size: int) -> int:
+    """Threads of a block (``Cfg::kThreads``): 4 warps for 16 rows; for
+    64 rows, 8 in bf16 and 16 in fp32."""
+    return 128 if rows == 16 else (256 if element_size == 2 else 512)
+
+
+def blocks_per_sm(smem: int, rows: int, element_size: int, card: tuple) -> int:
+    """Blocks that one SM of ``card`` holds at once: its shared memory,
+    BLOCK_SMEM_RESERVED of it per block, and its threads."""
+    _, sm_smem, sm_threads = card
+    return min(sm_smem // (smem + BLOCK_SMEM_RESERVED), sm_threads // block_threads(rows, element_size))
+
+
+@functools.lru_cache(maxsize=None)
+def card_limits(device: torch.device) -> tuple:
+    """(SMs, shared memory per SM, threads per SM) of a CUDA device, which
+    ``launch_geometry`` fills."""
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count, props.shared_memory_per_multiprocessor, props.max_threads_per_multi_processor
+
+
+@functools.lru_cache(maxsize=None)
 def max_lkv(head_dim: int) -> int:
-    """Longest K/V sequence the kernel's shared memory holds (2336 at D=256).
-    Mirrors ``smem_bytes`` in the source: 16 fp32 query rows, a 64-row fp32
-    K/V tile of stride D + 4, and 16 rows of fp32 scores over round4(Lkv)
-    columns."""
-    fixed = 4 * (16 * head_dim + 64 * (head_dim + 4))
-    return (MAX_SMEM_BYTES - fixed) // (4 * 16) // 4 * 4
+    """Longest K/V sequence the kernel takes at ``head_dim`` (2816 at
+    D = 256): MAX_LKV_SPLIT slices of the longest slice whose block fits
+    the shared memory in both dtypes and both row tiles."""
+    longest = min(
+        max(s for s in range(KEYS_PER_TILE, 8192, KEYS_PER_TILE)
+            if smem_bytes(size, head_dim, rows, s) <= MAX_SMEM_BYTES)
+        for size in (2, 4) for rows in (16, 64)
+    )
+    return MAX_LKV_SPLIT * longest
+
+
+@functools.lru_cache(maxsize=None)
+def launch_geometry(batch: int, lq: int, lkv: int, hq: int, hkv: int, head_dim: int,
+                    element_size: int, card: tuple) -> tuple:
+    """(rows per block, split) of a launch on ``card`` (``card_limits``). A
+    cell is 64 folded rows of one (batch, kv head) where there are 128 or
+    more, else 16. The cell's Lkv is split over a cluster of ``split``
+    blocks: doubled while the doubled grid still fits the card at once (one
+    wave) and each block keeps 16 keys or more, and while a block's shared
+    memory does not fit."""
+    rows_total = (hq // hkv) * lq
+    rows = 64 if rows_total >= 128 else 16
+    cells = batch * hkv * -(-rows_total // rows)
+
+    def smem(s):
+        return smem_bytes(element_size, head_dim, rows, -(-lkv // s))
+
+    def one_wave(s):
+        return cells * s <= card[0] * blocks_per_sm(smem(s), rows, element_size, card)
+
+    split = 1
+    while split < MAX_SPLIT and lkv >= 32 * split and one_wave(2 * split):
+        split *= 2
+    while split < MAX_SPLIT and smem(split) > MAX_SMEM_BYTES:
+        split *= 2
+    if smem(split) > MAX_SMEM_BYTES:
+        raise ValueError(f"Lkv={lkv} exceeds the kernel's shared memory at D={head_dim}")
+    return rows, split
+
+
+def mot_attention_split_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+    softcap: Optional[float] = 50.0, parts: int = 1,
+) -> torch.Tensor:
+    """The kernel's arithmetic over an Lkv split into ``parts`` slices of
+    ceil(Lkv / parts) keys, in plain PyTorch, for the tests. Each slice b:
+    fp32 scores s, their max m_b, e = exp(s - m_b) and l_b = sum e. Then
+    M = max m_b and L = sum_b l_b exp(m_b - M) in slice order; p =
+    e exp(m_b - M) / L, rounded to V's dtype only now; each slice's fp32
+    p v; the partials summed in slice order from zero; the output rounded
+    to q's dtype."""
+    b, lq, hq, d = q.shape
+    _, lkv, hkv, _ = k.shape
+    g = hq // hkv
+    qf = q.float().reshape(b, lq, hkv, g, d)
+    size = -(-lkv // parts)
+    bounds = [(min(r * size, lkv), min((r + 1) * size, lkv)) for r in range(parts)]
+    bounds = [(lo, hi) for lo, hi in bounds if hi > lo]  # an empty slice adds nothing
+    stats = []
+    for lo, hi in bounds:
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k[:, lo:hi].float()) * (1.0 / d**0.5)
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
+        s = s + mask[:, :, None, :, lo:hi].float()
+        m = s.amax(-1, keepdim=True)
+        e = torch.exp(s - m)
+        stats.append((m, e, e.sum(-1, keepdim=True)))
+    gmax = torch.stack([m for m, _, _ in stats]).amax(0)
+    gsum = torch.zeros_like(gmax)
+    for m, _, l in stats:
+        gsum = gsum + l * torch.exp(m - gmax)
+    out = torch.zeros(b, hkv, g, lq, d)
+    for (m, e, _), (lo, hi) in zip(stats, bounds):
+        p = (e * torch.exp(m - gmax) / gsum).to(v.dtype).float()
+        out = out + torch.einsum("bhgqk,bkhd->bhgqd", p, v[:, lo:hi].float())
+    return out.permute(0, 3, 1, 2, 4).reshape(b, lq, hq, d).to(q.dtype)
 
 
 def _check(q, k, v, mask) -> None:
@@ -118,6 +243,8 @@ def _check(q, k, v, mask) -> None:
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if x.data_ptr() % 16:  # the kernel copies q, k and v in 16-byte pieces
+            raise ValueError(f"{name} must start at a 16-byte aligned address")
     if mask.requires_grad:
         raise ValueError("the mask takes no grad")
 
@@ -127,6 +254,7 @@ def _launch(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
     _check(q, k, v, mask)
     b, lq, hq, d = q.shape
     _, lkv, hkv, _ = k.shape
+    rows, split = launch_geometry(b, lq, lkv, hq, hkv, d, q.element_size(), card_limits(q.device))
     out = torch.empty_like(q)
     lib = _library()
     err = lib.opz_mot_attention_fwd(
@@ -135,6 +263,7 @@ def _launch(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
         b, lq, lkv, hq, hkv, d,
         mask.stride(0), mask.stride(2),
         1.0 / (d**0.5), 0.0 if softcap is None else float(softcap),
+        rows, split,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
@@ -143,6 +272,15 @@ def _launch(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
         )
     launches += 1
     return out
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launch an empty kernel on ``device``'s current stream: the launch
+    floor that ``chip_smoke.py`` times beside K1."""
+    lib = _library()
+    err = lib.opz_empty_launch(torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: {lib.opz_cuda_error_string(err).decode()}")
 
 
 def _recompute_grads(q, k, v, mask, softcap, grad):

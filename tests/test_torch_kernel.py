@@ -32,6 +32,10 @@ GEOMETRIES = [
     (2, 281, 281, 8, 1, 32),
     (1, 1, 300, 8, 2, 32),
     (2, 7, 9, 4, 4, 16),
+    (16, 281, 281, 8, 1, 256),  # training: 576 blocks of 64 rows, no split
+    (1, 4, 281, 4, 1, 256),  # K1-shard's Euler step: one cell over 16 blocks
+    (1, 4, fa.max_lkv(256), 8, 1, 256),  # the longest K/V the kernel takes
+    (4, 64, fa.max_lkv(256), 8, 1, 256),  # the same with the largest blocks
 ]
 
 
@@ -136,6 +140,18 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         fa.mot_attention_fused(q, long_kv, long_kv, torch.zeros(1, 1, 4, long_kv.shape[1], device=cuda))
 
 
+@pytest.mark.parametrize("name", ["q", "k", "v"])
+def test_kernel_refuses_misaligned_inputs(cuda, name):
+    """A contiguous view that starts 4 bytes into its storage: the kernel's
+    16-byte copies would fault, so the wrapper raises first."""
+    inputs = dict(zip("qkv", _inputs(cuda, 1, 4, 33, 8, 1, 256, torch.float32)))
+    x = inputs[name]
+    inputs[name] = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape).copy_(x)
+    assert inputs[name].is_contiguous()
+    with pytest.raises(ValueError, match="aligned"):
+        fa.mot_attention_fused(inputs["q"], inputs["k"], inputs["v"], torch.zeros(1, 1, 4, 33, device=cuda))
+
+
 def _training_inputs(device, dtype, fully_masked_row=False):
     """The training path's attention at full width: B=16, Lq=Lkv=281, 8 Q /
     1 KV heads of 256, the block-causal training mask."""
@@ -170,3 +186,42 @@ def test_vjp_matches_plain_autograd_at_training_shape(cuda, dtype, tol, fully_ma
     for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
         assert torch.isfinite(a).all(), name
         torch.testing.assert_close(a, b, rtol=tol, atol=tol, msg=lambda m, n=name: f"{n}: {m}")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_kernel_with_one_cluster_block_wholly_masked(cuda, dtype, tol):
+    """The Euler shape splits Lkv over a cluster: mask the whole slice of
+    the cluster's second block. Its p is 0 and the others' sum stays
+    exact."""
+    geom = (1, 4, 281, 8, 1, 256)
+    q, k, v, mask = _inputs(cuda, *geom, dtype, seed=7)
+    _, split = fa.launch_geometry(*geom, q.element_size(), fa.card_limits(q.device))
+    size = -(-281 // split)
+    assert split > 1
+    mask[..., size : 2 * size] = MASK_NEG
+    got = fa.mot_attention_fused(q, k, v, mask, 50.0)
+    torch.testing.assert_close(got, mot_attention_ref(q, k, v, mask, 50.0), rtol=tol, atol=tol)
+    torch.testing.assert_close(got, fa.mot_attention_split_ref(q.cpu(), k.cpu(), v.cpu(), mask.cpu(), 50.0, split).to(cuda),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("geom", [(1, 4, 281, 8, 1, 256), (1, 277, 277, 8, 1, 256), (16, 281, 281, 8, 1, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_is_bitwise_deterministic(cuda, geom, dtype):
+    """The cluster sums in rank order, no atomics: two calls agree bitwise."""
+    q, k, v, mask = _inputs(cuda, *geom, dtype, seed=8)
+    first = fa.mot_attention_fused(q, k, v, mask, 50.0)
+    second = fa.mot_attention_fused(q, k, v, mask, 50.0)
+    assert torch.equal(first, second)
+
+
+def test_smem_mirror_matches_the_source(cuda):
+    """``fused_attention.smem_bytes``, which picks the launch geometry,
+    gives the source's shared-memory plan."""
+    lib = fa._library()
+    for size in (2, 4):
+        for d in fa.HEAD_DIMS:
+            for rows in (16, 64):
+                for slice_len in (1, 18, 70, 281, 352):
+                    assert lib.opz_mot_attention_smem_bytes(size, d, rows, slice_len) == fa.smem_bytes(
+                        size, d, rows, slice_len), (size, d, rows, slice_len)
