@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Phases, each of which raises on failure:
-  1. build   — nvcc builds csrc/mot_attention.cu into build/torch_kernels/;
-               prints the card's name and power limit as nvidia-smi
-               reports them
+  1. build   — nvcc builds csrc/mot_attention.cu (K1) and
+               csrc/mot_attention_bwd.cu (K1-vjp's backward kernels) into
+               build/torch_kernels/, one nvcc per source, both at once;
+               prints each kernel instance's registers and spills and the
+               card's name and power limit as nvidia-smi reports them
   2. kernels — the launch floor: an empty kernel's device time per
                launch and the interval between back-to-back launches. Then
                the MoT-attention kernel against its plain version on the
@@ -17,7 +19,12 @@ Phases, each of which raises on failure:
                equal; kernel, plain and library times per launch in the
                dtype of the path that runs the shape (fp32 for K1-shard's
                Euler step and training), each on one input called back to
-               back, beside the bound and the launch geometry
+               back, beside the bound and the launch geometry. Then the two
+               backward kernels (row side, key side) against their
+               arithmetic in plain PyTorch (mot_attention_bwd_ref) at the
+               fp32 training shape and K1-shard's (Hq = 4), 1e-4: each
+               kernel's device time per launch beside its bound, the
+               reference's time and the launch geometry
   3. parity  — bridge widths at depth 2 (bridge_width_dryrun_config), fp32:
                the whole action inference on the card (kernel) against the
                CPU (plain version), max|diff| <= 1e-3
@@ -39,11 +46,12 @@ Phases, each of which raises on failure:
   5. serve   — the port's BatchingPolicy over the full-width model: 4
                requests from 4 threads and 1 through ActionServer on
                localhost; then the bf16 params are freed
-  6. train-kernel — the kernel's autograd Function (K1-vjp) against plain
-               autograd through the plain version, at the training shape
-               (B=16, Lq=Lkv=281, the training mask) and with a fully
-               masked row: the output and dq, dk, dv of a random
-               cotangent, fp32 (1e-4) and bf16 (2e-2)
+  6. train-kernel — the kernel's autograd Function (K1-vjp: K1 forward,
+               the two backward kernels) against plain autograd through the
+               plain version, at the training shape (B=16, Lq=Lkv=281, the
+               training mask) and with a fully masked row: the output and
+               dq, dk, dv of a random cotangent, fp32 (1e-4) and bf16
+               (2e-2); two backward launches per VJP; two VJPs bitwise equal
   7. train-parity — bridge widths at depth 2, fp32, remat on, B=2,
                grad_accum=2, injected flow times and noise, Adam eps 1e-3:
                one update on the card (kernel) against the same update on
@@ -52,21 +60,26 @@ Phases, each of which raises on failure:
   8. train-main — the training path: full-width PiZeroConfig() in fp32,
                remat on, the bridge TrainingConfig, B=16 per microbatch,
                grad_accum=2, 3 updates on synthetic batches from a seed;
-               exactly 3 * 2 * 2L kernel launches; finite losses; every
-               trained leaf changed, the frozen ones bitwise unchanged;
-               update time and peak memory; one more update under
-               torch.profiler. The kernel's inputs of one update are kept
-               and replayed as the training path runs them (two forwards,
-               the second with its VJP) through the Function, the plain
-               version and one library attention call, timed as in phase
-               4: `ms`, `plain_ms`,
-               `library_ms` and `bound_ms` of the mot_attention_vjp entry
+               exactly 3 * 2 * 2L K1 launches and 3 * 2 * L VJPs of two
+               backward launches each; finite losses; every trained leaf
+               changed, the frozen ones bitwise unchanged; update time and
+               peak memory; one more update under torch.profiler, which
+               traces K1 and both backward kernels by symbol. The kernel's
+               inputs of one update are kept and replayed as the training
+               path runs them (two forwards, the second with its VJP)
+               through the Function, through K1 with a backward that
+               recomputes in PyTorch, through the plain version and through one
+               library attention call, timed as in phase 4: `ms`,
+               `backward_ms` (the backward kernels' device time by symbol),
+               `recompute_ms`, `plain_ms`, `library_ms` and `bound_ms` of
+               the mot_attention_vjp entry
   9. shard-kernel — K1-shard (the kernel on one rank's shard under a
                mesh) in 2 spawned ranks, mesh (data=1, model=2): each rank's
                shard against the plain version on the whole inputs sliced
                to it, at the main path's prefill and Euler shapes at B=1
                and B=2, a fully masked row, bf16 (2e-2) and fp32 (1e-4);
-               and the training shape in fp32 with the VJP (dq per shard,
+               and the training shape in fp32 with the VJP through the
+               backward kernels, two launches in each rank (dq per shard,
                dk and dv after the all-reduce over the model ranks)
  10. shard-parity — bridge widths at depth 2, fp32, B=4, injected noise,
                mesh (data=2, model=2), 4 ranks: the TP x DP chunk gathered
@@ -103,6 +116,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -133,6 +147,8 @@ REPLACES_VJP = "open_pi_zero_tpu/ops/pallas_attention.py:165"
 REPLACES_SHARD = "open_pi_zero_tpu/ops/pallas_attention.py:221"
 RANK_TIMEOUT_S = 600  # every collective of a spawned world
 KERNEL_SYMBOL = "mot_attention_fwd_kernel"  # the kernel's name in a profile
+ROWS_SYMBOL = "mot_attention_bwd_rows_kernel"  # K1-vjp's backward kernels
+KEYS_SYMBOL = "mot_attention_bwd_keys_kernel"
 MARKERS = 128  # empty kernels before and after the work of a profiled window
 WINDOW_TRIES = 4  # windows that profiled_ms takes at most
 
@@ -142,15 +158,22 @@ def log(msg: str) -> None:
 
 
 def log_build_instances(build_log: str) -> None:
-    """One line per kernel instance from ptxas -v: its dtype, head dim and
-    rows per block, registers and spills (its shared memory is dynamic:
-    ``fused_attention.smem_bytes``)."""
+    """One line per kernel instance from ptxas -v: its kernel, dtype and
+    template sizes (K1: head dim and rows per block; the row side: head
+    dim; the key side: D tile), registers and spills (shared memory is
+    dynamic: ``fused_attention.smem_bytes``, ``bwd_smem_bytes``)."""
     name = None
     for line in build_log.splitlines():
-        found = re.search(r"mot_attention_fwd_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", line)
+        found = re.search(r"(mot_attention_(?:fwd|bwd_rows|bwd_keys)_kernel)I(13__nv_bfloat16|f)Li(\d+)E(?:Li(\d+)E)?",
+                          line)
         if "Compiling entry function" in line:
-            name = (f"{'bf16' if found.group(1) != 'f' else 'fp32'} D={found.group(2)} rows={found.group(3)}"
-                    if found else line.split("'")[1])
+            name = line.split("'")[1]
+            if found:
+                sizes = " ".join(f"{k}={v}" for k, v in zip(("D", "rows"), found.group(3, 4)) if v)
+                if found.group(1) == KEYS_SYMBOL:
+                    sizes = f"d_tile={found.group(3)}"
+                dtype = "bf16" if found.group(2) != "f" else "fp32"
+                name = f"{found.group(1).replace('mot_attention_', '').replace('_kernel', '')} {dtype} {sizes}"
         elif name and ("spill" in line or "registers" in line):
             log(f"build: {name}: {line.replace('ptxas info    :', '').strip()}")
 
@@ -181,16 +204,17 @@ def time_ms(fn, samples: int = 21, calls: int = 10) -> float:
     return statistics.median(times)
 
 
-def profiled_ms(fn, match=None, expected=None) -> tuple:
-    """(device ms, events) of one run of ``fn`` under torch.profiler: the
-    device events whose name contains ``match``, all of them when None
-    (``expected`` of them, if given). The profiler loses device events in
-    some windows on an H100: mostly the first ones (all 128 empty kernels
-    that opened one window), once about half of a replayed training
-    update. So ``fn`` runs between MARKERS empty kernels before and
-    MARKERS after, left out of the sums, and a window counts only if every
-    marker was traced (and ``expected`` matched); one that does not is
-    logged and taken again, WINDOW_TRIES times at most; then it raises."""
+def profiled_window(fn, expected: dict) -> dict:
+    """{match: (device ms, events)} of one run of ``fn`` under
+    torch.profiler, for each ``match`` of ``expected``: the device events
+    whose name contains it, all of them for None (``expected[match]`` of
+    them, unless that is None). The profiler loses device events in some
+    windows on an H100: mostly the first ones (all 128 empty kernels that
+    opened one window), once about half of a replayed training update. So
+    ``fn`` runs between MARKERS empty kernels before and MARKERS after,
+    left out of the sums, and a window counts only if every marker was
+    traced (and every expected count matched); one that does not is logged
+    and taken again, WINDOW_TRIES times at most; then it raises."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -206,14 +230,31 @@ def profiled_ms(fn, match=None, expected=None) -> tuple:
                 fa.empty_launch(dev)
             torch.cuda.synchronize()
         marker_ms, markers = device_ms(prof, "opz_empty_kernel")
-        ms, count = device_ms(prof, match)
-        if match is None:
-            ms, count = ms - marker_ms, count - markers
-        if markers == 2 * MARKERS and expected in (None, count):
-            return ms, count
-        log(f"profiler: window taken again: {markers} of {2 * MARKERS} markers traced, "
-            f"{count} events matching {match!r}, {expected} expected")
+        got = {}
+        for match in expected:
+            ms, count = device_ms(prof, match)
+            got[match] = (ms - marker_ms, count - markers) if match is None else (ms, count)
+        if markers == 2 * MARKERS and all(n in (None, got[m][1]) for m, n in expected.items()):
+            return got
+        log(f"profiler: window taken again: {markers} of {2 * MARKERS} markers traced, events "
+            f"{ {m: c for m, (_, c) in got.items()} }, {expected} expected")
     raise AssertionError(f"the profiler lost events in {WINDOW_TRIES} windows running")
+
+
+def profiled_ms(fn, match=None, expected=None) -> tuple:
+    """(device ms, events) of ``profiled_window`` for one ``match``."""
+    return profiled_window(fn, {match: expected})[match]
+
+
+def bwd_kernel_ms(fn, calls: int) -> dict:
+    """{symbol: device ms} of the two backward kernels over one run of
+    ``fn``, which runs ``calls`` backwards; raises unless the wrapper
+    counted and the profiler traced every launch of both."""
+    before = fa.bwd_launches
+    got = profiled_window(fn, {ROWS_SYMBOL: calls, KEYS_SYMBOL: calls})
+    if (fa.bwd_launches - before) % (2 * calls):
+        raise AssertionError(f"{fa.bwd_launches - before} backward launches counted over windows of {calls} calls")
+    return {symbol: ms for symbol, (ms, _) in got.items()}
 
 
 def kernel_ms(fn, calls: int) -> float:
@@ -392,6 +433,62 @@ def check_kernel(dev) -> dict:
             lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mh)
         )
         row["bound_ms"], row["bound_by"] = bound_ms(shape, time_dtype)
+        results[name] = row
+    return results
+
+
+def bwd_bound_parts(shape) -> dict:
+    """(ms to move the bytes, ms to do the operations) of each backward
+    kernel's work at ``shape`` in fp32, and of the whole VJP: the row side
+    reads q, k, v, the mask and the cotangent and writes dq, p~ and dS
+    ([B, Hkv, G Lq, Lkv] each), 6N FLOP (q k^T, g v^T, dS k); the key side
+    reads p~, dS, q and the cotangent and writes dk, dv, 4N FLOP; the VJP
+    reads q, k, v, the mask and the cotangent and writes dq, dk, dv, 8N
+    FLOP (its scores must be recomputed or stored: q k^T is left out).
+    N = B Hq Lq Lkv D, at a third of the TF32 peak (3xTF32)."""
+    b, lq, lkv, hq, hkv, d = shape
+    q_bytes, kv_bytes, scores = 4 * b * lq * hq * d, 4 * b * lkv * hkv * d, 4 * b * hq * lq * lkv
+    n = b * hq * lq * lkv * d
+    moved = {
+        "rows": 3 * q_bytes + 2 * kv_bytes + scores // hq + 2 * scores,
+        "keys": 2 * scores + 2 * q_bytes + 2 * kv_bytes,
+        "vjp": 3 * q_bytes + 4 * kv_bytes + scores // hq,
+    }
+    ops = {"rows": 6 * n, "keys": 4 * n, "vjp": 8 * n}
+    return {k: (moved[k] / HBM_BYTES_PER_S * 1e3, ops[k] / FP32_FLOPS * 1e3) for k in moved}
+
+
+def check_bwd_kernels(dev) -> dict:
+    """The backward kernels at the fp32 training shape and K1-shard's
+    (Hq = 4) against their arithmetic in plain PyTorch (1e-4), then each
+    kernel's device time per launch (20 back-to-back backwards, both
+    kernels traced by symbol), beside its bound, the reference's time per
+    backward and the launch geometry."""
+    results = {}
+    q8, k, v, mask, g8 = training_attention_inputs(dev, torch.float32)
+    for name, hq in (("train", 8), ("shard_train", 4)):
+        q, g = q8[:, :, :hq].contiguous(), g8[:, :, :hq].contiguous()
+        shape = (TRAIN_B, q.shape[1], k.shape[1], hq, 1, q.shape[3])
+        got = fa._launch_bwd(q, k, v, mask, 50.0, g)
+        want = fa.mot_attention_bwd_ref(q, k, v, mask, 50.0, g)
+        torch.cuda.synchronize()
+        row = {"shape": shape}
+        for part, a, b in zip(("dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=lambda m, n=f"{name} {part}": f"{n}: {m}")
+            row[f"max_abs_err_{part}"] = float((a - b).abs().max())
+        row["row_blocks"], row["d_tile"], row["key_blocks"] = fa.bwd_launch_geometry(*shape)
+
+        def backwards(calls=20):
+            for _ in range(calls):
+                fa._launch_bwd(q, k, v, mask, 50.0, g)
+
+        backwards(3)
+        per_symbol = bwd_kernel_ms(backwards, 20)
+        row["rows_ms"], row["keys_ms"] = per_symbol[ROWS_SYMBOL] / 20, per_symbol[KEYS_SYMBOL] / 20
+        row["plain_ms"] = device_time_ms(lambda: fa.mot_attention_bwd_ref(q, k, v, mask, 50.0, g), calls=5)
+        for part, (t_bytes, t_ops) in bwd_bound_parts(shape).items():
+            row[f"{part}_bound_ms"], row[f"{part}_bound_by"] = (
+                (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
         results[name] = row
     return results
 
@@ -665,15 +762,23 @@ def out_and_grads(attention, q, k, v, mask, g, softcap=50.0) -> tuple:
 
 
 def check_vjp(dev) -> dict:
-    """Phase 6: the kernel's autograd Function against plain autograd
-    through the plain version; max|diff| of the output and of each grad."""
+    """Phase 6: the kernel's autograd Function (K1, then the two backward
+    kernels) against plain autograd through the plain version; max|diff|
+    of the output and of each grad. Each VJP launches both backward
+    kernels once, and two VJPs agree bitwise."""
     errs = {}
     for case in ("train", "fully_masked"):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, mask, g = training_attention_inputs(dev, dtype, case == "fully_masked")
+            before = fa.bwd_launches
             got = out_and_grads(fa.mot_attention_fused, q, k, v, mask, g)
+            again = out_and_grads(fa.mot_attention_fused, q, k, v, mask, g)
             want = out_and_grads(mot_attention_ref, q, k, v, mask, g)
             torch.cuda.synchronize()
+            if fa.bwd_launches != before + 4:
+                raise AssertionError(f"{case} {dtype}: {fa.bwd_launches - before} backward launches for 2 VJPs")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{case} {dtype}: two VJPs differ")
             for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
                 label = f"{case} {str(dtype)[6:]} {name}"
                 if not torch.isfinite(a).all():
@@ -801,7 +906,7 @@ def check_train_main(dev) -> tuple:
     L = cfg.joint.num_hidden_layers
     expected = 3 * GRAD_ACCUM * 2 * L
     torch.cuda.reset_peak_memory_stats(dev)
-    fa.launches = 0
+    fa.launches = fa.bwd_launches = 0
     losses, norms, times = [], [], []
     for batch in batches:
         t0 = time.perf_counter()
@@ -810,9 +915,11 @@ def check_train_main(dev) -> tuple:
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
-    launches = fa.launches
+    launches, bwd_launches = fa.launches, fa.bwd_launches
     if launches != expected:
         raise AssertionError(f"{launches} kernel launches over 3 updates, want {expected}")
+    if bwd_launches != expected:  # 3 * GRAD_ACCUM * L VJPs, two backward kernels each
+        raise AssertionError(f"{bwd_launches} backward launches over 3 updates, want {expected}")
     if state.step != 3 or not all(np.isfinite(losses + norms)):
         raise AssertionError(f"step {state.step}, losses {losses}, grad norms {norms}")
     # SigLIP's key bias adds the same q.b to every score of a query row,
@@ -826,6 +933,7 @@ def check_train_main(dev) -> tuple:
         raise AssertionError(f"frozen parts changed: {moved}")
     result = {
         "launches": launches,
+        "bwd_launches": bwd_launches,
         "losses": losses,
         "grad_norms": norms,
         "update_ms": times,
@@ -837,21 +945,27 @@ def check_train_main(dev) -> tuple:
 
 def profile_update(state, step, batch, expected: int) -> dict:
     """One more update under torch.profiler, the counts set to 0 just
-    before it: the kernel's launches and device time, the busy share."""
+    before it: K1's launches and device time, each backward kernel's
+    (``expected`` / 2 VJPs), the busy share."""
     from torch.profiler import ProfilerActivity, profile
 
-    fa.launches = 0
+    fa.launches = fa.bwd_launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(state, batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    launches = fa.launches
+    launches, bwd_launches = fa.launches, fa.bwd_launches
     ms, traced = device_ms(prof, KERNEL_SYMBOL)
     if launches != expected or traced != expected:
         raise AssertionError(f"profiled update: {launches} launches counted, {traced} traced; want {expected}")
+    bwd = {symbol: device_ms(prof, symbol) for symbol in (ROWS_SYMBOL, KEYS_SYMBOL)}
+    if bwd_launches != expected or any(n != expected // 2 for _, n in bwd.values()):
+        raise AssertionError(f"profiled update: {bwd_launches} backward launches counted, traced "
+                             f"{ {s: n for s, (_, n) in bwd.items()} }; want {expected // 2} VJPs")
     busy = log_profile("train-profile", prof, wall)
-    return {"launches": launches, "kernel_ms": ms, "wall_ms": wall, "busy_ms": busy}
+    return {"launches": launches, "bwd_launches": bwd_launches, "kernel_ms": ms,
+            "backward_ms": sum(ms for ms, _ in bwd.values()), "wall_ms": wall, "busy_ms": busy}
 
 
 def record_training_calls(dev, cfg, params, batch) -> list:
@@ -894,14 +1008,34 @@ def vjp_bound_parts(q, k) -> tuple:
     return (2 * forward + vjp) / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
 
 
+class RecomputeVjp(torch.autograd.Function):
+    """K1-vjp before its backward kernels, timed beside them: K1's forward,
+    and a backward that recomputes through the plain version
+    (``fused_attention._recompute_grads``, the port's CPU backward). Never
+    called by the port on a card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, softcap):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.softcap = softcap
+        return fa._launch(q, k, v, mask, softcap)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (*fa._recompute_grads(*ctx.saved_tensors, ctx.softcap, grad), None, None)
+
+
 def replay_vjp(calls) -> dict:
     """One update's kernel calls replayed as the training path runs them:
     for each, a forward, then a forward and its VJP for a random cotangent.
     The Function is held against plain autograd on each; then the device
-    time of that work through the Function, through the plain version and
-    through one library attention call (without the softcap, K/V expanded
-    to the query heads outside the timed calls), and the bound of the
-    calls' sizes. Run it in a fresh process (``replay_in_fresh_process``)."""
+    time of that work through the Function (K1 and the backward kernels,
+    whose own time is counted by symbol in the same window), through K1
+    with the recompute backward (``RecomputeVjp``), through the plain
+    version and through one library attention call (without the softcap,
+    K/V expanded to the query heads outside the timed calls), and the
+    bound of the calls' sizes. Run it in a fresh process
+    (``replay_in_fresh_process``)."""
     gen = torch.Generator(calls[0][0].device).manual_seed(9)
     cots = [torch.randn(c[0].shape, generator=gen, device=c[0].device, dtype=c[0].dtype) for c in calls]
     err = 0.0
@@ -932,13 +1066,25 @@ def replay_vjp(calls) -> dict:
         ))
     timed = {
         "kernel": route(fa.mot_attention_fused, list(zip(calls, cots))),
+        "recompute": route(RecomputeVjp.apply, list(zip(calls, cots))),
         "plain": route(mot_attention_ref, list(zip(calls, cots))),
         "library": route(sdpa, lib_inputs),
     }
     out = {"max_abs_err": err, "calls": len(calls)}
+    n = len(calls)
     for name, fn in timed.items():
         fn()  # warm
-        out[f"{name}_ms"] = profiled_ms(fn)[0]
+        if name == "kernel":  # every K1 and backward launch traced, in one window
+            before = (fa.launches, fa.bwd_launches)
+            got = profiled_window(fn, {None: None, KERNEL_SYMBOL: 2 * n, ROWS_SYMBOL: n, KEYS_SYMBOL: n})
+            if (fa.launches - before[0]) % (2 * n) or (fa.bwd_launches - before[1]) % (2 * n):
+                raise AssertionError(f"replayed VJPs: {fa.launches - before[0]} K1 and "
+                                     f"{fa.bwd_launches - before[1]} backward launches, want {2 * n} each")
+            out["kernel_ms"] = got[None][0]
+            out["forward_ms"] = got[KERNEL_SYMBOL][0]
+            out["backward_ms"] = got[ROWS_SYMBOL][0] + got[KEYS_SYMBOL][0]
+        else:
+            out[f"{name}_ms"] = profiled_ms(fn)[0]
     t_bytes = t_ops = 0.0
     for q, k, *_ in calls:
         tb, to = vjp_bound_parts(q, k)
@@ -981,10 +1127,14 @@ def shard_cases() -> list:
 
 
 def check_shard_kernel() -> dict:
-    """Phase 9: K1-shard in 2 ranks on the card against the plain version."""
+    """Phase 9: K1-shard in 2 ranks on the card against the plain version;
+    the training-shape VJP launches both backward kernels in each rank."""
     rows = run_ranks(ranks.attention_rank, 1, 2, shard_cases(), device="cuda", timeout_s=RANK_TIMEOUT_S)
     errs = {}
     for row in rows:
+        if row["bwd_launches"] != (2 if row["name"] == "train float32" else 0):
+            raise AssertionError(f"shard {row['name']}: a rank launched the backward kernels "
+                                 f"{row['bwd_launches']} times")
         for key in [k for k in row if k.startswith("not_close_")]:
             part = key[len("not_close_"):]
             if row[key]:
@@ -1067,6 +1217,14 @@ def single_card_phases(dev, info: str) -> list:
         log(f"kernel per launch {name} {r['shape']} {r['time_dtype']}: {r['ms']:.5f} ms "
             f"(bound {r['bound_ms']:.5f} ms, {r['bound_by']}; plain {r['plain_ms']:.5f}, library "
             f"{r['library_ms']:.5f}; {r['rows_per_block']} rows per block, split {r['split']}), on {info}")
+    bwd = check_bwd_kernels(dev)
+    log("backward kernels vs reference, per launch: " + json.dumps(bwd))
+    for name, r in bwd.items():
+        log(f"backward per launch {name} {r['shape']} float32: rows {r['rows_ms']:.5f} ms (bound "
+            f"{r['rows_bound_ms']:.5f} ms, {r['rows_bound_by']}; {r['row_blocks']} blocks of 32 rows), keys "
+            f"{r['keys_ms']:.5f} ms (bound {r['keys_bound_ms']:.5f} ms, {r['keys_bound_by']}; {r['key_blocks']} "
+            f"blocks, d_tile {r['d_tile']}); VJP bound {r['vjp_bound_ms']:.5f} ms ({r['vjp_bound_by']}); "
+            f"reference {r['plain_ms']:.5f} ms, on {info}")
     log(f"phase kernels ok in {time.time() - t0:.1f} s")
 
     t0 = time.time()
@@ -1112,8 +1270,10 @@ def single_card_phases(dev, info: str) -> list:
         f"peak memory {trained['peak_mem_gb']:.3f} GB, B={TRAIN_B} x {GRAD_ACCUM}, on {info}")
     per_update = GRAD_ACCUM * 2 * cfg.joint.num_hidden_layers
     update_prof = profile_update(state, step, batch, per_update)
-    log(f"train-main: kernel in the profiled update {update_prof['kernel_ms']:.3f} ms over "
-        f"{update_prof['launches']} launches, {100 * update_prof['kernel_ms'] / update_prof['wall_ms']:.2f}% "
+    log(f"train-main: K1 in the profiled update {update_prof['kernel_ms']:.3f} ms over "
+        f"{update_prof['launches']} launches, the backward kernels {update_prof['backward_ms']:.3f} ms over "
+        f"{update_prof['bwd_launches']} launches, together "
+        f"{100 * (update_prof['kernel_ms'] + update_prof['backward_ms']) / update_prof['wall_ms']:.2f}% "
         f"of the update's {update_prof['wall_ms']:.1f} ms")
     train_calls = record_training_calls(dev, cfg, params, batch)
     del params, state, step, batch
@@ -1141,13 +1301,19 @@ def single_card_phases(dev, info: str) -> list:
     vjp_entry = {
         "name": "mot_attention_vjp",
         "route": "cuda",
-        "source": "open_pi_zero_torch/csrc/mot_attention.cu",
+        # the backward kernels' source; the forward is K1's
+        "source": "open_pi_zero_torch/csrc/mot_attention_bwd.cu",
+        "sources": ["open_pi_zero_torch/csrc/mot_attention.cu", "open_pi_zero_torch/csrc/mot_attention_bwd.cu"],
         "replaces": REPLACES_VJP,
-        "launches": update_prof["launches"],
-        "max_abs_err": max(replayed_vjp["max_abs_err"], *vjp_errs.values()),
+        # K1's forwards and both backward kernels' launches in the profiled update
+        "launches": update_prof["launches"] + update_prof["bwd_launches"],
+        "max_abs_err": max(replayed_vjp["max_abs_err"], *vjp_errs.values(),
+                           *(r[f"max_abs_err_{p}"] for r in bwd.values() for p in ("dq", "dk", "dv"))),
         # one update: the two forwards and the VJP of every (layer,
         # microbatch), device time summed over the replayed calls
         "ms": replayed_vjp["kernel_ms"],
+        "backward_ms": replayed_vjp["backward_ms"],
+        "recompute_ms": replayed_vjp["recompute_ms"],
         "plain_ms": replayed_vjp["plain_ms"],
         "bound_ms": replayed_vjp["bound_ms"],
         "bound_by": replayed_vjp["bound_by"],
@@ -1205,10 +1371,13 @@ def main() -> None:
     t_start = time.time()
 
     t0 = time.time()
-    _build.build(fa.SOURCE)
+    sources = (fa.SOURCE, fa.BWD_SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
+        list(pool.map(_build.build, sources))
     info = card()
-    log(f"build: {fa.SOURCE} in {time.time() - t0:.1f} s")
-    log_build_instances(_build.build_log(fa.SOURCE))
+    log(f"build: {', '.join(sources)} in {time.time() - t0:.1f} s")
+    for source in sources:
+        log_build_instances(_build.build_log(source))
     log(f"card: {info}")
 
     kernels = single_card_phases(dev, info)

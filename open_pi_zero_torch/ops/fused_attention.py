@@ -11,12 +11,16 @@ tensor included) raises.
 
 Autograd (``MotAttention``, the counterpart of ``_vjp_fwd``/``_vjp_bwd``,
 ``pallas_attention.py:165-178``): the forward launches the kernel and
-saves q, k and v; the backward recomputes the attention through the plain
-version ``mot_attention_ref`` and returns dq, dk and dv from
-``torch.autograd.grad``, as the JAX VJP does through
-``mot_attention_xla``. The JAX package has no Pallas backward kernel (its
-backward is XLA einsums), so the port's backward is PyTorch ops by design,
-not a fallback. The mask takes no grad.
+saves q, k and v; on a CUDA tensor the backward launches the two kernels
+of ``csrc/mot_attention_bwd.cu`` (``_launch_bwd``): the row side
+recomputes each row's scores and softmax, writes p and dS to a scratch
+that lives only inside the call and returns dq; the key side reduces
+dk = dS^T q and dv = p^T g over all folded rows, with no atomics. On a
+CPU tensor (the CPU tests, K1-shard's CPU ranks) it recomputes through
+the plain version ``mot_attention_ref`` and returns ``torch.autograd.grad``
+of it, as the JAX VJP does through ``mot_attention_xla``.
+``mot_attention_bwd_ref`` is the backward kernels' arithmetic in plain
+PyTorch, for the tests and ``chip_smoke.py``. The mask takes no grad.
 
 Launch geometry (``launch_geometry``, chosen here so that the CPU tests
 reach it): blocks of 16 or 64 folded query rows, and the Lkv axis split
@@ -27,8 +31,9 @@ source's shared-memory plan, and ``mot_attention_split_ref`` repeats the
 kernel's split arithmetic in plain PyTorch for the tests.
 
 ``launches`` counts the kernel's launches (a forward that a rematerialized
-layer runs again counts again), so that a run can show that its main path
-went through the kernel.
+layer runs again counts again), and ``bwd_launches`` the backward
+kernels' (two per VJP), so that a run can show that its main path went
+through them.
 
 K1-shard (``mot_attention_fused_sharded``, the counterpart of
 ``pallas_attention.py:185-247``) is K1 on one rank's shard under a
@@ -65,9 +70,19 @@ KEYS_PER_TILE = 32  # kKeys: K/V rows per ring stage
 MAX_SPLIT = 16  # blocks per cluster (16 is the non-portable size)
 MAX_LKV_SPLIT = 8  # the split that max_lkv's slices assume
 
+BWD_SOURCE = "mot_attention_bwd"
+BWD_ROWS = 32  # kRows: folded rows per row-side block
+BWD_ROW_WARPS_N = 4  # kWarpsN: score-tile warps over a ring tile's keys
+BWD_STAGE_ROWS = 64  # kStageRows: folded rows per key-side stage
+BWD_KEY_WARPS = 4  # kKeyWarps
+BWD_KEY_STAGES = 2  # kKeyStages
+BWD_D_TILE = 64  # D columns of a key-side block (all of D where D is smaller)
+
 launches = 0
+bwd_launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
+_bwd_lib: Optional[ctypes.CDLL] = None
 
 
 def _library() -> ctypes.CDLL:
@@ -92,6 +107,34 @@ def _library() -> ctypes.CDLL:
         lib.opz_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _bwd_library() -> ctypes.CDLL:
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = _build.load(BWD_SOURCE)
+        lib.opz_mot_attention_bwd_rows.argtypes = [
+            ctypes.c_int,
+            *[ctypes.c_void_p] * 8,  # q, k, v, mask, g, dq, p, ds
+            *[ctypes.c_int] * 6,  # batch, lq, lkv, hq, hkv, head_dim
+            ctypes.c_longlong, ctypes.c_longlong,  # mask batch / row strides
+            ctypes.c_float, ctypes.c_float,  # scale, softcap
+            ctypes.c_void_p,  # stream
+        ]
+        lib.opz_mot_attention_bwd_rows.restype = ctypes.c_int
+        lib.opz_mot_attention_bwd_keys.argtypes = [
+            ctypes.c_int,
+            *[ctypes.c_void_p] * 6,  # q, g, p, ds, dk, dv
+            *[ctypes.c_int] * 7,  # batch, lq, lkv, hq, hkv, head_dim, d_tile
+            ctypes.c_void_p,  # stream
+        ]
+        lib.opz_mot_attention_bwd_keys.restype = ctypes.c_int
+        lib.opz_mot_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.opz_mot_attention_bwd_smem_bytes.restype = ctypes.c_int
+        lib.opz_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.opz_bwd_error_string.restype = ctypes.c_char_p
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def smem_bytes(element_size: int, head_dim: int, rows: int, slice_len: int) -> int:
@@ -283,6 +326,138 @@ def empty_launch(device: torch.device) -> None:
         raise RuntimeError(f"empty kernel launch failed: {lib.opz_cuda_error_string(err).decode()}")
 
 
+# --------------------------------------------------------------------------- #
+# K1-vjp's backward kernels (csrc/mot_attention_bwd.cu)
+# --------------------------------------------------------------------------- #
+
+
+def bwd_smem_bytes(element_size: int, head_dim: int, lkv: int, d_tile: int) -> tuple:
+    """Dynamic shared memory of one block of each backward kernel
+    (``make_row_plan``, ``make_key_plan`` in the source): (row side, key
+    side). Row side: q and g rows of stride D + 16 B; a ring of 2 tiles of
+    32 K/V rows of stride D + 8; two fp32 rows of round32(Lkv) + 4 per
+    folded row; the D halves' 32 x 36 fp32 exchange tile; delta's partials.
+    Key side: 2 stages of 64 rows of 32 + 8 fp32 columns and D-tile + 8
+    columns of the inputs' dtype, or the 4 warps' fp32 sums if larger."""
+    rows, keys = BWD_ROWS, KEYS_PER_TILE
+    lkv_pad = -(-lkv // keys) * keys
+    row_side = (
+        2 * rows * (head_dim + 16 // element_size) * element_size
+        + 2 * keys * (head_dim + 8) * element_size
+        + 2 * rows * (lkv_pad + 4) * 4
+        + rows * (keys + 4) * 4
+        + BWD_ROW_WARPS_N * rows * 4
+    )
+    stage = BWD_STAGE_ROWS * (keys + 8) * 4 + BWD_STAGE_ROWS * (d_tile + 8) * element_size
+    key_side = max(BWD_KEY_STAGES * stage, BWD_KEY_WARPS * keys * (d_tile + 4) * 4)
+    return row_side, key_side
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_max_lkv(head_dim: int) -> int:
+    """Longest K/V sequence the backward kernels take at ``head_dim`` (352
+    at D = 256): the longest multiple of 32 whose row block fits the shared
+    memory in both dtypes."""
+    return min(
+        max(lkv for lkv in range(KEYS_PER_TILE, 8192, KEYS_PER_TILE)
+            if bwd_smem_bytes(size, head_dim, lkv, 16)[0] <= MAX_SMEM_BYTES)
+        for size in (2, 4)
+    )
+
+
+def bwd_launch_geometry(batch: int, lq: int, lkv: int, hq: int, hkv: int, head_dim: int) -> tuple:
+    """(row-side blocks, key-side D tile, key-side blocks) of a backward.
+    The row side takes 32 folded rows of one (batch, kv head) per block;
+    the key side 32 keys x a D tile x dk or dv. Raises a ValueError past
+    the Lkv limit."""
+    if lkv > bwd_max_lkv(head_dim):
+        raise ValueError(
+            f"Lkv={lkv} exceeds the backward kernel's limit {bwd_max_lkv(head_dim)} at D={head_dim}"
+        )
+    cells = batch * hkv
+    d_tile = min(BWD_D_TILE, head_dim)
+    key_blocks = cells * -(-lkv // KEYS_PER_TILE) * (head_dim // d_tile) * 2
+    return cells * -(-(hq // hkv) * lq // BWD_ROWS), d_tile, key_blocks
+
+
+def mot_attention_bwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+    softcap: Optional[float], g: torch.Tensor,
+) -> tuple:
+    """dq, dk, dv of ``mot_attention_ref`` for the cotangent ``g``, by the
+    backward kernels' arithmetic in plain PyTorch, for the tests. Row side,
+    in fp32: x = q k^T scale, t = tanh(x / softcap), s = t softcap + mask;
+    the exact softmax p = exp(s - max) / sum; dP = g v^T, rounded once to
+    V's dtype; delta = sum_j p dP; dS = (p (1 - t^2)) (dP - delta) scale;
+    dq = dS k. Key side: dv = p~^T g, p~ being p rounded to V's dtype, and
+    dk = dS^T q, each one sum over the G Lq folded rows of its kv head.
+    p, p~ and dS are materialised as the kernels' scratch is; the sums
+    inside a product run in the library's order, not the tensor cores'."""
+    b, lq, hq, d = q.shape
+    _, lkv, hkv, _ = k.shape
+    scale = 1.0 / d**0.5
+    qf = q.float().reshape(b, lq, hkv, hq // hkv, d)
+    gf = g.float().reshape(b, lq, hkv, hq // hkv, d)
+    kf, vf = k.float(), v.float()
+    x = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    if softcap is None:
+        s, slope = x, torch.ones_like(x)
+    else:
+        t = torch.tanh(x / softcap)
+        s, slope = t * softcap, 1.0 - t * t
+    s = s + mask[:, :, None].float()
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", gf, vf).to(v.dtype).float()
+    delta = (p * dp).sum(-1, keepdim=True)
+    ds = (p * slope) * (dp - delta) * scale
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf)
+    p_cast = p.to(v.dtype).float()
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p_cast, gf)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
+    return dq.reshape(b, lq, hq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch_bwd(q, k, v, mask, softcap: Optional[float], grad: torch.Tensor) -> tuple:
+    """dq, dk, dv through the two backward kernels, for the cotangent
+    ``grad`` (made contiguous and 16-byte aligned here if it is not: the
+    one autograd hands over may be a strided or expanded view)."""
+    global bwd_launches
+    _check(q, k, v, mask)
+    if grad.shape != q.shape or grad.dtype != q.dtype or grad.device != q.device:
+        raise ValueError(f"cotangent {tuple(grad.shape)} {grad.dtype} on {grad.device} does not match q")
+    if not grad.is_contiguous() or grad.data_ptr() % 16:
+        grad = grad.clone(memory_format=torch.contiguous_format)
+    b, lq, hq, d = q.shape
+    _, lkv, hkv, _ = k.shape
+    _, d_tile, _ = bwd_launch_geometry(b, lq, lkv, hq, hkv, d)
+    ld = -(-lkv // KEYS_PER_TILE) * KEYS_PER_TILE
+    scratch = (b, hkv, hq // hkv * lq, ld)
+    probs = torch.empty(scratch, dtype=q.dtype, device=q.device)
+    dscores = torch.empty(scratch, dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = _bwd_library()
+    code = DTYPE_CODES[q.dtype]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.opz_mot_attention_bwd_rows(
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), grad.data_ptr(),
+        dq.data_ptr(), probs.data_ptr(), dscores.data_ptr(),
+        b, lq, lkv, hq, hkv, d, mask.stride(0), mask.stride(2),
+        1.0 / (d**0.5), 0.0 if softcap is None else float(softcap), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"mot_attention_bwd_rows launch failed: {lib.opz_bwd_error_string(err).decode()}")
+    bwd_launches += 1
+    err = lib.opz_mot_attention_bwd_keys(
+        code, q.data_ptr(), grad.data_ptr(), probs.data_ptr(), dscores.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, lq, lkv, hq, hkv, d, d_tile, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"mot_attention_bwd_keys launch failed: {lib.opz_bwd_error_string(err).decode()}")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
 def _recompute_grads(q, k, v, mask, softcap, grad):
     """dq, dk, dv through the plain version, as ``_vjp_bwd`` recomputes
     through ``mot_attention_xla``."""
@@ -293,8 +468,9 @@ def _recompute_grads(q, k, v, mask, softcap, grad):
 
 
 class MotAttention(torch.autograd.Function):
-    """The kernel under autograd: forward through the kernel, backward by
-    recomputing through the plain version (the JAX package's custom VJP).
+    """The kernel under autograd: forward through the kernel; backward
+    through the backward kernels on a CUDA tensor, by recomputing through
+    the plain version on a CPU tensor (the JAX package's custom VJP).
 
     ``kv_group``: the process group whose ranks hold the same K/V (K1-shard
     with replicated K/V); the backward sums dk and dv over it, as
@@ -312,7 +488,8 @@ class MotAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         q, k, v, mask = ctx.saved_tensors
-        dq, dk, dv = _recompute_grads(q, k, v, mask, ctx.softcap, grad)
+        backward = _recompute_grads if q.device.type == "cpu" else _launch_bwd
+        dq, dk, dv = backward(q, k, v, mask, ctx.softcap, grad)
         if ctx.kv_group is not None:
             dk, dv = collectives.all_reduce(dk, ctx.kv_group), collectives.all_reduce(dv, ctx.kv_group)
         return dq, dk, dv, None, None, None, None

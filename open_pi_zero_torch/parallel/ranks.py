@@ -74,8 +74,9 @@ def attention_rank(mesh: Mesh, cases: List[dict]) -> list:
     heads too when Hkv % tp == 0, else replicated (JAX's in_specs). Each
     rank holds its out, dq, dk, dv (dk, dv after the VJP's all-reduce)
     against the plain version on the whole inputs, sliced to the rank.
-    Returns per case the shards gathered into whole arrays and the max|Δ|
-    and closeness at ``tol`` over all ranks."""
+    Returns per case the shards gathered into whole arrays, the max|Δ| and
+    closeness at ``tol`` over all ranks, and ``bwd_launches``, the fewest
+    backward-kernel launches that a rank counted for the case."""
     dev = mesh.device
     _exact_fp32()
     results = []
@@ -90,6 +91,7 @@ def attention_rank(mesh: Mesh, cases: List[dict]) -> list:
         mine += [_rows(mesh, _heads(mesh, x) if kv_split else x) for x in (k, v)]
         mine = [x.contiguous().requires_grad_() for x in mine]
         local_mask = _rows(mesh, mask)
+        bwd_before = fa.bwd_launches
         out = fa.mot_attention_fused_sharded(*mine, local_mask, softcap, kv_replicated)
         whole = [x.detach().requires_grad_() for x in (q, k, v)]
         ref = mot_attention_ref(*whole, mask, softcap)
@@ -101,7 +103,9 @@ def attention_rank(mesh: Mesh, cases: List[dict]) -> list:
             want["dq"] = _rows(mesh, _heads(mesh, dq))
             want.update((n, _rows(mesh, _heads(mesh, x) if kv_split else x)) for n, x in (("dk", dk), ("dv", dv)))
         _sync(dev)
-        row = {"name": case["name"]}
+        launched = torch.tensor([float(fa.bwd_launches - bwd_before)], device=dev)
+        collectives.all_reduce(launched, op=torch.distributed.ReduceOp.MIN)
+        row = {"name": case["name"], "bwd_launches": int(launched[0])}
         for n, a in got.items():
             b = want[n]
             err = (a.float() - b.float()).abs()

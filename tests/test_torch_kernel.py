@@ -8,9 +8,10 @@ with a card: ``python -m pytest tests/test_torch_kernel.py -q``.
 
 Tolerances: fp32 1e-4 (same arithmetic, another summation order); bf16
 2e-2, as the JAX package's Pallas kernel tests (each side rounds p and the
-output to bf16 at its own point). The Function's backward recomputes
-through the plain version, so its grads differ from plain autograd's only
-through the cotangent, which is the same here."""
+output to bf16 at its own point). The Function's backward launches the two
+backward kernels (``csrc/mot_attention_bwd.cu``), held here against their
+arithmetic in plain PyTorch (``mot_attention_bwd_ref``) and against plain
+autograd through the plain version, at the same tolerances."""
 
 import numpy as np
 import pytest
@@ -178,10 +179,11 @@ def _out_and_grads(attention, q, k, v, mask, g):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 def test_vjp_matches_plain_autograd_at_training_shape(cuda, dtype, tol, fully_masked_row):
     q, k, v, mask, g = _training_inputs(cuda, dtype, fully_masked_row)
-    before = fa.launches
+    before, bwd_before = fa.launches, fa.bwd_launches
     got = _out_and_grads(mot_attention, q, k, v, mask, g)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1  # the forward only: the backward recomputes in PyTorch
+    assert fa.launches == before + 1  # K1's forward
+    assert fa.bwd_launches == bwd_before + 2  # the row and key sides of the backward
     want = _out_and_grads(mot_attention_ref, q, k, v, mask, g)
     for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
         assert torch.isfinite(a).all(), name
@@ -225,3 +227,120 @@ def test_smem_mirror_matches_the_source(cuda):
                 for slice_len in (1, 18, 70, 281, 352):
                     assert lib.opz_mot_attention_smem_bytes(size, d, rows, slice_len) == fa.smem_bytes(
                         size, d, rows, slice_len), (size, d, rows, slice_len)
+
+
+# (B, Lq, Lkv, Hq, Hkv, D) of the backward kernels
+BWD_GEOMETRIES = [
+    (16, 281, 281, 8, 1, 256),  # training
+    (16, 281, 281, 4, 1, 256),  # K1-shard's training shard at TP = 2
+    (2, 9, 9, 8, 1, 256),  # one key tile, part of it past Lkv
+    (2, 300, 300, 8, 1, 256),  # 10 key tiles, the last one 12 keys
+    (1, 37, fa.bwd_max_lkv(256), 8, 2, 256),  # the longest K/V the backward takes
+    (2, 7, 45, 4, 4, 16),  # G = 1, the smallest head dim
+]
+
+
+def _bwd_inputs(device, geom, dtype, fully_masked_row=False, seed=10):
+    q, k, v, mask = _inputs(device, *geom, dtype, seed=seed)
+    if fully_masked_row:
+        mask[0, 0, 3 % geom[1]] = MASK_NEG
+    g = torch.randn(q.shape, generator=torch.Generator(device).manual_seed(seed + 1), device=device).to(dtype)
+    return q, k, v, mask, g
+
+
+@pytest.mark.parametrize("fully_masked_row", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("geom", BWD_GEOMETRIES)
+def test_bwd_kernels_match_their_reference_and_plain_autograd(cuda, geom, dtype, tol, fully_masked_row):
+    q, k, v, mask, g = _bwd_inputs(cuda, geom, dtype, fully_masked_row)
+    before = fa.bwd_launches
+    got = fa._launch_bwd(q, k, v, mask, 50.0, g)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 2
+    ref = fa.mot_attention_bwd_ref(q, k, v, mask, 50.0, g)
+    plain = _out_and_grads(mot_attention_ref, q, k, v, mask, g)[1:]
+    for name, a, r, p in zip(("dq", "dk", "dv"), got, ref, plain):
+        assert a.dtype == dtype and a.shape == r.shape and torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, r, rtol=tol, atol=tol, msg=lambda m, n=name: f"{n} vs reference: {m}")
+        torch.testing.assert_close(a, p, rtol=tol, atol=tol, msg=lambda m, n=name: f"{n} vs autograd: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernels_without_softcap(cuda, dtype):
+    q, k, v, mask, g = _bwd_inputs(cuda, (2, 37, 41, 8, 1, 256), dtype)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, r in zip(fa._launch_bwd(q, k, v, mask, None, g), fa.mot_attention_bwd_ref(q, k, v, mask, None, g)):
+        torch.testing.assert_close(a, r, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kind", ["transposed", "expanded", "misaligned"])
+def test_vjp_takes_a_cotangent_that_is_a_view(cuda, kind):
+    """Autograd may hand the backward a strided or expanded cotangent; the
+    wrapper copies it to a contiguous, aligned tensor first."""
+    q, k, v, mask, g = _bwd_inputs(cuda, (2, 37, 41, 8, 1, 256), torch.float32)
+    if kind == "transposed":
+        view = g.transpose(1, 2).contiguous().transpose(1, 2)
+    elif kind == "expanded":
+        g = g[:, :1].expand_as(g).contiguous()
+        view = g[:, :1].expand_as(g)
+    else:
+        view = torch.empty(g.numel() + 1, device=cuda)[1:].view(g.shape).copy_(g)
+    assert not view.is_contiguous() or view.data_ptr() % 16
+    want = fa._launch_bwd(q, k, v, mask, 50.0, g)
+    for a, b in zip(fa._launch_bwd(q, k, v, mask, 50.0, view), want):
+        assert torch.equal(a, b)
+    # through autograd, the output's grad is the view
+    qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+    out = fa.mot_attention_fused(qq, kk, vv, mask, 50.0)
+    for a, b in zip(torch.autograd.grad(out, (qq, kk, vv), view), want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", [(16, 281, 281, 8, 1, 256), (16, 281, 281, 4, 1, 256)])
+def test_two_vjps_are_bitwise_equal(cuda, geom, dtype):
+    """No atomics, fixed sum orders: two backward calls agree bitwise."""
+    q, k, v, mask, g = _bwd_inputs(cuda, geom, dtype, seed=12)
+    first = _out_and_grads(fa.mot_attention_fused, q, k, v, mask, g)
+    second = _out_and_grads(fa.mot_attention_fused, q, k, v, mask, g)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_bwd_refuses_what_it_does_not_take(cuda):
+    q, k, v, mask, g = _bwd_inputs(cuda, (1, 4, 33, 8, 1, 256), torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa._launch_bwd(q.cpu(), k.cpu(), v.cpu(), mask.cpu(), 50.0, g.cpu())
+    with pytest.raises(ValueError, match="cotangent"):
+        fa._launch_bwd(q, k, v, mask, 50.0, g[:, :2])
+    lkv = fa.bwd_max_lkv(256) + 1
+    long_kv = torch.zeros(1, lkv, 1, 256, device=cuda)
+    with pytest.raises(ValueError, match="backward kernel's limit"):
+        fa._launch_bwd(q, long_kv, long_kv, torch.zeros(1, 1, 4, lkv, device=cuda), 50.0, g)
+    # through autograd: K1 takes the long K/V, the backward refuses it
+    qq = q.detach().requires_grad_()
+    out = fa.mot_attention_fused(qq, long_kv, long_kv, torch.zeros(1, 1, 4, lkv, device=cuda))
+    with pytest.raises(ValueError, match="backward kernel's limit"):
+        out.backward(g)
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v"])
+def test_bwd_refuses_misaligned_inputs(cuda, name):
+    inputs = dict(zip("qkv", _bwd_inputs(cuda, (1, 4, 33, 8, 1, 256), torch.float32)))
+    g = torch.zeros_like(inputs["q"])
+    x = inputs[name]
+    inputs[name] = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape).copy_(x)
+    with pytest.raises(ValueError, match="aligned"):
+        fa._launch_bwd(inputs["q"], inputs["k"], inputs["v"], torch.zeros(1, 1, 4, 33, device=cuda), 50.0, g)
+
+
+def test_bwd_smem_mirror_matches_the_source(cuda):
+    """``fused_attention.bwd_smem_bytes``, which sets the Lkv limit, gives
+    the source's shared-memory plans."""
+    lib = fa._bwd_library()
+    for size in (2, 4):
+        for d in fa.HEAD_DIMS:
+            for lkv in (1, 9, 33, 281, 300, 352):
+                assert lib.opz_mot_attention_bwd_smem_bytes(0, size, d, lkv) == fa.bwd_smem_bytes(size, d, lkv, 16)[0]
+            for d_tile in (16, 32, 64):
+                assert lib.opz_mot_attention_bwd_smem_bytes(1, size, d, d_tile) == fa.bwd_smem_bytes(size, d, 1, d_tile)[1]
