@@ -43,9 +43,29 @@ Phases, each of which raises on failure:
                device times are `plain_ms` and `library_ms`, the
                kernel's counted by its symbol with every launch traced,
                and the inputs' sizes give `bound_ms`
-  5. serve   — the port's BatchingPolicy over the full-width model: 4
-               requests from 4 threads and 1 through ActionServer on
-               localhost; then the bf16 params are freed
+               The float chunk's kernels and copies launched, counted
+               under the profiler
+  4b. serving layout — from the phase-4 params, the fused bf16 tree
+               (fuse_for_serving) and the production tree
+               (prepare_for_serving with serving_layout_kwargs({})): fused
+               qkv/gate-up, a weight-only int8 action expert, a W8A8 VLM
+               trunk, bf16 SigLIP. Each driven as phase 4 drives the float
+               tree (exactly L + L * steps K1 launches per chunk, two chunks
+               bitwise equal, finite within the clip, warm chunk time, peak
+               memory with the tree alone), then one chunk under the
+               profiler: device-busy ms, kernels and copies launched, K1's
+               device ms by symbol; the float, fused and production chunks
+               timed in turns. The production chunk's mean L1 drift
+               from the fused chunk over 3 input and noise seeds (<= 5e-3);
+               the device time of the int8 -> bf16 weight copies of one
+               chunk; the NF4 expert tier once (launches, time, drift); the
+               production layout at bridge widths, depth 2, fp32, card vs
+               CPU (<= 1e-3), with the W8A8 activations that the two sides
+               rounded to different int8 values, and without W8A8
+  5. serve   — the port's BatchingPolicy over the full-width production
+               layout (the JAX serving daemon's default): 4 requests from 4
+               threads and 1 through ActionServer on localhost; then the
+               bf16 trees are freed
   6. train-kernel — the kernel's autograd Function (K1-vjp: K1 forward,
                the two backward kernels) against plain autograd through the
                plain version, at the training shape (B=16, Lq=Lkv=281, the
@@ -123,10 +143,11 @@ import torch
 
 from open_pi_zero_torch import config as cfg_lib
 from open_pi_zero_torch import serving
-from open_pi_zero_torch.models import pizero
+from open_pi_zero_torch.models import fuse, pizero
 from open_pi_zero_torch.models.tree import tree_leaves, tree_map
 from open_pi_zero_torch.ops import _build
 from open_pi_zero_torch.ops import fused_attention as fa
+from open_pi_zero_torch.ops import linear as linear_ops
 from open_pi_zero_torch.ops.attention import mot_attention_ref
 from open_pi_zero_torch.ops.masks import MASK_NEG
 from open_pi_zero_torch.parallel import ranks, run_ranks
@@ -149,8 +170,8 @@ RANK_TIMEOUT_S = 600  # every collective of a spawned world
 KERNEL_SYMBOL = "mot_attention_fwd_kernel"  # the kernel's name in a profile
 ROWS_SYMBOL = "mot_attention_bwd_rows_kernel"  # K1-vjp's backward kernels
 KEYS_SYMBOL = "mot_attention_bwd_keys_kernel"
-MARKERS = 128  # empty kernels before and after the work of a profiled window
-WINDOW_TRIES = 4  # windows that profiled_ms takes at most
+MARKERS = 128  # empty kernels before the work of a profiled window
+WINDOW_TRIES = 6  # windows that profiled_window takes at most
 
 
 def log(msg: str) -> None:
@@ -204,56 +225,71 @@ def time_ms(fn, samples: int = 21, calls: int = 10) -> float:
     return statistics.median(times)
 
 
-def profiled_window(fn, expected: dict) -> dict:
-    """{match: (device ms, events)} of one run of ``fn`` under
-    torch.profiler, for each ``match`` of ``expected``: the device events
-    whose name contains it, all of them for None (``expected[match]`` of
-    them, unless that is None). The profiler loses device events in some
-    windows on an H100: mostly the first ones (all 128 empty kernels that
-    opened one window), once about half of a replayed training update. So
-    ``fn`` runs between MARKERS empty kernels before and MARKERS after,
-    left out of the sums, and a window counts only if every marker was
-    traced (and every expected count matched); one that does not is logged
-    and taken again, WINDOW_TRIES times at most; then it raises."""
+def profiled_window(fn, expected: dict, counted=None) -> tuple:
+    """(got, profile, wall ms) of one run of ``fn`` under torch.profiler:
+    ``got[match]`` is (device ms, events) of the device events whose name
+    contains ``match`` (all of them for None), the marker kernels left
+    out. The profiler loses device events in some windows on an H100:
+    mostly the first ones, more late in a process, once about half of a
+    replayed training update. So ``fn`` runs after MARKERS empty kernels,
+    which take the loss of a window's first events, and a window counts
+    only if
+    - a marker was traced (a lost prefix ended before ``fn``);
+    - ``expected[match]`` events of each ``match`` were traced, where that
+      is not None;
+    - with ``counted``, the wrappers' (K1, backward) launch counts, set to
+      0 just before ``fn``, equal it;
+    - each ``match`` expected None has as many events as in an earlier
+      window that passed the other checks: a window that lost events falls
+      short of the other.
+    One that does not count is taken again, WINDOW_TRIES times at most;
+    then it raises."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda", torch.cuda.current_device())
+    totals = [m for m, n in expected.items() if n is None]
+    passed = []  # the totals of the windows that passed the other checks
     for _ in range(WINDOW_TRIES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(MARKERS):
                 fa.empty_launch(dev)
             torch.cuda.synchronize()
+            if counted is not None:
+                fa.launches = fa.bwd_launches = 0
+            t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
-            for _ in range(MARKERS):
-                fa.empty_launch(dev)
-            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
         marker_ms, markers = device_ms(prof, "opz_empty_kernel")
         got = {}
         for match in expected:
             ms, count = device_ms(prof, match)
             got[match] = (ms - marker_ms, count - markers) if match is None else (ms, count)
-        if markers == 2 * MARKERS and all(n in (None, got[m][1]) for m, n in expected.items()):
-            return got
-        log(f"profiler: window taken again: {markers} of {2 * MARKERS} markers traced, events "
-            f"{ {m: c for m, (_, c) in got.items()} }, {expected} expected")
+        launched = (fa.launches, fa.bwd_launches)
+        complete = (markers > 0 and all(n in (None, got[m][1]) for m, n in expected.items())
+                    and counted in (None, launched))
+        if complete and (not totals or [got[m][1] for m in totals] in passed):
+            return got, prof, wall
+        if complete:
+            passed.append([got[m][1] for m in totals])
+        if not complete or len(passed) > 1:
+            log(f"profiler: window taken again: {markers} of {MARKERS} markers traced, events "
+                f"{ {m: c for m, (_, c) in got.items()} }, {expected} expected, launches counted "
+                f"{launched}, {counted} expected; totals of the windows that passed {passed}")
     raise AssertionError(f"the profiler lost events in {WINDOW_TRIES} windows running")
 
 
-def profiled_ms(fn, match=None, expected=None) -> tuple:
+def profiled_ms(fn, match=None, expected=None, counted=None) -> tuple:
     """(device ms, events) of ``profiled_window`` for one ``match``."""
-    return profiled_window(fn, {match: expected})[match]
+    return profiled_window(fn, {match: expected}, counted)[0][match]
 
 
 def bwd_kernel_ms(fn, calls: int) -> dict:
     """{symbol: device ms} of the two backward kernels over one run of
     ``fn``, which runs ``calls`` backwards; raises unless the wrapper
     counted and the profiler traced every launch of both."""
-    before = fa.bwd_launches
-    got = profiled_window(fn, {ROWS_SYMBOL: calls, KEYS_SYMBOL: calls})
-    if (fa.bwd_launches - before) % (2 * calls):
-        raise AssertionError(f"{fa.bwd_launches - before} backward launches counted over windows of {calls} calls")
+    got, _, _ = profiled_window(fn, {ROWS_SYMBOL: calls, KEYS_SYMBOL: calls}, counted=(0, 2 * calls))
     return {symbol: ms for symbol, (ms, _) in got.items()}
 
 
@@ -261,11 +297,7 @@ def kernel_ms(fn, calls: int) -> float:
     """K1's device time over one run of ``fn``, which launches it
     ``calls`` times, summed by the kernel's symbol; raises unless the
     wrapper counted and the profiler traced every launch."""
-    before = fa.launches
-    ms, _ = profiled_ms(fn, KERNEL_SYMBOL, expected=calls)
-    if (fa.launches - before) % calls:
-        raise AssertionError(f"{fa.launches - before} K1 launches counted over windows of {calls} calls")
-    return ms
+    return profiled_ms(fn, KERNEL_SYMBOL, expected=calls, counted=(calls, 0))[0]
 
 
 def device_time_ms(fn, match=None, calls: int = 20) -> float:
@@ -530,7 +562,9 @@ def check_main_path(dev, cfg, params) -> dict:
     evals = 2 if cfg.flow_integrator == "midpoint" else 1
     expected = L + L * cfg.num_inference_steps * evals
 
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
     fa.launches = 0
     first = run_infer(params, cfg, batch, a0, dev, torch.bfloat16)
     torch.cuda.synchronize()
@@ -552,12 +586,201 @@ def check_main_path(dev, cfg, params) -> dict:
         run_infer(params, cfg, batch, a0, dev, torch.bfloat16)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev)
     return {
         "launches": launches,
         "chunk_ms": statistics.median(times),
-        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "peak_mem_gb": peak / 1e9,
+        # the params' own bytes plus the chunk's peak above what was resident:
+        # the peak with this tree alone on the card
+        "alone_peak_mem_gb": (tree_bytes(params) + peak - resident) / 1e9,
         "chunk": first.float().cpu().numpy().round(4).tolist(),
     }
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of a param tree's tensors, each storage counted once."""
+    storages = {x.untyped_storage().data_ptr(): x.untyped_storage().nbytes() for x in tree_leaves(tree)}
+    return sum(storages.values())
+
+
+# --------------------------------------------------------------------------- #
+# phase 4b: the serving layout
+# --------------------------------------------------------------------------- #
+
+DRIFT_SEEDS = 3
+DRIFT_LIMIT = 5e-3  # mean L1 of the production chunk against the fused bf16 chunk
+
+
+def drift_chunks(dev, cfg, params, seeds) -> np.ndarray:
+    """The chunks of ``params`` for input and noise seeds ``seeds``."""
+    out = []
+    for seed in seeds:
+        rng = np.random.default_rng(100 + seed)
+        batch = example_batch(cfg, 1, rng)
+        a0 = rng.normal(size=(1, cfg.horizon_steps, cfg.action_dim)).astype(np.float32)
+        out.append(run_infer(params, cfg, batch, a0, dev, torch.bfloat16).float().cpu().numpy())
+    return np.stack(out)
+
+
+def int8_copy_ms(cfg, params) -> float:
+    """Device ms of the bf16 copies that the weight-only int8 tier makes in
+    one chunk: each int8 payload of the action expert (which the proprio
+    token shares at prefill) cast to bf16 once per pass, 1 + steps passes.
+    The copies alone under the profiler (``profiled_window``, every copy
+    traced): launched one by one they keep the host busier than the card,
+    so CUDA events would time the host."""
+    layers = params["joint"]["mixtures"]["action"]["layers"]
+    payloads = [d["q"] for group in ("attn", "mlp") for d in layers[group].values() if "q" in d]
+    views = [x for q in payloads for x in q.unbind(0)]  # one per layer, as the path takes them
+    passes = 1 + cfg.num_inference_steps
+
+    def copies():
+        for _ in range(passes):
+            for x in views:
+                x.to(torch.bfloat16)
+
+    copies()
+    got, _, _ = profiled_window(copies, {None: passes * len(views)}, counted=(0, 0))
+    return got[None][0]
+
+
+def interleaved_chunk_ms(dev, cfg, trees: dict, rounds: int = 11) -> dict:
+    """Warm chunk ms of each tree (median of ``rounds``), the trees taken
+    in turns within each round: the host sets the chunk's pace, and its
+    speed drifts within a run, so chunks timed one tree after another are
+    not comparable."""
+    rng = np.random.default_rng(2)
+    batch = example_batch(cfg, 1, rng)
+    a0 = rng.normal(size=(1, cfg.horizon_steps, cfg.action_dim)).astype(np.float32)
+    times = {name: [] for name in trees}
+    for _ in range(rounds):
+        for name, tree in trees.items():
+            t0 = time.perf_counter()
+            run_infer(tree, cfg, batch, a0, dev, torch.bfloat16)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def check_parity_with_cpu_serving(dev) -> dict:
+    """Bridge widths, depth 2, fp32, the production layout: card (kernel,
+    cuBLAS's int8 and fp32 products) vs CPU (plain version), and the
+    activations that the two sides' per-token quantization rounded to
+    different int8 values; the same layout without W8A8 vs the CPU, for
+    the gap that W8A8 does not explain."""
+    cfg = cfg_lib.bridge_width_dryrun_config()
+    float_cpu = pizero.init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
+    layouts = {"production": fuse.serving_layout_kwargs({}), "without_w8a8": fuse.serving_layout_kwargs({"w8a8": False})}
+    rng = np.random.default_rng(12)
+    batch = example_batch(cfg, 2, rng)
+    batch["attention_mask"][1, 20:] = 0  # the second row is shorter
+    batch["input_ids"][1, 20:] = 0
+    a0 = rng.normal(size=(2, cfg.horizon_steps, cfg.action_dim)).astype(np.float32)
+    quantize = linear_ops.quantize_act_per_token
+    recorded = {"card": [], "cpu": []}  # per call: (x / scale, the int8 values), production only
+
+    def recording(side):
+        def run(x):
+            q, scale = quantize(x)
+            recorded[side].append(((x.float() / scale).cpu(), q.cpu()))
+            return q, scale
+        return run
+
+    out = {}
+    for name, knobs in layouts.items():
+        params_cpu = fuse.prepare_for_serving(float_cpu, **knobs)
+        params_dev = tree_map(lambda x: x.to(dev), params_cpu)
+        before = fa.launches
+        try:
+            if name == "production":
+                linear_ops.quantize_act_per_token = recording("card")
+            on_card = run_infer(params_dev, cfg, batch, a0, dev, torch.float32).cpu()
+            if fa.launches == before:
+                raise AssertionError("the card run did not launch the kernel")
+            if name == "production":
+                linear_ops.quantize_act_per_token = recording("cpu")
+            on_cpu = run_infer(params_cpu, cfg, batch, a0, "cpu", torch.float32)
+        finally:
+            linear_ops.quantize_act_per_token = quantize
+        out[f"{name}_max_abs_diff"] = float((on_card - on_cpu).abs().max())
+        del params_cpu, params_dev
+    # as phase 3: fp32 on both sides; the int8 products are exact, the
+    # per-token quantization is the same IEEE arithmetic, and an activation
+    # that the sums' order moves across an int8 rounding boundary moves its
+    # output by one step of its scale, far below 1e-3
+    err = out["production_max_abs_diff"]
+    if not err <= 1e-3:
+        raise AssertionError(f"serving layout: card vs CPU max|diff| {err} > 1e-3")
+    if len(recorded["card"]) != len(recorded["cpu"]) or not recorded["card"]:
+        raise AssertionError(f"W8A8 activations quantized {len(recorded['card'])} times on the card, "
+                             f"{len(recorded['cpu'])} on the CPU")
+    flipped, first = [], None  # per call; a flip moves the inputs of the calls after it
+    for call, ((u_card, q_card), (u_cpu, q_cpu)) in enumerate(zip(recorded["card"], recorded["cpu"])):
+        differ = q_card != q_cpu
+        flipped.append(int(differ.sum()))
+        if first is None and differ.any():
+            at = tuple(int(i) for i in differ.nonzero()[0])
+            first = {"call": call, "index": at, "card": [float(u_card[at]), int(q_card[at])],
+                     "cpu": [float(u_cpu[at]), int(q_cpu[at])]}
+    out["w8a8_activations"] = {
+        "calls": len(recorded["card"]), "elements": sum(q.numel() for _, q in recorded["card"]),
+        "flipped_per_call": flipped, "first_flip": first,  # x / scale and its int8 value on each side
+    }
+    return out
+
+
+def check_serving_layout(dev, cfg, params, info: str) -> tuple:
+    """Phase 4b: the fused bf16 tree and the production tree (int8 action
+    expert, W8A8 VLM trunk, bf16 SigLIP) from the phase-4 params, each
+    driven as phase 4 drives the float tree; the production chunk's drift
+    from the fused one; the NF4 expert tier once; the production layout
+    card vs CPU at bridge widths. Returns (results, the production tree)."""
+    t0 = time.time()
+    knobs = fuse.serving_layout_kwargs({})  # the production defaults
+    trees = {"fused": fuse.fuse_for_serving(params), "production": fuse.prepare_for_serving(params, **knobs)}
+    torch.cuda.synchronize()
+    log(f"serving-layout: fused and production trees built in {time.time() - t0:.1f} s; "
+        f"{ {k: round(tree_bytes(v) / 1e9, 3) for k, v in trees.items()} } GB")
+    L = cfg.joint.num_hidden_layers
+    expected = L + L * cfg.num_inference_steps
+    results = {}
+    for name, tree in trees.items():
+        row = check_main_path(dev, cfg, tree)  # 198 launches, bitwise chunks, clip, latency, memory
+        row.update(profile_chunk(dev, cfg, tree, expected, label=f"profile {name}"))
+        row["tree_gb"] = tree_bytes(tree) / 1e9
+        results[name] = row
+        log(f"serving-layout {name}: warm chunk {row['chunk_ms']:.3f} ms (median of 11), {row['launches']} K1 "
+            f"launches, {row['kernels_per_chunk']} kernels and {row['copies_per_chunk']} copies per chunk, device "
+            f"busy {row['busy_ms']:.3f} ms of a profiled {row['wall_ms']:.3f} ms, K1 {row['ms']:.3f} ms; tree {row['tree_gb']:.3f} GB, peak with "
+            f"the tree alone {row['alone_peak_mem_gb']:.3f} GB, on {info}")
+    fused_chunks = drift_chunks(dev, cfg, trees["fused"], range(DRIFT_SEEDS))
+    prod_chunks = drift_chunks(dev, cfg, trees["production"], range(DRIFT_SEEDS))
+    drift = float(np.abs(prod_chunks - fused_chunks).mean())
+    results["production"]["drift_per_seed"] = np.abs(prod_chunks - fused_chunks).mean(axis=(1, 2, 3)).tolist()
+    results["production"]["drift"] = drift
+    if not drift <= DRIFT_LIMIT:
+        raise AssertionError(f"production chunk drift {drift} from the fused bf16 chunk > {DRIFT_LIMIT}")
+    results["production"]["int8_copy_ms"] = int8_copy_ms(cfg, trees["production"])
+    results["interleaved_chunk_ms"] = interleaved_chunk_ms(dev, cfg, {"float": params, **trees})
+    del trees["fused"]
+
+    nf4 = fuse.prepare_for_serving(params, **{**knobs, "bits": 4})
+    fa.launches = 0
+    nf4_chunk = drift_chunks(dev, cfg, nf4, range(1))  # the first call
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    drift_chunks(dev, cfg, nf4, range(1))
+    torch.cuda.synchronize()
+    results["nf4_expert"] = {
+        "launches_per_chunk": fa.launches // 2, "chunk_ms": (time.perf_counter() - t1) * 1e3,
+        "tree_gb": tree_bytes(nf4) / 1e9, "drift": float(np.abs(nf4_chunk - fused_chunks[:1]).mean()),
+    }
+    if results["nf4_expert"]["launches_per_chunk"] != expected or not np.isfinite(nf4_chunk).all():
+        raise AssertionError(f"NF4 tier: {results['nf4_expert']}")
+    del nf4
+    results["parity"] = check_parity_with_cpu_serving(dev)
+    return results, trees["production"]
 
 
 def check_serving(dev, cfg, params) -> int:
@@ -602,41 +825,36 @@ def device_ms(prof, match=None) -> tuple:
     return sum(e.self_device_time_total for e in events) / 1e3, sum(e.count for e in events)
 
 
-def profile_chunk(dev, cfg, params, expected: int) -> dict:
-    """One warm chunk of the main path under torch.profiler, the kernel
-    counts set to 0 just before it: the kernel's device time summed over
-    its launches, and the device time by kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
+def profile_chunk(dev, cfg, params, expected: int, label: str = "profile") -> dict:
+    """One warm chunk of the main path under torch.profiler
+    (``profiled_window``: every K1 launch traced, the totals confirmed by
+    a second window): the kernel's device time summed over its launches,
+    the device time by kernel, the kernels and copies launched."""
     rng = np.random.default_rng(4)
     batch = example_batch(cfg, 1, rng)
     a0 = rng.normal(size=(1, cfg.horizon_steps, cfg.action_dim)).astype(np.float32)
     run_infer(params, cfg, batch, a0, dev, torch.bfloat16)
-    torch.cuda.synchronize()
-    fa.launches = 0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_infer(params, cfg, batch, a0, dev, torch.bfloat16)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    launches = fa.launches
-    ms, traced = device_ms(prof, KERNEL_SYMBOL)
-    if launches != expected or traced != expected:
-        raise AssertionError(f"profiled chunk: {launches} launches counted, {traced} traced; want {expected}")
-    busy = log_profile("profile", prof, wall)
-    return {"launches": launches, "ms": ms, "wall_ms": wall, "busy_ms": busy}
+    got, prof, wall = profiled_window(
+        lambda: run_infer(params, cfg, batch, a0, dev, torch.bfloat16),
+        {None: None, "Memcpy": None, "Memset": None, KERNEL_SYMBOL: expected, ROWS_SYMBOL: 0, KEYS_SYMBOL: 0},
+        counted=(expected, 0),
+    )
+    busy, events = got[None]
+    log_profile(label, prof, wall, busy)
+    copies = got["Memcpy"][1] + got["Memset"][1]
+    return {"launches": expected, "ms": got[KERNEL_SYMBOL][0], "wall_ms": wall, "busy_ms": busy,
+            "kernels_per_chunk": events - copies, "copies_per_chunk": copies}
 
 
-def log_profile(label: str, prof, wall: float) -> float:
+def log_profile(label: str, prof, wall: float, busy: float) -> None:
     """Log the device-busy share of a profiled window and its top kernels
-    by device time; returns the busy ms."""
-    busy, _ = device_ms(prof)
+    by device time, the marker kernels left out."""
     log(f"{label}: wall {wall:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%)")
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and not e.is_user_annotation]
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and not e.is_user_annotation
+              and "opz_empty_kernel" not in e.key]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in events[:15]:
         log(f"{label}:   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
-    return busy
 
 
 def record_main_path_calls(dev, cfg, params) -> list:
@@ -944,28 +1162,18 @@ def check_train_main(dev) -> tuple:
 
 
 def profile_update(state, step, batch, expected: int) -> dict:
-    """One more update under torch.profiler, the counts set to 0 just
-    before it: K1's launches and device time, each backward kernel's
-    (``expected`` / 2 VJPs), the busy share."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fa.launches = fa.bwd_launches = 0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(state, batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    launches, bwd_launches = fa.launches, fa.bwd_launches
-    ms, traced = device_ms(prof, KERNEL_SYMBOL)
-    if launches != expected or traced != expected:
-        raise AssertionError(f"profiled update: {launches} launches counted, {traced} traced; want {expected}")
-    bwd = {symbol: device_ms(prof, symbol) for symbol in (ROWS_SYMBOL, KEYS_SYMBOL)}
-    if bwd_launches != expected or any(n != expected // 2 for _, n in bwd.values()):
-        raise AssertionError(f"profiled update: {bwd_launches} backward launches counted, traced "
-                             f"{ {s: n for s, (_, n) in bwd.items()} }; want {expected // 2} VJPs")
-    busy = log_profile("train-profile", prof, wall)
-    return {"launches": launches, "bwd_launches": bwd_launches, "kernel_ms": ms,
-            "backward_ms": sum(ms for ms, _ in bwd.values()), "wall_ms": wall, "busy_ms": busy}
+    """One more update under torch.profiler (``profiled_window``; each
+    window is one more update): K1's launches and device time, each
+    backward kernel's (``expected`` / 2 VJPs), the busy share."""
+    got, prof, wall = profiled_window(
+        lambda: step(state, batch),
+        {None: None, KERNEL_SYMBOL: expected, ROWS_SYMBOL: expected // 2, KEYS_SYMBOL: expected // 2},
+        counted=(expected, expected),
+    )
+    busy = got[None][0]
+    log_profile("train-profile", prof, wall, busy)
+    return {"launches": expected, "bwd_launches": expected, "kernel_ms": got[KERNEL_SYMBOL][0],
+            "backward_ms": got[ROWS_SYMBOL][0] + got[KEYS_SYMBOL][0], "wall_ms": wall, "busy_ms": busy}
 
 
 def record_training_calls(dev, cfg, params, batch) -> list:
@@ -1075,11 +1283,8 @@ def replay_vjp(calls) -> dict:
     for name, fn in timed.items():
         fn()  # warm
         if name == "kernel":  # every K1 and backward launch traced, in one window
-            before = (fa.launches, fa.bwd_launches)
-            got = profiled_window(fn, {None: None, KERNEL_SYMBOL: 2 * n, ROWS_SYMBOL: n, KEYS_SYMBOL: n})
-            if (fa.launches - before[0]) % (2 * n) or (fa.bwd_launches - before[1]) % (2 * n):
-                raise AssertionError(f"replayed VJPs: {fa.launches - before[0]} K1 and "
-                                     f"{fa.bwd_launches - before[1]} backward launches, want {2 * n} each")
+            got, _, _ = profiled_window(fn, {None: None, KERNEL_SYMBOL: 2 * n, ROWS_SYMBOL: n, KEYS_SYMBOL: n},
+                                        counted=(2 * n, 2 * n))
             out["kernel_ms"] = got[None][0]
             out["forward_ms"] = got[KERNEL_SYMBOL][0]
             out["backward_ms"] = got[ROWS_SYMBOL][0] + got[KEYS_SYMBOL][0]
@@ -1205,7 +1410,8 @@ def check_shard_main(dev) -> dict:
 
 
 def single_card_phases(dev, info: str) -> list:
-    """Phases 2-8 on card 0; returns their entries of the kernels line."""
+    """Phases 2-8 (and 4b) on card 0; returns their entries of the kernels
+    line."""
     t0 = time.time()
     floor = launch_floor(dev)
     log(f"launch floor: empty kernel {floor['device_ms_per_launch']:.5f} ms device time per launch, "
@@ -1247,10 +1453,28 @@ def single_card_phases(dev, info: str) -> list:
     log(f"main: kernel on the main path {prof['ms']:.3f} ms over {prof['launches']} launches; "
         "replayed calls: " + json.dumps(replayed))
 
+    log(f"main: float chunk under the profiler: {prof['kernels_per_chunk']} kernels and "
+        f"{prof['copies_per_chunk']} copies launched, device busy {prof['busy_ms']:.3f} ms")
+
     t0 = time.time()
-    served = check_serving(dev, cfg, params)
-    log(f"serve: {served} requests answered in {time.time() - t0:.1f} s")
+    layout, production = check_serving_layout(dev, cfg, params, info)
+    log("serving-layout: " + json.dumps(layout))
+    log(f"serving-layout: production chunk drift from the fused bf16 chunk {layout['production']['drift']:.3e} "
+        f"(mean L1 over {DRIFT_SEEDS} seeds, <= {DRIFT_LIMIT}); NF4 expert drift {layout['nf4_expert']['drift']:.3e}; "
+        f"int8 -> bf16 weight copies {layout['production']['int8_copy_ms']:.3f} ms of device time per chunk; "
+        f"bridge widths depth 2 fp32 card vs CPU max|diff| {layout['parity']['production_max_abs_diff']:.3e} "
+        f"(<= 1e-3), without W8A8 {layout['parity']['without_w8a8_max_abs_diff']:.3e}; W8A8 activations "
+        f"rounded to another int8 value on the card than on the CPU: {layout['parity']['w8a8_activations']}")
+    log("serving-layout: warm chunk ms, the trees in turns (median of 11): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in layout["interleaved_chunk_ms"].items()) + f", on {info}")
+    log(f"phase serving-layout ok in {time.time() - t0:.1f} s")
     del params, calls
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    served = check_serving(dev, cfg, production)  # the JAX daemon's default layout
+    log(f"serve: {served} requests answered by the production layout in {time.time() - t0:.1f} s")
+    del production
     torch.cuda.empty_cache()
 
     t0 = time.time()
@@ -1297,6 +1521,9 @@ def single_card_phases(dev, info: str) -> list:
         "bound_ms": replayed["bound_ms"],
         "bound_by": replayed["bound_by"],
         "library_ms": replayed["library_ms"],
+        # the same launches over one chunk of the production serving layout
+        "production_launches": layout["production"]["launches"],
+        "production_ms": layout["production"]["ms"],
     }
     vjp_entry = {
         "name": "mot_attention_vjp",

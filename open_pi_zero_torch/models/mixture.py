@@ -1,5 +1,5 @@
 """Per-expert (mixture) layer ops (counterpart of the JAX package's
-``models/mixture.py``, float path without adaLN).
+``models/mixture.py``, without adaLN).
 
 One mixture is a PaliGemma-layout transformer expert: RMSNorm -> GQA
 attention -> RMSNorm -> geglu MLP, and an optional final RMSNorm.
@@ -14,6 +14,9 @@ Hq/Hkv = query/kv heads, Dh = head_dim):
     post_norm:   {weight [L, D]}
     mlp: {gate [L, D, I], up [L, D, I], down [L, I, D]}
   final_norm: {weight [D]} | absent (vlm w/o lm head)
+The fused serving layout (models/fuse.py) holds attn qkv [L, D, (Hq+2Hkv)*Dh]
+and mlp gateup [L, D, 2I] instead; any kernel may be a quantized dict
+(ops/linear.py).
 
 Under tensor parallelism (``parallel/sharding.py``) a rank holds a slice
 of the heads and of the MLP width: q/k/v reshape by their own width, and
@@ -66,10 +69,16 @@ def kv_proj(
 def qkv_proj(
     lp_attn: dict, joint: JointConfig, x: torch.Tensor, scaling: float = 1.0
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(q, k, v) through separate projections (the fused serving layout
-    comes with the serving-layout slice)."""
+    """(q, k, v): one fused projection split at Hq*Dh and Hq*Dh + Hkv*Dh in
+    the serving layout (models/fuse.py), else separate LoRA-aware ones."""
     if "qkv" in lp_attn:
-        raise NotImplementedError("the fused qkv serving layout is not ported yet")
+        b, s, _ = x.shape
+        nq = joint.num_attention_heads * joint.head_dim
+        nkv = joint.num_key_value_heads * joint.head_dim
+        qkv = proj(lp_attn, "qkv", x)
+        return tuple(
+            part.reshape(b, s, -1, joint.head_dim) for part in qkv.split([nq, nkv, nkv], dim=-1)
+        )
     return (q_proj(lp_attn, joint, x, scaling), *kv_proj(lp_attn, joint, x, scaling))
 
 
@@ -80,11 +89,13 @@ def o_proj(lp_attn: dict, joint: JointConfig, x: torch.Tensor, scaling: float = 
 
 
 def mlp(lp_mlp: dict, mix: MixtureConfig, x: torch.Tensor, scaling: float = 1.0) -> torch.Tensor:
-    """geglu: down(gelu_tanh(gate(x)) * up(x)), the gelu in fp32."""
+    """geglu: down(gelu_tanh(gate(x)) * up(x)), the gelu in fp32; one fused
+    gate+up projection split in half in the serving layout."""
     if "gateup" in lp_mlp:
-        raise NotImplementedError("the fused gate+up serving layout is not ported yet")
-    gate = proj(lp_mlp, "gate", x, scaling)
-    up = proj(lp_mlp, "up", x, scaling)
+        gate, up = proj(lp_mlp, "gateup", x).chunk(2, dim=-1)
+    else:
+        gate = proj(lp_mlp, "gate", x, scaling)
+        up = proj(lp_mlp, "up", x, scaling)
     h = F.gelu(gate.to(torch.float32), approximate="tanh").to(x.dtype) * up
     return sum_row_parallel(proj(lp_mlp, "down", h, scaling), h.shape[-1], mix.intermediate_size)
 

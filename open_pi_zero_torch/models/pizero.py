@@ -18,6 +18,9 @@ leaf-by-leaf copy):
   action_encoder: {linear_1, linear_2, linear_3}
   proprio_encoder: {kernel, bias}
   action_decoder: {kernel, bias}
+The serving layout of ``models/fuse.py`` (fused qkv and gate/up kernels,
+quantized tiers) runs through the same functions; ``infer_action`` decodes
+an NF4 expert once per call.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from open_pi_zero_torch.ops.masks import (
     split_prefix_and_action_masks,
     vlm_position_ids,
 )
+from open_pi_zero_torch.ops.quantization import dequantize_kernel_nf4, int8_scale
 from open_pi_zero_torch.parallel.mesh import get_mesh
 
 Tensor = torch.Tensor
@@ -83,7 +87,9 @@ class _Init:
 
 def _init_siglip(init: _Init, cfg) -> dict:
     if cfg.use_lora or cfg.use_quantize:
-        raise NotImplementedError("SigLIP LoRA/quantization is not ported yet")
+        raise NotImplementedError(
+            "SigLIP LoRA/QLoRA is not ported yet (the serving tiers quantize a float tree: models/fuse.py)"
+        )
     L, D, I = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
     patch_in = cfg.patch_size * cfg.patch_size * cfg.num_channels
     ln = lambda: {"scale": init.full((L, D), 1.0), "bias": init.full((L, D), 0.0)}  # noqa: E731
@@ -104,7 +110,9 @@ def _init_siglip(init: _Init, cfg) -> dict:
 
 def _init_mixture(init: _Init, joint, mix) -> dict:
     if mix.adaptive_mode is not None or mix.use_lora or mix.use_quantize:
-        raise NotImplementedError("adaLN/LoRA/quantized mixtures are not ported yet")
+        raise NotImplementedError(
+            "adaLN/LoRA/QLoRA mixtures are not ported yet (the serving tiers quantize a float tree: models/fuse.py)"
+        )
     L, D, I = joint.num_hidden_layers, mix.hidden_size, mix.intermediate_size
     q_out = joint.num_attention_heads * joint.head_dim
     kv_out = joint.num_key_value_heads * joint.head_dim
@@ -135,22 +143,35 @@ def init_params(
 ) -> dict:
     """Random params in the JAX package's tree layout, drawn on ``device``
     (CUDA by default; raises without a card unless ``device='cpu'``)."""
+    return _draw_params(cfg, _Init(seed, resolve_device(device), dtype))
+
+
+def _draw_params(cfg: PiZeroConfig, init: _Init, mixture_fn=None, siglip_fn=None) -> dict:
+    """The param tree drawn from ``init``'s one generator in a fixed order:
+    the token embedding, the mixtures, SigLIP, the projector, the action
+    encoder, the proprio encoder, the action decoder. ``mixture_fn(name,
+    params)`` and ``siglip_fn(params)`` replace each such module as soon as
+    it is drawn (``models/fuse.build_serving_params``), so that its float
+    copy is freed before the next one is drawn."""
     if cfg.action_expert_adaptive_mode is not None:
         raise NotImplementedError("adaptive action expert is not ported yet")
-    init = _Init(seed, resolve_device(device), dtype)
     vlm_hidden = cfg.mixture("vlm").hidden_size
     action_hidden = cfg.mixture("action").hidden_size
     embed = init.normal((cfg.vocab_size, vlm_hidden))
     embed[cfg.pad_token_id] = 0.0  # nn.Embedding padding_idx row
     joint = cfg.joint
-    mixtures = {
-        n: _init_mixture(init, joint, joint.mixture(n))
-        for n in joint.mixture_names
-        if joint_lib.param_key(joint, n) == n
-    }
+    mixtures = {}
+    for n in joint.mixture_names:
+        if joint_lib.param_key(joint, n) == n:
+            mixtures[n] = _init_mixture(init, joint, joint.mixture(n))
+            if mixture_fn is not None:
+                mixtures[n] = mixture_fn(n, mixtures[n])
+    siglip = _init_siglip(init, cfg.siglip)
+    if siglip_fn is not None:
+        siglip = siglip_fn(siglip)
     return {
         "embed_tokens": embed,
-        "siglip": _init_siglip(init, cfg.siglip),
+        "siglip": siglip,
         "projector": init.linear(cfg.siglip.hidden_size, cfg.siglip.projection_dim),
         "joint": {"mixtures": mixtures},
         "action_encoder": {
@@ -248,6 +269,26 @@ def prepare_action_inputs(cfg: PiZeroConfig, attention_mask: Tensor):
 # --------------------------------------------------------------------------- #
 
 
+def _requant_int8(w: Tensor) -> dict:
+    """fp32 [..., K, N] -> the weight-only int8 {q, scale per column} that
+    ``base_matmul`` streams."""
+    scale = int8_scale(w.abs().amax(dim=-2))
+    q = torch.clamp(torch.round(w / scale[..., None, :]), -127, 127).to(torch.int8)
+    return {"q": q, "scale": scale.to(torch.float32)}
+
+
+def _hoist_4bit(tree):
+    """Every NF4 {q4, absmax} replaced by a weight-only int8 copy decoded
+    once (a no-op for float, int8 and W8A8 trees): the Euler steps then
+    stream int8 while the params at rest stay 4-bit. Eager PyTorch runs
+    the decode once, before the loop, with no barrier needed."""
+    if isinstance(tree, dict):
+        if "q4" in tree and "absmax" in tree:
+            return _requant_int8(dequantize_kernel_nf4(tree))
+        return {k: _hoist_4bit(v) for k, v in tree.items()}
+    return tree
+
+
 @torch.no_grad()
 def infer_action(
     params: dict,
@@ -278,6 +319,7 @@ def infer_action(
     b = input_ids.shape[0]
     if cfg.action_expert_adaptive_mode:
         raise NotImplementedError("adaptive action expert is not ported yet")
+    params = {**params, "joint": _hoist_4bit(params["joint"])}  # NF4: decode once per call
     _, prefix_mask, action_mask, pos = prepare_action_inputs(cfg, attention_mask)
 
     inputs_embeds = embed_image_text(params, cfg, input_ids, pixel_values)

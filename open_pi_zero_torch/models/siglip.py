@@ -1,5 +1,6 @@
 """SigLIP vision tower + multimodal projector (counterpart of the JAX
-package's ``models/siglip.py``, unfused float params).
+package's ``models/siglip.py``). A layer kernel may be a quantized dict
+(``ops/linear.py``): the W8A8 tier of ``models/fuse.py``.
 
 Patch embedding is a reshape + matmul on NHWC pixels (stride == kernel, so
 the conv is a per-patch dense layer); pre-LN blocks with plain softmax MHA,
@@ -9,7 +10,8 @@ are split into per-layer views once per call and walked by a Python loop.
 Param tree (L = num layers):
   embeddings: patch: {kernel [P*P*C, D], bias [D]}, position: [N, D]
   layers:     ln1/ln2: {scale [L,D], bias [L,D]}
-              attn:    q/k/v/o: {kernel [L,D,D], bias [L,D]}
+              attn:    q/k/v/o: {kernel [L,D,D], bias [L,D]}, or in the fused
+                       serving layout qkv: {kernel [L,D,3D], bias [L,3D]} and o
               mlp:     fc1 {kernel [L,D,I], bias [L,I]}, fc2 {kernel [L,I,D], bias [L,D]}
   post_layernorm: {scale [D], bias [D]}
   projector:  {kernel [D, proj], bias [proj]}
@@ -30,7 +32,7 @@ import torch.nn.functional as F
 from open_pi_zero_torch.config import SiglipConfig
 from open_pi_zero_torch.models.tree import layer_split
 from open_pi_zero_torch.ops.attention import mha_attention
-from open_pi_zero_torch.ops.linear import linear, lora_delta
+from open_pi_zero_torch.ops.linear import base_matmul, linear, lora_delta
 from open_pi_zero_torch.ops.norms import layer_norm
 from open_pi_zero_torch.parallel.collectives import sum_row_parallel
 
@@ -47,14 +49,15 @@ def patchify(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
 def _proj(
     group: dict, name: str, x: torch.Tensor, scaling: float, full_in: Optional[int] = None
 ) -> torch.Tensor:
-    """LoRA-aware biased projection. With ``full_in`` (the kernel's whole
-    input width) a row-parallel one: its partial sums are reduced over the
-    model group before the bias."""
+    """LoRA-aware biased projection: the fp32 product plus the bias in fp32,
+    cast once to x.dtype, as the JAX package's ``linear``. With ``full_in``
+    (the kernel's whole input width) a row-parallel one: its fp32 partial
+    sums are reduced over the model group before the bias."""
     d = group[name]
-    out = linear(x, d["kernel"])
+    out = base_matmul(x, d["kernel"])
     if full_in is not None:
         out = sum_row_parallel(out, x.shape[-1], full_in)
-    out = out + d["bias"].to(out.dtype)
+    out = (out + d["bias"].to(torch.float32)).to(x.dtype)
     lora = group.get(f"{name}_lora")
     if lora is not None:
         out = (out.to(torch.float32) + lora_delta(x, lora, scaling)).to(x.dtype)
@@ -67,9 +70,11 @@ def _encoder_layer(x: torch.Tensor, lp: dict, cfg: SiglipConfig) -> torch.Tensor
     eps = cfg.layer_norm_eps
     h = layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], eps)
     shape = (b, n, -1, cfg.head_dim)  # this rank's heads
-    q = _proj(lp["attn"], "q", h, s).reshape(shape)
-    k = _proj(lp["attn"], "k", h, s).reshape(shape)
-    v = _proj(lp["attn"], "v", h, s).reshape(shape)
+    if "qkv" in lp["attn"]:  # the fused serving layout (models/fuse.py)
+        q, k, v = _proj(lp["attn"], "qkv", h, s).chunk(3, dim=-1)
+    else:
+        q, k, v = (_proj(lp["attn"], name, h, s) for name in ("q", "k", "v"))
+    q, k, v = q.reshape(shape), k.reshape(shape), v.reshape(shape)
     attn = mha_attention(q, k, v).reshape(b, n, -1)
     x = x + _proj(lp["attn"], "o", attn, s, cfg.hidden_size)
 

@@ -1,11 +1,22 @@
-"""Dense layers: ``linear`` and the float path of the LoRA-aware projection
-(counterparts of the JAX package's ``ops/linear.py`` and the float branch
-of ``ops/lora.py::proj``/``base_matmul``/``lora_delta``).
+"""Dense layers: ``linear`` and the LoRA-aware projection (counterparts of
+the JAX package's ``ops/linear.py`` and of ``ops/lora.py::proj``,
+``base_matmul`` and ``lora_delta``).
 
-Kernels are stored ``[in, out]``. ``torch.matmul`` on bf16 inputs
-accumulates in fp32 and rounds the result to bf16; fp32 inputs stay
-fp32 (TF32 is off by default for matmuls). The quantized tiers
-(``{q, scale}``, ``{qa, scale}``, ``{q4, absmax}``) are not ported yet.
+Kernels are stored ``[in, out]``. A kernel is a float tensor or one of the
+quantized dicts of ``ops/quantization.py``:
+  {q, scale}     weight-only int8: x @ q.to(x.dtype) as an fp32 product,
+                 times the per-channel scale
+  {qa, scale}    W8A8: x quantized per token, an int8 x int8 -> int32
+                 product (``torch._int_mm``), times the token's scale, times
+                 the channel's scale
+  {q4, absmax}   NF4: dequantized to x.dtype, then an fp32 product
+The epilogue is JAX's, in its order: the fp32 product, times the scales,
+plus the bias in fp32, then one cast to x.dtype. A bf16 product is taken
+in fp32 with one rounding at the end (``matmul_f32``).
+
+An unbiased float ``linear`` and a float ``proj`` without an adapter are
+one ``torch.matmul``: on bf16 inputs it accumulates in fp32 and rounds the
+result once, which is the same arithmetic.
 """
 
 from __future__ import annotations
@@ -14,23 +25,65 @@ from typing import Optional
 
 import torch
 
+from open_pi_zero_torch.ops.quantization import dequantize_kernel_nf4, quantize_act_per_token
 
-def _float_kernel(kernel) -> torch.Tensor:
-    if isinstance(kernel, dict):
-        raise NotImplementedError(
-            f"quantized kernel {sorted(kernel)}: the port has the float path only"
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., in] @ w [in, out] as an fp32 product. In fp32 one matmul. In
+    bf16 on a card the product stays on the bf16 tensor cores with an fp32
+    output (``torch.mm(..., out_dtype=torch.float32)``); on the CPU both
+    operands are widened to fp32 first, which is the same arithmetic, since
+    a product of two bf16 values is exact in fp32."""
+    if x.dtype == torch.float32:
+        return torch.matmul(x, w)
+    if x.device.type == "cuda":
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+
+
+def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """int8 [..., K] @ int8 [K, N] -> the exact int32 product. On a card
+    ``torch._int_mm`` takes more than 16 rows and K, N multiples of 8: other
+    shapes raise here, where the W8A8 tier would otherwise fail inside
+    cuBLAS. The W8A8 trunk runs at prefill, B x 276 rows at full width.
+    ``wq`` is read in its own layout: column-major is the fast one
+    (``quantization.int8_mm_layout``)."""
+    x2d = xq.reshape(-1, xq.shape[-1])
+    m, (k, n) = x2d.shape[0], wq.shape
+    if xq.device.type == "cuda" and (m <= 16 or k % 8 or n % 8):
+        raise ValueError(
+            f"W8A8 on a card needs more than 16 rows and K, N multiples of 8; got "
+            f"M={m}, K={k}, N={n}"
         )
-    return kernel
+    return torch._int_mm(x2d, wq).reshape(*xq.shape[:-1], n)
 
 
-def linear(
-    x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None
-) -> torch.Tensor:
+def base_matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w against a float kernel or a quantized dict, returned in fp32."""
+    if not isinstance(w, dict):
+        return matmul_f32(x, w)
+    if "q4" in w:
+        return matmul_f32(x, dequantize_kernel_nf4(w, x.dtype))
+    if "q" in w:
+        return matmul_f32(x, w["q"].to(x.dtype)) * w["scale"].to(torch.float32)
+    if "qa" in w:
+        xq, sx = quantize_act_per_token(x)
+        return int8_matmul(xq, w["qa"]).to(torch.float32) * sx * w["scale"].to(torch.float32)
+    raise ValueError(
+        f"unsupported quantized kernel format {sorted(w)}: the port takes {{q4, absmax}} NF4, "
+        "{q, scale} weight-only int8 and {qa, scale} W8A8"
+    )
+
+
+def linear(x: torch.Tensor, kernel, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [..., in] @ kernel [in, out] (+ bias), in x.dtype."""
-    out = torch.matmul(x, _float_kernel(kernel))
+    if bias is None and not isinstance(kernel, dict):
+        return torch.matmul(x, kernel)
+    out = base_matmul(x, kernel)
     if bias is not None:
-        out = out + bias.to(out.dtype)
-    return out
+        out = out + bias.to(torch.float32)
+    return out.to(x.dtype)
 
 
 def lora_delta(x: torch.Tensor, lora: dict, scaling: float) -> torch.Tensor:
@@ -39,15 +92,13 @@ def lora_delta(x: torch.Tensor, lora: dict, scaling: float) -> torch.Tensor:
     return torch.matmul(h, lora["b"]).to(torch.float32) * scaling
 
 
-def base_matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w against a float kernel, returned in fp32."""
-    return torch.matmul(x, _float_kernel(w)).to(torch.float32)
-
-
 def proj(lp: dict, name: str, x: torch.Tensor, scaling: float = 1.0) -> torch.Tensor:
     """LoRA-aware projection: base matmul + optional ``<name>_lora`` delta,
     cast back to x.dtype."""
-    lora = lp.get(f"{name}_lora")
-    if lora is None:
-        return torch.matmul(x, _float_kernel(lp[name]))
-    return (base_matmul(x, lp[name]) + lora_delta(x, lora, scaling)).to(x.dtype)
+    w, lora = lp[name], lp.get(f"{name}_lora")
+    if lora is None and not isinstance(w, dict):
+        return torch.matmul(x, w)
+    out = base_matmul(x, w)
+    if lora is not None:
+        out = out + lora_delta(x, lora, scaling)
+    return out.to(x.dtype)

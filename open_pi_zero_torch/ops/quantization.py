@@ -1,0 +1,133 @@
+"""Weight and activation quantization for the serving tiers (counterpart of
+the model-kernel part of the JAX package's ``ops/quantization.py``).
+
+Three payload dicts replace a float ``[(L,) in, out]`` kernel:
+  {q: int8 [..., in, out], scale: fp32 [..., out]}   weight-only int8, one
+      symmetric scale per output channel (``quantize_int8_rowwise``)
+  {qa: int8, scale: fp32}                            the same payload for
+      W8A8, whose activations are quantized per token at each call
+      (``quantize_act_per_token``)
+  {q4: uint8 [..., in, out/2], absmax: fp32 [..., in, out/block]}  NF4 in
+      blocks along the last dim (``quantize_kernel_nf4``)
+
+The arithmetic is the JAX package's, op for op in fp32, so that a kernel
+quantized here is bitwise the one JAX makes from the same weights. The
+blockwise optimizer-state formats (``QTensor``, ``Q4Tensor``) are not
+ported.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+# QLoRA's NF4 code (bitsandbytes ``functional.quantize_4bit``); index = the
+# stored nibble
+NF4_CODE = (
+    -1.0, -0.6961928009986877, -0.5250730514526367, -0.39491748809814453,
+    -0.28444138169288635, -0.18477343022823334, -0.09105003625154495, 0.0,
+    0.07958029955625534, 0.16093020141124725, 0.24611230194568634,
+    0.33791524171829224, 0.44070982933044434, 0.5626170039176941,
+    0.7229568362236023, 1.0,
+)
+DEFAULT_BLOCK_4BIT = 64  # bnb Linear4bit's block size
+
+# The 4-bit payload's layout version: v2 packs HALVES (low nibbles hold
+# columns [0, N/2), high nibbles [N/2, N)); v1 packed neighbouring pairs. A
+# checkpoint stamps it so that a payload of the other layout fails loudly.
+QUANT_LAYOUT_VERSION = 2
+
+# The shrink factors that ``mse_scale`` tries per channel: the fp32 values
+# of the JAX package's ``jnp.linspace(0.75, 1.0, 11)`` as XLA on the CPU
+# computes it outside ``jit``. Its 0.9749999642372131 is one ulp below the
+# correctly rounded 0.975 that ``torch.linspace`` (and XLA under ``jit``)
+# gives, so the table is kept as JAX's numbers.
+MSE_SCALE_FACTORS = (
+    0.75, 0.7749999761581421, 0.800000011920929, 0.824999988079071,
+    0.8500000238418579, 0.875, 0.8999999761581421, 0.925000011920929,
+    0.949999988079071, 0.9749999642372131, 1.0,
+)
+
+
+def int8_scale(absmax: torch.Tensor) -> torch.Tensor:
+    """absmax / 127 (1 / 127 for an all-zero channel or token), divided as
+    JAX divides. CUDA divides by a Python scalar as a product with its
+    reciprocal, which rounds otherwise, so the divisor is a tensor on the
+    same device."""
+    return torch.where(absmax == 0, 1.0, absmax) / absmax.new_full((), 127.0)
+
+
+def quantize_int8_rowwise(w: torch.Tensor, mse_scale: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8 of a kernel [in, out]: (int8 [in,
+    out], fp32 scale [out]). ``mse_scale`` shrinks each channel's absmax
+    scale by the candidate factor with the least reconstruction error (the
+    first of equal ones), at quantize time only."""
+    w32 = w.to(torch.float32)
+    scale = int8_scale(w32.abs().amax(dim=0))
+    if mse_scale:
+        factors = torch.tensor(MSE_SCALE_FACTORS, dtype=torch.float32, device=w.device)
+        errs = torch.stack([  # one candidate's [in, out] residual at a time
+            torch.square(w32 - torch.clamp(torch.round(w32 / (scale * f)), -127, 127) * (scale * f)).sum(dim=0)
+            for f in factors
+        ])
+        scale = scale * factors[torch.argmin(errs, dim=0)]
+    q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
+    return q, scale.to(torch.float32)
+
+
+def int8_mm_layout(q: torch.Tensor) -> torch.Tensor:
+    """A W8A8 payload [..., K, N] with each [K, N] matrix stored column-major
+    (same shape and values). In that layout ``torch._int_mm`` on the card
+    takes cuBLAS's int8 tensor-core kernel; a row-major one falls to an
+    sm80 WMMA kernel that is several times slower on an H100."""
+    return q.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+def quantize_act_per_token(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-token symmetric int8 for W8A8: (int8 [..., K], fp32 scale
+    [..., 1]) with x ~= q * scale. ``torch.round`` rounds half to even, as
+    ``jnp.round`` does."""
+    xf = x.to(torch.float32)
+    scale = int8_scale(xf.abs().amax(dim=-1, keepdim=True))
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_kernel_nf4(w: torch.Tensor, block: int = DEFAULT_BLOCK_4BIT) -> dict:
+    """NF4 with blocks along the last dim: {q4: uint8 [..., in, out/2],
+    absmax: fp32 [..., in, out/block]}; a stacked [L, in, out] kernel keeps
+    its leading dims. The block shrinks to gcd(block, out) for narrow or
+    fused widths. Each value takes the nearest code entry by midpoint
+    binning (compared in fp32), and the nibbles pack in halves."""
+    block = math.gcd(block, w.shape[-1])
+    if w.shape[-1] % 2:
+        raise ValueError(f"last dim {w.shape[-1]} must be even to pack nibbles")
+    lead = w.shape[:-1]
+    blocks = w.to(torch.float32).reshape(*lead, -1, block)
+    absmax = blocks.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(absmax == 0, 1.0, absmax)
+    normed = blocks / scale
+    mids = [(NF4_CODE[i] + NF4_CODE[i + 1]) / 2.0 for i in range(15)]
+    idx = torch.zeros(normed.shape, dtype=torch.uint8, device=w.device)
+    for m in torch.tensor(mids, dtype=torch.float32, device=w.device):  # ~3x the weights live, not 16x
+        idx += (normed >= m).to(torch.uint8)
+    idx = idx.reshape(*lead, -1)
+    n = idx.shape[-1]
+    packed = (idx[..., n // 2 :] << 4) | idx[..., : n // 2]
+    return {"q4": packed, "absmax": scale[..., 0]}
+
+
+def dequantize_kernel_nf4(d: dict, dtype=torch.float32) -> torch.Tensor:
+    """{q4, absmax} -> the float kernel in ``dtype`` (code value times its
+    block's absmax in fp32, then one cast). A gather into the 16-entry
+    table: the JAX package's select tree is a TPU workaround with the same
+    numbers."""
+    lo = d["q4"] & 0x0F
+    hi = d["q4"] >> 4
+    idx = torch.cat([lo, hi], dim=-1).long()  # halves packing
+    g = d["absmax"].shape[-1]
+    code = torch.tensor(NF4_CODE, dtype=torch.float32, device=idx.device)
+    vals = code[idx].reshape(*idx.shape[:-1], g, -1) * d["absmax"][..., None]
+    return vals.reshape(idx.shape).to(dtype)

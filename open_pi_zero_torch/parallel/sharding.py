@@ -7,7 +7,7 @@ Rules (kernels are stored ``[(L,) in, out]``), as in JAX:
   row-parallel (split the in dim):     attn o, mlp down, SigLIP fc2
   replicated:                          norms, embeddings, encoders, decoders
 and a dim that does not divide over the model axis stays replicated.
-Quantized and LoRA leaves raise: they are not ported.
+LoRA leaves raise: they are not ported.
 
 A spec is a tuple like JAX's ``PartitionSpec``: ``()`` for a replicated
 leaf, else one entry per dim with ``MODEL_AXIS`` at the split dim.
@@ -25,6 +25,12 @@ each rank here runs its own program on whole heads:
       column-parallel bias is split with its kernel, and a row-parallel
       bias (SigLIP o, fc2) stays whole and is added once, after the
       reduce: added on every rank it would count tp times.
+  (c) the serving layout (models/fuse.py) raises: fused qkv/gateup kernels
+      and quantized kernels. A split of a concatenated out dim would cut
+      across the q|k|v and gate|up segments, so JAX leaves fused kernels
+      replicated while o and down split, and TP serving keeps the canonical
+      layout; a quantized payload under ``q`` would be taken for the query
+      kernel. JAX shards a quantized {q, scale} like its float kernel.
 """
 
 from __future__ import annotations
@@ -34,10 +40,12 @@ from typing import Optional, Tuple
 import torch
 
 from open_pi_zero_torch.config import PiZeroConfig
+from open_pi_zero_torch.ops.lora import is_quantized_base
 from open_pi_zero_torch.parallel.mesh import MODEL_AXIS, Mesh
 
 COLUMN = frozenset({"q", "k", "v", "gate", "up", "fc1"})
 ROW = frozenset({"o", "down", "fc2"})
+FUSED = frozenset({"qkv", "gateup"})
 
 
 def attention_split(num_heads: int, num_kv_heads: int, tp: int) -> Tuple[bool, bool]:
@@ -55,8 +63,6 @@ def _split_dim(path: Tuple[str, ...], leaf, cfg: PiZeroConfig, tp: int) -> Optio
         raise NotImplementedError(f"{'/'.join(path)}: LoRA leaves are not ported to TP")
     last, parent = path[-1], (path[-2] if len(path) >= 2 else None)
     if parent in COLUMN | ROW:
-        if last not in ("kernel", "bias"):
-            raise NotImplementedError(f"{'/'.join(path)}: quantized leaves are not ported to TP")
         name, part = parent, last
     elif last in COLUMN | ROW:
         name, part = last, "kernel"
@@ -86,6 +92,13 @@ def tp_param_specs(params: dict, cfg: PiZeroConfig, tp: int) -> dict:
 
     def walk(node, path):
         if isinstance(node, dict):
+            where = "/".join(path)
+            if is_quantized_base(node):
+                raise NotImplementedError(f"{where}: a quantized kernel under tensor parallelism; TP "
+                                          "serving keeps the canonical float layout (models/fuse.py)")
+            if FUSED & set(node):
+                raise ValueError(f"{where}: the fused serving layout ({sorted(FUSED & set(node))}) under "
+                                 "tensor parallelism; TP serving keeps the canonical layout (models/fuse.py)")
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         dim = _split_dim(path, node, cfg, tp) if tp > 1 else None
         if dim is None:

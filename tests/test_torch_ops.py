@@ -155,9 +155,11 @@ def test_op_matches_jax_fp32(name):
 
 
 def test_linear_refuses_quantized_kernel():
+    """The quantized tiers are ported (tests/test_torch_serving_layout.py);
+    a dict of another format raises, as JAX's ``linear`` does."""
     x = torch.zeros(2, 4)
-    with pytest.raises(NotImplementedError):
-        t_lin.linear(x, {"q": torch.zeros(4, 4, dtype=torch.int8), "scale": torch.ones(4)})
+    with pytest.raises(ValueError, match="unsupported quantized kernel"):
+        t_lin.linear(x, {"q8": torch.zeros(4, 4, dtype=torch.int8), "scale": torch.ones(4)})
 
 
 # --------------------------------------------------------------------------- #
