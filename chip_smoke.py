@@ -28,6 +28,11 @@ Phases, each of which raises on failure:
   3. parity  — bridge widths at depth 2 (bridge_width_dryrun_config), fp32:
                the whole action inference on the card (kernel) against the
                CPU (plain version), max|diff| <= 1e-3
+  3b. golden — the original PyTorch reference's recorded chunk
+               (tests/fixtures/pizero_infer_action.npz): its state dict
+               through the port's convert_vla_state_dict, fp32 on the card
+               with the fixture's noise, K1 at head dim 8 (zero-padded to
+               16), within the CPU replay's rtol 2e-4 / atol 2e-5
   4. main    — the main path: full-width PiZeroConfig() in bf16 with random
                weights from a seed, infer_action at B=1 twice; exactly
                L + L * steps kernel launches per chunk, bitwise-equal
@@ -54,18 +59,33 @@ Phases, each of which raises on failure:
                bitwise equal, finite within the clip, warm chunk time, peak
                memory with the tree alone), then one chunk under the
                profiler: device-busy ms, kernels and copies launched, K1's
-               device ms by symbol; the float, fused and production chunks
-               timed in turns. The production chunk's mean L1 drift
+               device ms by symbol (the three eager chunks are timed in
+               turns in phase 4c). The production chunk's mean L1 drift
                from the fused chunk over 3 input and noise seeds (<= 5e-3);
                the device time of the int8 -> bf16 weight copies of one
                chunk; the NF4 expert tier once (launches, time, drift); the
                production layout at bridge widths, depth 2, fp32, card vs
                CPU (<= 1e-3), with the W8A8 activations that the two sides
                rounded to different int8 values, and without W8A8
-  5. serve   — the port's BatchingPolicy over the full-width production
-               layout (the JAX serving daemon's default): 4 requests from 4
-               threads and 1 through ActionServer on localhost; then the
-               bf16 trees are freed
+  4c. compiled — the float, fused and production chunks at B = 1 and the
+               production tree's refined chunk from t = 0.5, each captured
+               as one CUDA graph (models/compiled.py) in one shared pool:
+               three replays bitwise equal to three eager chunks from a
+               generator seeded alike; one replay under the profiler with
+               every K1 launch traced by symbol (198, or 108 refined) and
+               none counted by the wrapper; kernels and copies per replay
+               beside the eager chunk's, device-busy ms, K1 ms, host ms per
+               replay, the pool's bytes; the warm chunk of each graph and of
+               its eager chunk in turns (median of 11); then the bf16 trees
+               are freed
+  5. serve   — the port's serve CLI (python -m
+               open_pi_zero_torch.scripts.serve) in a subprocess on a free
+               port: configs/eval/bridge.yaml, --random-init, buckets 1,2,
+               the production layout and refine_from_prev=0.5, its chunks
+               compiled; 4 robots (a fresh request, then two that carry
+               their last chunk) and one request per codec; every reply
+               finite, in the clip, [4, 7]; the refined ones counted by the
+               CLI, which stops cleanly on SIGINT
   6. train-kernel — the kernel's autograd Function (K1-vjp: K1 forward,
                the two backward kernels) against plain autograd through the
                plain version, at the training shape (B=16, Lq=Lkv=281, the
@@ -131,8 +151,10 @@ import dataclasses
 import json
 import os
 import re
+import signal
 import statistics
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -143,7 +165,7 @@ import torch
 
 from open_pi_zero_torch import config as cfg_lib
 from open_pi_zero_torch import serving
-from open_pi_zero_torch.models import fuse, pizero
+from open_pi_zero_torch.models import compiled, convert, fuse, pizero
 from open_pi_zero_torch.models.tree import tree_leaves, tree_map
 from open_pi_zero_torch.ops import _build
 from open_pi_zero_torch.ops import fused_attention as fa
@@ -645,24 +667,6 @@ def int8_copy_ms(cfg, params) -> float:
     return got[None][0]
 
 
-def interleaved_chunk_ms(dev, cfg, trees: dict, rounds: int = 11) -> dict:
-    """Warm chunk ms of each tree (median of ``rounds``), the trees taken
-    in turns within each round: the host sets the chunk's pace, and its
-    speed drifts within a run, so chunks timed one tree after another are
-    not comparable."""
-    rng = np.random.default_rng(2)
-    batch = example_batch(cfg, 1, rng)
-    a0 = rng.normal(size=(1, cfg.horizon_steps, cfg.action_dim)).astype(np.float32)
-    times = {name: [] for name in trees}
-    for _ in range(rounds):
-        for name, tree in trees.items():
-            t0 = time.perf_counter()
-            run_infer(tree, cfg, batch, a0, dev, torch.bfloat16)
-            torch.cuda.synchronize()
-            times[name].append((time.perf_counter() - t0) * 1e3)
-    return {name: statistics.median(t) for name, t in times.items()}
-
-
 def check_parity_with_cpu_serving(dev) -> dict:
     """Bridge widths, depth 2, fp32, the production layout: card (kernel,
     cuBLAS's int8 and fp32 products) vs CPU (plain version), and the
@@ -735,7 +739,8 @@ def check_serving_layout(dev, cfg, params, info: str) -> tuple:
     expert, W8A8 VLM trunk, bf16 SigLIP) from the phase-4 params, each
     driven as phase 4 drives the float tree; the production chunk's drift
     from the fused one; the NF4 expert tier once; the production layout
-    card vs CPU at bridge widths. Returns (results, the production tree)."""
+    card vs CPU at bridge widths. Returns (results, the fused and production
+    trees)."""
     t0 = time.time()
     knobs = fuse.serving_layout_kwargs({})  # the production defaults
     trees = {"fused": fuse.fuse_for_serving(params), "production": fuse.prepare_for_serving(params, **knobs)}
@@ -762,8 +767,6 @@ def check_serving_layout(dev, cfg, params, info: str) -> tuple:
     if not drift <= DRIFT_LIMIT:
         raise AssertionError(f"production chunk drift {drift} from the fused bf16 chunk > {DRIFT_LIMIT}")
     results["production"]["int8_copy_ms"] = int8_copy_ms(cfg, trees["production"])
-    results["interleaved_chunk_ms"] = interleaved_chunk_ms(dev, cfg, {"float": params, **trees})
-    del trees["fused"]
 
     nf4 = fuse.prepare_for_serving(params, **{**knobs, "bits": 4})
     fa.launches = 0
@@ -780,39 +783,262 @@ def check_serving_layout(dev, cfg, params, info: str) -> tuple:
         raise AssertionError(f"NF4 tier: {results['nf4_expert']}")
     del nf4
     results["parity"] = check_parity_with_cpu_serving(dev)
-    return results, trees["production"]
+    return results, trees
 
 
-def check_serving(dev, cfg, params) -> int:
-    rng = np.random.default_rng(3)
-    policy = serving.BatchingPolicy(
-        serving.make_infer_fn(params, cfg, device=dev), batch_sizes=(1, 2)
+# --------------------------------------------------------------------------- #
+# phase 3b: the reference's golden chunk, through the port's converter
+# --------------------------------------------------------------------------- #
+
+GOLDEN_FIXTURE = "tests/fixtures/pizero_infer_action.npz"
+GOLDEN_RTOL, GOLDEN_ATOL = 2e-4, 2e-5  # the CPU replay's (tests/test_torch_golden.py)
+
+
+def golden_config() -> cfg_lib.PiZeroConfig:
+    """The geometry the fixture was recorded at (the parity suite's,
+    tests/test_reference_parity_pizero.py): head dim 8, which K1's wrapper
+    zero-pads to 16, and a proprio expert of its own."""
+    mix = cfg_lib.MixtureConfig  # hidden, intermediate, final norm, cache, rope theta
+    joint = cfg_lib.JointConfig(
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=1, head_dim=8, time_hidden_size=16,
+        mixtures=(mix(32, 64, False, True, 10000.0), mix(16, 32, True, True, 100.0), mix(16, 32, True, False, 100.0)),
+        tie_proprio=False,
     )
-    requests = [{k: v[0] for k, v in example_batch(cfg, 1, rng).items()} for _ in range(5)]
-    policy.warmup(requests[0])
-    policy.start()
-    replies = [None] * 5
-    server = serving.ActionServer(("127.0.0.1", 0), policy)
-    srv = threading.Thread(target=server.serve_forever, daemon=True)
+    siglip = cfg_lib.SiglipConfig(hidden_size=24, intermediate_size=48, num_hidden_layers=2, num_attention_heads=4,
+                                  image_size=28, patch_size=14, num_image_tokens=4, projection_dim=32)
+    return cfg_lib.PiZeroConfig(
+        vocab_size=64, pad_token_id=0, image_token_index=50, max_image_text_tokens=7, cond_steps=1,
+        horizon_steps=4, action_dim=3, proprio_dim=5, num_inference_steps=2, final_action_clip_value=1.0,
+        flow_sig_min=0.001, time_hidden_size=16, time_max_period=100.0, siglip=siglip, joint=joint,
+    )
+
+
+def check_golden(dev) -> dict:
+    """The original PyTorch reference's recorded chunk: its state dict
+    through the port's convert_vla_state_dict, fp32 on the card with the
+    fixture's noise; K1 (head dim 8, zero-padded) in every layer."""
+    with np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), GOLDEN_FIXTURE)) as z:
+        payload = {k: z[k] for k in z.files}
+    state = {k[len("state/"):]: v for k, v in payload.items() if k.startswith("state/")}
+    cfg = golden_config()
+    params = convert.to_dtype(convert.convert_vla_state_dict(state, cfg), torch.float32, dev)
+    fa.launches = 0
+    got = pizero.infer_action(
+        params, cfg, None,
+        torch.as_tensor(payload["ids"].astype(np.int32), device=dev),
+        torch.as_tensor(np.ascontiguousarray(payload["pix"].transpose(0, 2, 3, 1)), device=dev),  # NHWC
+        torch.as_tensor(payload["am"].astype(np.int32), device=dev),
+        torch.as_tensor(payload["prop"], device=dev),
+        action0=torch.as_tensor(payload["a0"], device=dev),
+    ).cpu().numpy()
+    L = cfg.joint.num_hidden_layers
+    if fa.launches != L + L * cfg.num_inference_steps:
+        raise AssertionError(f"golden: {fa.launches} K1 launches")
+    want = payload["want"]
+    err = float(np.abs(got - want).max())
+    excess = float((np.abs(got - want) - (GOLDEN_ATOL + GOLDEN_RTOL * np.abs(want))).max())
+    if not excess <= 0:
+        raise AssertionError(f"golden chunk on the card: max|diff| {err}, outside rtol {GOLDEN_RTOL} / atol "
+                             f"{GOLDEN_ATOL} by {excess}")
+    return {"max_abs_diff": err, "launches": fa.launches, "shape": list(got.shape)}
+
+
+# --------------------------------------------------------------------------- #
+# phase 4c: the compiled chunk, one CUDA graph per bucket
+# --------------------------------------------------------------------------- #
+
+GRAPH_SEED = 7  # the noise generator of the graphs and of the eager chunks they are held against
+
+
+def reserved_bytes(dev) -> int:
+    """Device memory the caching allocator holds once its unused cached
+    blocks are released: a graph's private pool stays in it."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(dev)
+
+
+def check_compiled_chunk(dev, cfg, tree, t_start: float, pool, label: str) -> tuple:
+    """One tree's B = 1 chunk (from ``t_start``) captured as a graph in
+    ``pool``: three consecutive replays bitwise equal to three eager chunks
+    from a generator seeded alike; one replay under the profiler (every
+    K1 launch traced by symbol, none counted by the wrapper: a replay makes
+    no Python launch); host ms per replay with the inputs on the card; the
+    pool's growth. Returns (row, the graph, the eager chunk it is held
+    against, the batch it was profiled on)."""
+    L = cfg.joint.num_hidden_layers
+    expected = L + L * round(cfg.num_inference_steps * (1 - t_start))
+    rng = np.random.default_rng(20)
+    batches = [example_batch(cfg, 1, rng) for _ in range(3)]
+    for batch in batches:
+        if t_start > 0:
+            batch["prev_chunk"] = rng.uniform(-1, 1, size=(1, cfg.horizon_steps, cfg.action_dim)).astype(np.float32)
+    before = reserved_bytes(dev)
+    t0 = time.perf_counter()
+    graph = compiled.compile_chunk(tree, cfg, 1, generator=torch.Generator(dev).manual_seed(GRAPH_SEED),
+                                   t_start=t_start, device=dev, pool=pool)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    pool_bytes = reserved_bytes(dev) - before
+    eager = serving.make_infer_fn(tree, cfg, device=dev, seed=GRAPH_SEED, t_start=t_start)
+    for i, batch in enumerate(batches):
+        got, want = graph(batch), eager(batch)
+        if not torch.equal(got, want):
+            raise AssertionError(f"compiled {label}: replay {i} differs from the eager chunk by "
+                                 f"{float((got.float() - want.float()).abs().max())}")
+        if not (torch.isfinite(got).all() and got.abs().max() <= cfg.final_action_clip_value):
+            raise AssertionError(f"compiled {label}: replay {i} not finite or outside the clip")
+    got, prof, wall = profiled_window(
+        lambda: graph(batches[0]),
+        {None: None, "Memcpy": None, "Memset": None, KERNEL_SYMBOL: expected, ROWS_SYMBOL: 0, KEYS_SYMBOL: 0},
+        counted=(0, 0),
+    )
+    busy, events = got[None]
+    log_profile(f"compiled {label}", prof, wall, busy)
+    copies = got["Memcpy"][1] + got["Memset"][1]
+    on_card = {k: torch.as_tensor(v, device=dev) for k, v in batches[0].items()}
+    host = []
+    for _ in range(11):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph(on_card)
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    row = {
+        "t_start": t_start, "k1_launches_per_replay": got[KERNEL_SYMBOL][1], "k1_ms": got[KERNEL_SYMBOL][0],
+        "busy_ms": busy, "profiled_wall_ms": wall, "kernels_per_replay": events - copies,
+        "copies_per_replay": copies, "host_ms_per_replay": statistics.median(host),
+        "pool_bytes": pool_bytes, "capture_s": capture_s,
+    }
+    return row, graph, eager, batches[0]
+
+
+def check_compiled(dev, cfg, trees: dict, eager_rows: dict, info: str) -> dict:
+    """Phase 4c: the float, fused and production trees' B = 1 chunks and the
+    production tree's refined chunk from t = 0.5 as CUDA graphs in one
+    pool (as one server holds them), each held bitwise against the eager
+    chunk; then the warm chunk of each graph and of each eager chunk, all
+    eight in turns within each round (median of 11, host clock around the
+    call and a synchronize, inputs from the host as a server gets them):
+    the host's pace drifts within a run, so chunks timed one after another
+    in blocks are not comparable."""
+    runs = [(name, tree, 0.0) for name, tree in trees.items()] + [("production_refined", trees["production"], 0.5)]
+    results, timed, pool = {}, {}, None
+    for name, tree, t_start in runs:
+        row, graph, eager, batch = check_compiled_chunk(dev, cfg, tree, t_start, pool, name)
+        pool = graph.pool
+        results[name], timed[name] = row, (graph, eager, batch)
+        eager_row = eager_rows.get(name, {})
+        log(f"compiled {name}: {row['k1_launches_per_replay']} K1 launches traced per replay, "
+            f"{row['kernels_per_replay']} kernels and {row['copies_per_replay']} copies per replay (eager chunk: "
+            f"{eager_row.get('kernels_per_chunk', 'not profiled')} and {eager_row.get('copies_per_chunk', '-')}), "
+            f"device busy {row['busy_ms']:.3f} ms of a profiled {row['profiled_wall_ms']:.3f} ms, K1 "
+            f"{row['k1_ms']:.3f} ms, host {row['host_ms_per_replay']:.4f} ms per replay, pool +{row['pool_bytes']} "
+            f"bytes, captured in {row['capture_s']:.2f} s; three replays bitwise equal to three eager chunks")
+    times = {name: {"graph": [], "eager": []} for name in timed}
+    for _ in range(11):
+        for name, (graph, eager, batch) in timed.items():
+            for kind, fn in (("graph", graph), ("eager", eager)):
+                t0 = time.perf_counter()
+                fn(batch)
+                torch.cuda.synchronize()
+                times[name][kind].append((time.perf_counter() - t0) * 1e3)
+    for name, t in times.items():
+        results[name]["graph_chunk_ms"] = statistics.median(t["graph"])
+        results[name]["eager_chunk_ms"] = statistics.median(t["eager"])
+        log(f"compiled {name}: warm chunk in turns (median of 11) graph {results[name]['graph_chunk_ms']:.3f} ms, "
+            f"eager {results[name]['eager_chunk_ms']:.3f} ms, on {info}")
+    results["pool_bytes"] = sum(r["pool_bytes"] for r in results.values() if isinstance(r, dict))
+    return results
+
+
+# --------------------------------------------------------------------------- #
+# phase 5: the serve CLI in a process of its own
+# --------------------------------------------------------------------------- #
+
+SERVE_CONFIG = "configs/eval/bridge.yaml"
+SERVE_OVERRIDES = ["use_bf16=true", "quantize=true", "refine_from_prev=0.5"]  # the production layout
+SERVE_FLAGS = ["--random-init", "--batch-sizes", "1,2", "--port", "0"]
+SERVE_TIMEOUT_S = 600
+
+
+def check_serving_cli(info: str) -> dict:
+    """Phase 5: ``python -m open_pi_zero_torch.scripts.serve`` with the
+    production layout and the refined tier, started as a subprocess on a
+    port of the OS's choosing; 4 robots over persistent binary connections,
+    each one fresh request then two that carry its last chunk, and one
+    fresh request and one refined request through ``request_action`` (JSON
+    and binary codecs). Every reply finite, inside the clip, [4, 7]; the
+    refined ones counted by the CLI at its stop (SIGINT), which must exit
+    cleanly."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    args = ["--config", SERVE_CONFIG, *SERVE_FLAGS, *SERVE_OVERRIDES]
+    proc = subprocess.Popen([sys.executable, "-m", "open_pi_zero_torch.scripts.serve", *args], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines, ready = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if "serving on" in line:
+                ready.set()
+        ready.set()  # the process ended
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
     try:
-        threads = [
-            threading.Thread(target=lambda i=i: replies.__setitem__(i, policy.submit(requests[i], timeout=120)))
-            for i in range(4)
-        ]
-        for t in threads:
+        if not ready.wait(SERVE_TIMEOUT_S) or proc.poll() is not None:
+            raise AssertionError("serve CLI did not come up: " + "\n".join(lines[-40:]))
+        up_s = time.time() - t0
+        port = int(re.search(r"serving on [\d.]+:(\d+)", next(x for x in lines if "serving on" in x)).group(1))
+        cfg = cfg_lib.pizero_config_from_dict(cfg_lib.load_config(os.path.join(root, SERVE_CONFIG), SERVE_OVERRIDES))
+        rng = np.random.default_rng(3)
+        obs = [{k: v[0] for k, v in example_batch(cfg, 1, rng).items()} for _ in range(5)]
+        replies, errors = [], []
+
+        def robot(i):
+            try:
+                send, close = serving.open_action_connection("127.0.0.1", port, timeout=120)
+                try:
+                    chunk = send(obs[i])
+                    replies.append(chunk)
+                    for _ in range(2):
+                        chunk = send({**obs[i], "prev_chunk": chunk})
+                        replies.append(chunk)
+                finally:
+                    close()
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"robot {i}: {type(e).__name__}: {e}")
+
+        robots = [threading.Thread(target=robot, args=(i,)) for i in range(4)]
+        for t in robots:
             t.start()
-        for t in threads:
-            t.join(timeout=180)
-        srv.start()
-        replies[4] = serving.request_action("127.0.0.1", server.server_address[1], requests[4], timeout=120)
+        for t in robots:
+            t.join(timeout=300)
+        fresh = serving.request_action("127.0.0.1", port, obs[4], timeout=120, binary=False)
+        replies += [fresh, serving.request_action("127.0.0.1", port, {**obs[4], "prev_chunk": fresh}, timeout=120)]
+        if errors or any(t.is_alive() for t in robots):
+            raise AssertionError(f"serve CLI: {errors or 'a robot hung'}")
+        for r in replies:
+            if r.shape != (cfg.horizon_steps, cfg.action_dim) or not np.isfinite(r).all() \
+                    or np.abs(r).max() > cfg.final_action_clip_value:
+                raise AssertionError(f"serve CLI: bad reply {r.shape}")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+        reader.join(timeout=10)
     finally:
-        server.shutdown()
-        server.server_close()
-        policy.stop()
-    for r in replies:
-        if r is None or r.shape != (cfg.horizon_steps, cfg.action_dim) or not np.isfinite(r).all():
-            raise AssertionError(f"bad reply {None if r is None else r.shape}")
-    return policy.n_requests
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for line in lines:
+        log(f"serve CLI | {line}")
+    stopped = [re.search(r"stopped: (\d+) requests answered, (\d+) of them by refine_fn", x) for x in lines]
+    stopped = [m for m in stopped if m]
+    want = {"answered": len(replies), "refined": 9}  # 4 robots x 2 + 1
+    if rc != 0 or not stopped or (int(stopped[-1].group(1)), int(stopped[-1].group(2))) != tuple(want.values()):
+        raise AssertionError(f"serve CLI: exit code {rc}, its count {stopped and stopped[-1].group(0)}, want {want}")
+    return {"requests": len(replies), "refined": want["refined"], "up_s": up_s, "exit_code": rc}
 
 
 def device_ms(prof, match=None) -> tuple:
@@ -1439,6 +1665,12 @@ def single_card_phases(dev, info: str) -> list:
         f"{time.time() - t0:.1f} s")
 
     t0 = time.time()
+    golden = check_golden(dev)
+    log(f"golden: the reference's chunk (pizero_infer_action.npz) through the port's converter, fp32 on the card: "
+        f"max|diff| {golden['max_abs_diff']:.3e} (rtol {GOLDEN_RTOL}, atol {GOLDEN_ATOL}), {golden['launches']} K1 "
+        f"launches at head dim 8, {time.time() - t0:.1f} s")
+
+    t0 = time.time()
     cfg = cfg_lib.PiZeroConfig()
     params = pizero.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -1455,9 +1687,10 @@ def single_card_phases(dev, info: str) -> list:
 
     log(f"main: float chunk under the profiler: {prof['kernels_per_chunk']} kernels and "
         f"{prof['copies_per_chunk']} copies launched, device busy {prof['busy_ms']:.3f} ms")
+    log(f"phase main ok in {time.time() - t0:.1f} s")
 
     t0 = time.time()
-    layout, production = check_serving_layout(dev, cfg, params, info)
+    layout, trees = check_serving_layout(dev, cfg, params, info)
     log("serving-layout: " + json.dumps(layout))
     log(f"serving-layout: production chunk drift from the fused bf16 chunk {layout['production']['drift']:.3e} "
         f"(mean L1 over {DRIFT_SEEDS} seeds, <= {DRIFT_LIMIT}); NF4 expert drift {layout['nf4_expert']['drift']:.3e}; "
@@ -1465,17 +1698,19 @@ def single_card_phases(dev, info: str) -> list:
         f"bridge widths depth 2 fp32 card vs CPU max|diff| {layout['parity']['production_max_abs_diff']:.3e} "
         f"(<= 1e-3), without W8A8 {layout['parity']['without_w8a8_max_abs_diff']:.3e}; W8A8 activations "
         f"rounded to another int8 value on the card than on the CPU: {layout['parity']['w8a8_activations']}")
-    log("serving-layout: warm chunk ms, the trees in turns (median of 11): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in layout["interleaved_chunk_ms"].items()) + f", on {info}")
     log(f"phase serving-layout ok in {time.time() - t0:.1f} s")
-    del params, calls
+
+    t0 = time.time()
+    compiled_rows = check_compiled(dev, cfg, {"float": params, **trees}, {"float": prof, **layout}, info)
+    log("compiled: " + json.dumps(compiled_rows))
+    log(f"phase compiled ok in {time.time() - t0:.1f} s")
+    del params, calls, trees
     torch.cuda.empty_cache()
 
     t0 = time.time()
-    served = check_serving(dev, cfg, production)  # the JAX daemon's default layout
-    log(f"serve: {served} requests answered by the production layout in {time.time() - t0:.1f} s")
-    del production
-    torch.cuda.empty_cache()
+    served = check_serving_cli(info)  # the JAX daemon's default layout, with the refined tier
+    log(f"serve: the serve CLI answered {served['requests']} requests ({served['refined']} refined), up in "
+        f"{served['up_s']:.1f} s; phase serve ok in {time.time() - t0:.1f} s")
 
     t0 = time.time()
     vjp_errs = check_vjp(dev)
@@ -1524,6 +1759,10 @@ def single_card_phases(dev, info: str) -> list:
         # the same launches over one chunk of the production serving layout
         "production_launches": layout["production"]["launches"],
         "production_ms": layout["production"]["ms"],
+        # the same launches traced by symbol in one replay of the production
+        # chunk's CUDA graph (the wrapper's count moves only at the capture)
+        "compiled_traced_launches": compiled_rows["production"]["k1_launches_per_replay"],
+        "compiled_ms": compiled_rows["production"]["k1_ms"],
     }
     vjp_entry = {
         "name": "mot_attention_vjp",

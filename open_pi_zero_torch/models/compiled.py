@@ -1,0 +1,150 @@
+"""The compiled chunk: one CUDA graph per batch bucket, the counterpart of
+the JAX package's ``jax.jit`` over ``infer_action`` (and over
+``infer_action_refined`` for the refined tier), whose Euler scan is fully
+unrolled into one program.
+
+The eager chunk launches some 13,000-16,000 kernels from Python, and the
+card waits for the host between them. ``compile_chunk`` runs the chunk once
+eagerly on a side stream (which builds and loads K1, sets its attributes,
+and makes cuBLAS's handle and workspace for that stream), then captures the
+same launches into one ``torch.cuda.CUDAGraph``; a call replays it.
+
+  - Inputs: static buffers in the dtypes the serving layer hands over
+    (int32 ids and mask, fp32 pixels, proprios and ``prev_chunk``), filled
+    by ``copy_`` on the caller's stream; the casts to the params' dtype are
+    in the graph, as they are in the eager chunk.
+  - Noise: drawn from the explicit ``generator`` into a static buffer just
+    before each replay, one draw per call as the eager chunk draws it (the
+    flow's start, or the refined tier's re-noising), so a graph and the
+    eager chunk from generators seeded alike give bitwise-equal chunks.
+  - Output: cloned on the stream before it is returned, so that a result
+    still in flight (the server's completion thread) is not overwritten by
+    the next replay of the same graph.
+  - Memory: the graphs of one server share one pool (``pool``) and replay
+    on one stream, one at a time, so each graph's temporaries may reuse
+    another's.
+
+A graph needs a card: on the CPU ``compile_chunk`` raises (CPU callers use
+the eager chunk, ``serving.make_infer_fn``). Under a registered mesh it
+raises too: the gloo collectives of tensor parallelism cannot be captured.
+A failed capture raises; nothing falls back to the eager chunk.
+
+``fused_attention.launches`` is a Python counter: it moves at the capture
+(by the chunk's K1 launches) and never at a replay.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from open_pi_zero_torch import resolve_device
+from open_pi_zero_torch.config import PiZeroConfig
+from open_pi_zero_torch.models import pizero
+from open_pi_zero_torch.parallel.mesh import get_mesh
+
+Tensor = torch.Tensor
+
+
+class CompiledChunk:
+    """One batch bucket's chunk as a captured CUDA graph; see the module
+    docstring. Call it with a batch dict of arrays or tensors of exactly
+    the bucket's shapes: {input_ids [B, S], pixel_values [B, H, W, C],
+    attention_mask [B, S], proprios [B, P, proprio_dim]}, plus
+    ``prev_chunk`` [B, A, act_dim] for the refined tier (``t_start`` > 0).
+    Returns the [B, A, act_dim] chunk, a CUDA tensor that the card may
+    still be computing."""
+
+    def __init__(
+        self,
+        params: dict,
+        cfg: PiZeroConfig,
+        batch_size: int,
+        *,
+        generator: torch.Generator,
+        t_start: float = 0.0,
+        device="cuda",
+        pool=None,
+    ):
+        device = resolve_device(device)
+        if device.type != "cuda":
+            raise RuntimeError(
+                "a CUDA graph needs a card: on the CPU serve the eager chunk "
+                "(serving.make_infer_fn)"
+            )
+        if get_mesh() is not None:
+            raise NotImplementedError(
+                "no CUDA graph under a mesh: gloo collectives cannot be captured "
+                "(TP graphs wait in ROADMAP.md)"
+            )
+        if not 0.0 <= t_start < 1.0:
+            raise ValueError(f"t_start must be in [0, 1), got {t_start}")
+        self.params, self.cfg, self.t_start, self.generator = params, cfg, t_start, generator
+        self.dtype = params["embed_tokens"].dtype
+        b, size = batch_size, cfg.siglip.image_size
+        zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=device)  # noqa: E731
+        chunk_shape = (b, cfg.horizon_steps, cfg.action_dim)
+        self.inputs = {
+            "input_ids": zeros((b, cfg.max_image_text_tokens), torch.int32),
+            "pixel_values": zeros((b, size, size, cfg.siglip.num_channels), torch.float32),
+            "attention_mask": zeros((b, cfg.max_image_text_tokens), torch.int32),
+            "proprios": zeros((b, cfg.cond_steps, cfg.proprio_dim), torch.float32),
+        }
+        if t_start > 0.0:
+            self.inputs["prev_chunk"] = zeros(chunk_shape, torch.float32)
+        self.noise = zeros(chunk_shape, self.dtype)
+
+        self.stream = torch.cuda.Stream(device)
+        self.stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(self.stream):
+            self._chunk()  # the warm-up: see the module docstring
+        torch.cuda.current_stream(device).wait_stream(self.stream)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool, stream=self.stream):
+            self.out = self._chunk()
+        self.pool = self.graph.pool()
+
+    def _chunk(self) -> Tensor:
+        """The eager chunk on the static buffers: what the graph holds."""
+        x = self.inputs
+        args = (
+            self.params, self.cfg, None, x["input_ids"], x["pixel_values"].to(self.dtype),
+            x["attention_mask"], x["proprios"].to(self.dtype),
+        )
+        if self.t_start > 0.0:
+            return pizero.infer_action_refined(
+                *args, x["prev_chunk"].to(self.dtype), t_start=self.t_start, x0=self.noise
+            )
+        return pizero.infer_action(*args, action0=self.noise)
+
+    def __call__(self, batch: dict) -> Tensor:
+        for name, buf in self.inputs.items():
+            value = batch[name]
+            value = value if isinstance(value, Tensor) else torch.from_numpy(np.asarray(value))
+            if tuple(value.shape) != tuple(buf.shape):
+                raise ValueError(f"{name} has shape {tuple(value.shape)}; this graph takes {tuple(buf.shape)}")
+            buf.copy_(value)
+        self.noise.normal_(generator=self.generator)  # the eager chunk's one draw
+        self.graph.replay()
+        return self.out.clone()
+
+
+def compile_chunk(
+    params: dict,
+    cfg: PiZeroConfig,
+    batch_size: int,
+    *,
+    generator: torch.Generator,
+    t_start: float = 0.0,
+    device="cuda",
+    pool=None,
+) -> CompiledChunk:
+    """The chunk of ``batch_size`` rows captured as one CUDA graph:
+    ``pizero.infer_action`` (``t_start`` 0) or
+    ``pizero.infer_action_refined`` from ``t_start``, with the noise from
+    ``generator`` (a CUDA generator) and its temporaries in ``pool`` (a
+    ``torch.cuda.graph_pool_handle()`` or another graph's ``pool``; a new
+    pool if None)."""
+    return CompiledChunk(
+        params, cfg, batch_size, generator=generator, t_start=t_start, device=device, pool=pool
+    )

@@ -45,8 +45,9 @@ def _mixture_params(params: dict, cfg: JointConfig, name: str) -> dict:
 
 
 def _scale_embeds(x: Tensor, hidden_size: int) -> Tensor:
-    # embeds *= sqrt(hidden), the constant rounded to x's dtype as in JAX
-    return x * torch.tensor(hidden_size**0.5, dtype=x.dtype, device=x.device)
+    # embeds *= sqrt(hidden), the constant rounded to x's dtype as in JAX,
+    # made on the device by a fill kernel (a CUDA graph can hold no host copy)
+    return x * torch.full((), hidden_size**0.5, dtype=x.dtype, device=x.device)
 
 
 def _rope_tables(cfg: JointConfig, names, position_ids: Dict[str, Tensor]):

@@ -86,10 +86,8 @@ class _Init:
 
 
 def _init_siglip(init: _Init, cfg) -> dict:
-    if cfg.use_lora or cfg.use_quantize:
-        raise NotImplementedError(
-            "SigLIP LoRA/QLoRA is not ported yet (the serving tiers quantize a float tree: models/fuse.py)"
-        )
+    if cfg.use_lora:
+        raise NotImplementedError("SigLIP LoRA is not ported yet")
     L, D, I = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
     patch_in = cfg.patch_size * cfg.patch_size * cfg.num_channels
     ln = lambda: {"scale": init.full((L, D), 1.0), "bias": init.full((L, D), 0.0)}  # noqa: E731
@@ -109,10 +107,8 @@ def _init_siglip(init: _Init, cfg) -> dict:
 
 
 def _init_mixture(init: _Init, joint, mix) -> dict:
-    if mix.adaptive_mode is not None or mix.use_lora or mix.use_quantize:
-        raise NotImplementedError(
-            "adaLN/LoRA/QLoRA mixtures are not ported yet (the serving tiers quantize a float tree: models/fuse.py)"
-        )
+    if mix.adaptive_mode is not None or mix.use_lora:
+        raise NotImplementedError("adaLN/LoRA mixtures are not ported yet")
     L, D, I = joint.num_hidden_layers, mix.hidden_size, mix.intermediate_size
     q_out = joint.num_attention_heads * joint.head_dim
     kv_out = joint.num_key_value_heads * joint.head_dim
@@ -228,7 +224,10 @@ def embed_image_text(
     feats = siglip_lib.forward(params["siglip"], cfg.siglip, pixel_values)
     feats = siglip_lib.project(params["projector"], feats, cfg.siglip.lora_scaling)
     vlm_hidden = cfg.mixture("vlm").hidden_size
-    feats = feats / torch.tensor(vlm_hidden**0.5, dtype=feats.dtype, device=feats.device)
+    # a device scalar made by a fill kernel, not copied from the host (a CUDA
+    # graph can hold no host copy); CUDA divides by a Python scalar through
+    # its reciprocal, which rounds otherwise than JAX
+    feats = feats / torch.full((), vlm_hidden**0.5, dtype=feats.dtype, device=feats.device)
 
     image_mask = input_ids == cfg.image_token_index  # [B, S]
     text_mask = (input_ids != cfg.image_token_index) & (input_ids != cfg.pad_token_id)
@@ -289,6 +288,16 @@ def _hoist_4bit(tree):
     return tree
 
 
+def _noise(generator: Optional[torch.Generator], b: int, shape, device, dtype) -> Tensor:
+    """Standard normal noise [b, *shape] from ``generator``. Under a
+    registered mesh every rank draws the whole batch's noise (from a
+    generator seeded alike on every rank) and keeps its data rank's rows, so
+    the rows are those of the single-device draw."""
+    mesh = get_mesh()
+    n_data, row0 = (1, 0) if mesh is None else (mesh.n_data, mesh.data_index * b)
+    return torch.randn((n_data * b, *shape), generator=generator, device=device, dtype=dtype)[row0 : row0 + b]
+
+
 @torch.no_grad()
 def infer_action(
     params: dict,
@@ -333,12 +342,7 @@ def infer_action(
     )
 
     if action0 is None:
-        mesh = get_mesh()
-        n_data, row0 = (1, 0) if mesh is None else (mesh.n_data, mesh.data_index * b)
-        action0 = torch.randn(
-            (n_data * b, cfg.horizon_steps, cfg.action_dim),
-            generator=generator, device=device, dtype=dtype,
-        )[row0 : row0 + b]
+        action0 = _noise(generator, b, (cfg.horizon_steps, cfg.action_dim), device, dtype)
     action = action0.to(device=device, dtype=dtype)
     n_steps = max(1, round(cfg.num_inference_steps * (t_end - t_start)))
     delta_t = (t_end - t_start) / n_steps
@@ -361,6 +365,105 @@ def infer_action(
         action = action + delta_t * vel
         t = t + delta_t
     if t_end >= 1.0 and cfg.final_action_clip_value is not None:
+        c = cfg.final_action_clip_value
+        action = action.clamp(-c, c)
+    return action
+
+
+def renoise_chunk(
+    cfg: PiZeroConfig,
+    generator: Optional[torch.Generator],
+    prev_chunk: Tensor,  # [B, A, act_dim]
+    t_start: float,
+    x0: Optional[Tensor] = None,  # inject the fresh noise (tests/parity)
+) -> Tensor:
+    """Re-noise a previous action chunk to flow time ``t_start`` with the
+    training interpolant ``psi_t``: fresh noise x0 (from ``generator``
+    unless given), the cached chunk as x1. Integrating the learned field
+    from (x_t, t_start) refines the cached chunk with only (1 - t_start) of
+    the velocity evals: the training-free action caching of steady-state
+    control loops, where consecutive chunks are strongly correlated."""
+    if x0 is None:
+        x0 = _noise(generator, prev_chunk.shape[0], prev_chunk.shape[1:], prev_chunk.device, prev_chunk.dtype)
+    t = torch.full((prev_chunk.shape[0],), t_start, dtype=prev_chunk.dtype, device=prev_chunk.device)
+    return psi_t(cfg, x0.to(prev_chunk.dtype), prev_chunk, t)
+
+
+@torch.no_grad()
+def infer_action_refined(
+    params: dict,
+    cfg: PiZeroConfig,
+    generator: Optional[torch.Generator],
+    input_ids: Tensor,
+    pixel_values: Tensor,
+    attention_mask: Tensor,
+    proprios: Tensor,
+    prev_chunk: Tensor,  # [B, A, act_dim]: the previous control step's chunk
+    t_start: float = 0.5,  # cache strength (higher = fewer evals)
+    x0: Optional[Tensor] = None,  # inject the re-noising noise (tests/parity)
+) -> Tensor:
+    """Warm-start the flow from the re-noised previous chunk and integrate
+    only [t_start, 1]: round(num_inference_steps * (1 - t_start)) velocity
+    evals instead of num_inference_steps. The serving layer's steady-state
+    tier; the first chunk of an episode runs the full flow. One noise draw
+    from ``generator``: the re-noising's (the flow then starts from it)."""
+    action_t = renoise_chunk(cfg, generator, prev_chunk, t_start, x0=x0)
+    return infer_action(
+        params, cfg, generator, input_ids, pixel_values, attention_mask, proprios,
+        action0=action_t, t_start=t_start,
+    )
+
+
+@torch.no_grad()
+def infer_action_naive(
+    params: dict,
+    cfg: PiZeroConfig,
+    generator: Optional[torch.Generator],
+    input_ids: Tensor,
+    pixel_values: Tensor,
+    attention_mask: Tensor,
+    proprios: Tensor,
+    action0: Optional[Tensor] = None,  # inject the initial noise (tests/parity)
+) -> Tensor:
+    """No-cache oracle: ``joint_forward`` over the whole sequence at every
+    velocity eval, which computes what the cached path computes (its K/V
+    cache holds the values recomputation gives). The tests bound the cached
+    path's drift with it."""
+    dtype = pixel_values.dtype
+    device = pixel_values.device
+    b = input_ids.shape[0]
+    if cfg.action_expert_adaptive_mode:
+        raise NotImplementedError("adaptive action expert is not ported yet")
+    full_mask, _, _, pos = prepare_action_inputs(cfg, attention_mask)
+
+    inputs_embeds = embed_image_text(params, cfg, input_ids, pixel_values)
+    proprio_embeds = encode_proprio(params, proprios).to(dtype)
+    if action0 is None:
+        action0 = _noise(generator, b, (cfg.horizon_steps, cfg.action_dim), device, dtype)
+    action = action0.to(device=device, dtype=dtype)
+    delta_t = 1.0 / cfg.num_inference_steps
+
+    def vel_at(action, t):
+        action_embeds = encode_action(params, cfg, action, time_embedding(cfg, t, dtype))
+        hidden = joint_lib.joint_forward(
+            params["joint"],
+            cfg.joint,
+            {"vlm": inputs_embeds, "proprio": proprio_embeds, "action": action_embeds},
+            pos,
+            full_mask,
+        )["action"]
+        return decode_action(params, hidden)
+
+    t = torch.zeros((b,), dtype=dtype, device=device)
+    for _ in range(cfg.num_inference_steps):
+        if cfg.flow_integrator == "midpoint":
+            half = action + 0.5 * delta_t * vel_at(action, t)
+            vel = vel_at(half, t + 0.5 * delta_t)
+        else:
+            vel = vel_at(action, t)
+        action = action + delta_t * vel
+        t = t + delta_t
+    if cfg.final_action_clip_value is not None:
         c = cfg.final_action_clip_value
         action = action.clamp(-c, c)
     return action

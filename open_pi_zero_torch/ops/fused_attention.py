@@ -55,6 +55,7 @@ import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from open_pi_zero_torch.ops import _build
 from open_pi_zero_torch.ops.attention import mot_attention_ref
@@ -294,6 +295,12 @@ def _check(q, k, v, mask) -> None:
 
 def _launch(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
     global launches
+    true_d = q.shape[-1]
+    if 0 < true_d < HEAD_DIMS[0]:
+        # below the kernel's smallest head dim (the reference fixtures' 8):
+        # zero columns add exact zeros to every q.k and give zero output
+        # columns, and the scale stays that of the true head dim
+        q, k, v = (F.pad(x, (0, HEAD_DIMS[0] - true_d)) for x in (q, k, v))
     _check(q, k, v, mask)
     b, lq, hq, d = q.shape
     _, lkv, hkv, _ = k.shape
@@ -305,7 +312,7 @@ def _launch(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
         b, lq, lkv, hq, hkv, d,
         mask.stride(0), mask.stride(2),
-        1.0 / (d**0.5), 0.0 if softcap is None else float(softcap),
+        1.0 / (true_d**0.5), 0.0 if softcap is None else float(softcap),
         rows, split,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -314,7 +321,7 @@ def _launch(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
             f"mot_attention kernel launch failed: {lib.opz_cuda_error_string(err).decode()}"
         )
     launches += 1
-    return out
+    return out if d == true_d else out[..., :true_d].contiguous()
 
 
 def empty_launch(device: torch.device) -> None:

@@ -3,8 +3,8 @@ part of the JAX package's ``ops/lora.py``): quantize the kernels of a
 param tree, find and undo the quantization.
 
 The projections themselves (``proj``, ``base_matmul``, ``lora_delta``)
-live in ``ops/linear.py``. LoRA adapters, ``merge_lora`` and the LoRA
-labels are not ported yet.
+live in ``ops/linear.py``. ``has_lora`` finds adapters; making them,
+``merge_lora`` and the LoRA labels are not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +33,13 @@ def _is_int8_payload(d: dict) -> bool:
 def is_quantized_base(d) -> bool:
     """True if ``d`` is one quantized kernel: {q4, absmax} or {q|qa, scale}."""
     return isinstance(d, dict) and (("q4" in d and "absmax" in d) or _is_int8_payload(d))
+
+
+def has_lora(params) -> bool:
+    """True if any `<name>_lora` adapter subtree is present."""
+    if isinstance(params, dict):
+        return any(k.endswith("_lora") or has_lora(v) for k, v in params.items())
+    return False
 
 
 def has_quantized_bases(tree) -> bool:

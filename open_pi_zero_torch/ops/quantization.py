@@ -18,6 +18,7 @@ ported.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -119,6 +120,14 @@ def quantize_kernel_nf4(w: torch.Tensor, block: int = DEFAULT_BLOCK_4BIT) -> dic
     return {"q4": packed, "absmax": scale[..., 0]}
 
 
+@functools.lru_cache(maxsize=None)
+def _nf4_table(device: torch.device) -> torch.Tensor:
+    """NF4_CODE as an fp32 tensor on ``device``, made once per device: the
+    host-to-device copy that makes it cannot run inside a CUDA graph's
+    capture, and the first decode runs before any capture (the warm-up)."""
+    return torch.tensor(NF4_CODE, dtype=torch.float32, device=device)
+
+
 def dequantize_kernel_nf4(d: dict, dtype=torch.float32) -> torch.Tensor:
     """{q4, absmax} -> the float kernel in ``dtype`` (code value times its
     block's absmax in fp32, then one cast). A gather into the 16-entry
@@ -128,6 +137,5 @@ def dequantize_kernel_nf4(d: dict, dtype=torch.float32) -> torch.Tensor:
     hi = d["q4"] >> 4
     idx = torch.cat([lo, hi], dim=-1).long()  # halves packing
     g = d["absmax"].shape[-1]
-    code = torch.tensor(NF4_CODE, dtype=torch.float32, device=idx.device)
-    vals = code[idx].reshape(*idx.shape[:-1], g, -1) * d["absmax"][..., None]
+    vals = _nf4_table(idx.device)[idx].reshape(*idx.shape[:-1], g, -1) * d["absmax"][..., None]
     return vals.reshape(idx.shape).to(dtype)

@@ -25,10 +25,17 @@ first byte —
   - newline-delimited JSON (arrays as nested lists): debuggable with
     netcat, kept for interop.
 
-The refined steady-state tier (requests carrying `prev_chunk`) is not
-here yet: it comes with `infer_action_refined`. Every request gets the full
-flow. `make_infer_fn` builds the model callable for a param tree on a
-device.
+Refined steady-state tier (opt-in: a server `refine_fn` and a client
+`prev_chunk` field): requests carrying the caller's previous action chunk
+are routed to `pizero.infer_action_refined`, which warm-starts from the
+re-noised previous chunk and integrates [t, 1] (half the Euler loop at
+t = 0.5). The server stays stateless: the client owns episode boundaries
+by omitting `prev_chunk` on the first request.
+
+Model callables: `make_compiled_infer_fn` captures each bucket's chunk (and
+its refined chunk) as one CUDA graph (`models/compiled.py`), the serving
+path on a card; `make_infer_fn` runs the eager chunk, on the CPU or on a
+card. `open_pi_zero_torch/scripts/serve.py` is the CLI.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import torch
 
 from open_pi_zero_torch import resolve_device
 from open_pi_zero_torch.models import pizero
+from open_pi_zero_torch.models.compiled import compile_chunk
 
 log = logging.getLogger(__name__)
 
@@ -81,7 +89,14 @@ class BatchingPolicy:
     in-flight batching to pay off it should return the CUDA tensor without
     waiting for it — the completion thread copies it to the host; an
     infer_fn that returns numpy still works, it just serializes dispatch
-    and completion."""
+    and completion.
+
+    `refine_fn` (optional) enables the refined steady-state tier: requests
+    carrying a `prev_chunk` array are routed to it (its batch also holds
+    the stacked prev_chunk [B, A, act_dim]); each queue drain is
+    partitioned into a fresh sub-batch and a refined sub-batch (two
+    programs). With refine_fn unset, prev_chunk fields are stripped and
+    every request gets the full flow."""
 
     def __init__(
         self,
@@ -90,8 +105,10 @@ class BatchingPolicy:
         batch_window_ms: float = 3.0,
         queue_size: int = 256,
         max_inflight: int = 2,
+        refine_fn: Optional[Callable[[dict], np.ndarray]] = None,
     ):
         self.infer_fn = infer_fn
+        self.refine_fn = refine_fn
         self.batch_sizes = tuple(sorted(batch_sizes))
         self.max_batch = self.batch_sizes[-1]
         self.batch_window_s = batch_window_ms / 1e3
@@ -107,6 +124,7 @@ class BatchingPolicy:
                                            daemon=True)
         self.n_batches = 0
         self.n_requests = 0
+        self.n_refined = 0  # requests dispatched to refine_fn
         # per-stage breakdown (queue_wait/stack appended by the worker,
         # infer/fanout by the completer; list.append is GIL-atomic):
         # queue_wait = enqueue -> batch dispatch (includes the batching
@@ -118,7 +136,8 @@ class BatchingPolicy:
     def stats_snapshot(self) -> dict:
         """Median/percentile summary of the per-stage timings since start
         (or the last reset_stats) — the through-socket latency breakdown."""
-        out = {"n_batches": self.n_batches, "n_requests": self.n_requests}
+        out = {"n_batches": self.n_batches, "n_requests": self.n_requests,
+               "n_refined": self.n_refined}
         for k, v in self.stage_ms.items():
             if v:
                 arr = np.asarray(v)
@@ -132,6 +151,7 @@ class BatchingPolicy:
     def reset_stats(self):
         self.n_batches = 0
         self.n_requests = 0
+        self.n_refined = 0
         for v in self.stage_ms.values():
             v.clear()
 
@@ -178,11 +198,17 @@ class BatchingPolicy:
 
     def warmup(self, example: dict):
         """Run every bucket size once before accepting traffic (the first
-        call builds the CUDA kernels)."""
+        eager call builds the CUDA kernels). With the refined tier enabled,
+        each bucket's refined program runs too, with the fresh result as the
+        previous chunk."""
         for b in self.batch_sizes:
             batch = {k: np.repeat(v[None], b, axis=0) for k, v in example.items()}
-            _materialize(self.infer_fn(batch))
+            chunk = _materialize(self.infer_fn(batch))
             log.info("warmed batch size %d", b)
+            if self.refine_fn is not None:
+                batch["prev_chunk"] = np.asarray(chunk, np.float32)
+                _materialize(self.refine_fn(batch))
+                log.info("warmed refined batch size %d", b)
 
     # ------------------------------------------------------------------ #
     def _bucket(self, n: int) -> int:
@@ -216,10 +242,24 @@ class BatchingPolicy:
                 except queue.Empty:
                     if remaining <= 0:
                         break
-            self._dispatch(reqs)
+            self._run(reqs)
 
-    def _dispatch(self, reqs):
-        """Stack + async-dispatch one batch; the completer materializes.
+    def _run(self, reqs):
+        if self.refine_fn is None:
+            for r in reqs:
+                r.inputs.pop("prev_chunk", None)  # tier disabled: full flow
+            self._dispatch(self.infer_fn, reqs)
+            return
+        fresh = [r for r in reqs if "prev_chunk" not in r.inputs]
+        refined = [r for r in reqs if "prev_chunk" in r.inputs]
+        if fresh:
+            self._dispatch(self.infer_fn, fresh)
+        if refined:
+            self.n_refined += len(refined)
+            self._dispatch(self.refine_fn, refined)
+
+    def _dispatch(self, fn, reqs):
+        """Stack + async-dispatch one group; the completer materializes.
         Runs on the worker thread — by the time the device finishes this
         batch, the worker is already assembling the next one."""
         try:
@@ -236,7 +276,7 @@ class BatchingPolicy:
                 )
                 for k in reqs[0].inputs
             }
-            lazy = self.infer_fn(batch)  # a CUDA tensor: returns without waiting
+            lazy = fn(batch)  # a CUDA tensor: returns without waiting
             t1 = time.monotonic()
             self.stage_ms["stack"].append((t1 - t0) * 1e3)
         except Exception as e:  # noqa: BLE001 — report to callers
@@ -296,8 +336,18 @@ _INPUT_DTYPES = {
 }
 
 
+# optional per-request fields. prev_chunk = the caller's previous action
+# chunk [A, act_dim]: opts this request into the refined steady-state tier
+# (pizero.infer_action_refined) when the server enables it
+_OPTIONAL_INPUT_DTYPES = {"prev_chunk": np.float32}
+
+
 def _coerce_inputs(msg: dict) -> dict:
-    return {k: np.asarray(msg[k], dt) for k, dt in _INPUT_DTYPES.items()}
+    inputs = {k: np.asarray(msg[k], dt) for k, dt in _INPUT_DTYPES.items()}
+    for k, dt in _OPTIONAL_INPUT_DTYPES.items():
+        if k in msg:
+            inputs[k] = np.asarray(msg[k], dt)
+    return inputs
 
 
 def pack_frame(arrays: dict) -> bytes:
@@ -428,7 +478,7 @@ class ActionServer(socketserver.ThreadingTCPServer):
 def serve_forever(host: str, port: int, policy: BatchingPolicy):
     policy.start()
     with ActionServer((host, port), policy) as srv:
-        log.info("serving on %s:%d", host, port)
+        log.info("serving on %s:%d", *srv.server_address[:2])  # port 0: the one the OS chose
         srv.serve_forever()
 
 
@@ -501,25 +551,58 @@ def open_action_connection(host: str, port: int, timeout: float = 60.0,
 # --------------------------------------------------------------------------- #
 
 
-def make_infer_fn(params: dict, cfg, device="cuda", seed: int = 42) -> Callable[[dict], torch.Tensor]:
-    """The BatchingPolicy's `infer_fn` for a param tree on `device`: stacks
-    a numpy batch onto the device in the params' dtype and calls
-    `pizero.infer_action`, returning the [B, A, act_dim] tensor without
-    waiting for it. The flow's noise comes from one generator seeded with
-    `seed`."""
+def make_infer_fn(
+    params: dict, cfg, device="cuda", seed: int = 42, t_start: float = 0.0
+) -> Callable[[dict], torch.Tensor]:
+    """The BatchingPolicy's eager `infer_fn` for a param tree on `device`:
+    stacks a numpy batch onto the device in the params' dtype and calls
+    `pizero.infer_action` (or, with `t_start` > 0, the refined tier's
+    `pizero.infer_action_refined` on the batch's `prev_chunk`: a
+    `refine_fn`), returning the [B, A, act_dim] tensor without waiting for
+    it. The noise comes from one generator seeded with `seed`."""
     device = resolve_device(device)
     dtype = params["embed_tokens"].dtype
     generator = torch.Generator(device=device).manual_seed(seed)
 
     def infer_fn(batch: dict) -> torch.Tensor:
-        return pizero.infer_action(
-            params,
-            cfg,
-            generator,
-            torch.as_tensor(batch["input_ids"], device=device),
-            torch.as_tensor(batch["pixel_values"], device=device).to(dtype),
-            torch.as_tensor(batch["attention_mask"], device=device),
-            torch.as_tensor(batch["proprios"], device=device).to(dtype),
+        x = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        args = (
+            params, cfg, generator, x["input_ids"], x["pixel_values"].to(dtype),
+            x["attention_mask"], x["proprios"].to(dtype),
         )
+        if t_start > 0.0:
+            return pizero.infer_action_refined(*args, x["prev_chunk"].to(dtype), t_start=t_start)
+        return pizero.infer_action(*args)
 
     return infer_fn
+
+
+def make_compiled_infer_fn(
+    params: dict, cfg, batch_sizes: Sequence[int], refine_t: float = 0.0, device="cuda", seed: int = 42
+) -> tuple:
+    """(infer_fn, refine_fn) for the BatchingPolicy on a card: each bucket's
+    chunk captured as one CUDA graph (`models/compiled.py`), and with
+    `refine_t` > 0 each bucket's refined chunk from `refine_t` too
+    (`refine_fn` is None otherwise). All graphs share one memory pool and
+    one noise generator seeded with `seed`, which each call draws from
+    once. A batch whose size is not a bucket raises."""
+    device = resolve_device(device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    tiers = (0.0, refine_t) if refine_t > 0.0 else (0.0,)
+    graphs, pool = {}, None
+    for b in sorted(batch_sizes):
+        for t in tiers:
+            graphs[b, t] = compile_chunk(params, cfg, b, generator=generator, t_start=t, device=device, pool=pool)
+            pool = graphs[b, t].pool
+            log.info("captured the %s chunk of batch size %d", "refined" if t else "full", b)
+
+    def tier_fn(t: float) -> Callable[[dict], torch.Tensor]:
+        def run(batch: dict) -> torch.Tensor:
+            b = len(batch["input_ids"])
+            if (b, t) not in graphs:
+                raise ValueError(f"no graph for batch size {b}; the buckets are {sorted(batch_sizes)}")
+            return graphs[b, t](batch)
+
+        return run
+
+    return tier_fn(0.0), (tier_fn(refine_t) if refine_t > 0.0 else None)

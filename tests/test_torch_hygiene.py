@@ -1,6 +1,6 @@
-"""The port's boundaries: it imports neither jax, yaml nor the JAX package;
-its source names none of them; and its serving loop answers concurrent
-requests with a tiny model on the CPU."""
+"""The port's boundaries: it imports neither jax, yaml, safetensors nor the
+JAX package; its source names none of them; and its serving loop answers
+concurrent requests with a tiny model on the CPU."""
 
 import json
 import os
@@ -32,14 +32,16 @@ def test_import_leaves_jax_and_yaml_out():
         for p in PORT.rglob("*.py")
         if p.name != "__init__.py"
     )
-    # the training slice is among them
+    # the training slice and the serving entry point's modules are among them
     for name in ("sampling", "schedules", "optimizer", "averaging", "train_step"):
         assert f"open_pi_zero_torch.training.{name}" in modules
+    for name in ("yaml_subset", "config", "models.convert", "models.compiled", "scripts.serve"):
+        assert f"open_pi_zero_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'yaml', 'open_pi_zero_tpu'))))\n"
+        "('jax', 'jaxlib', 'yaml', 'safetensors', 'open_pi_zero_tpu'))))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -52,10 +54,11 @@ def test_import_leaves_jax_and_yaml_out():
 
 def test_sources_import_no_jax_package():
     # the JAX package's name may appear in notes that say which TPU kernel
-    # a kernel replaces; what is refused is any import of it, jax or yaml
+    # a kernel replaces; what is refused is any import of it, jax, yaml or
+    # safetensors (the card's machine has none of them)
     bad = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|yaml|open_pi_zero_tpu)\b"
-        r"|import_module\(\s*['\"](jax|jaxlib|yaml|open_pi_zero_tpu)\b",
+        r"^\s*(import|from)\s+(jax|jaxlib|yaml|safetensors|open_pi_zero_tpu)\b"
+        r"|import_module\(\s*['\"](jax|jaxlib|yaml|safetensors|open_pi_zero_tpu)\b",
         re.M,
     )
     hits = [

@@ -33,6 +33,7 @@ GEOMETRIES = [
     (2, 281, 281, 8, 1, 32),
     (1, 1, 300, 8, 2, 32),
     (2, 7, 9, 4, 4, 16),
+    (2, 7, 9, 4, 1, 8),  # the reference fixtures' head dim: zero-padded to 16 by the wrapper
     (16, 281, 281, 8, 1, 256),  # training: 576 blocks of 64 rows, no split
     (1, 4, 281, 4, 1, 256),  # K1-shard's Euler step: one cell over 16 blocks
     (1, 4, fa.max_lkv(256), 8, 1, 256),  # the longest K/V the kernel takes
