@@ -13,7 +13,9 @@ Phases, each of which raises on failure:
                launch and the interval between back-to-back launches. Then
                the MoT-attention kernel against its plain version on the
                card, at the main path's shapes (prefill, Euler, decode,
-               K1-shard's Euler step, the training shape) and edge cases (a
+               the text path's generate prefill 260 x 280 and decode step
+               1 x 280 with their broadcast masks, K1-shard's Euler step,
+               the training shape) and edge cases (a
                fully masked row, a cluster block whose whole Lkv slice is
                masked), in bf16 (2e-2) and fp32 (1e-4), two calls bitwise
                equal; kernel, plain and library times per launch in the
@@ -78,6 +80,34 @@ Phases, each of which raises on failure:
                replay, the pool's bytes; the warm chunk of each graph and of
                its eager chunk in turns (median of 11); then the bf16 trees
                are freed
+  4d. adaln  — full-width PiZeroConfig() with adaLN-Zero action and
+               proprio experts, bf16, B = 1: the float and production trees
+               as phase 4 drives the float tree (198 K1 launches per chunk,
+               bitwise chunks, warm chunk, a profiled chunk), then as CUDA
+               graphs with phase 4c's checks (108 K1 refined); card vs CPU
+               at bridge widths in fp32 (<= 1e-3, the gate kernels drawn
+               off zero) and one fp32 training update there (phase 7's
+               checks)
+  4e. text   — paligemma_config(PiZeroConfig()), bf16, B = 1, on
+               scripts/bench_textgen.py's prompt (S = 260, 20 new tokens, no
+               EOS): the bf16 tree, the weight-only int8 VLM and the
+               production tree (W8A8 VLM trunk, rows padded to 17 at
+               decode). Each: the prompt's logits; an eager generate with
+               L + 20 L = 378 K1 launches, its first token the logits'
+               argmax; the compiled decode (models/compiled.CompiledDecode:
+               one CUDA graph per decode step) bitwise the eager tokens and
+               its K/V caches bitwise the eager decode's; the tied head
+               allocating its output only (no copy of the 1.05 GB table);
+               K1 and device-busy ms per token (a profiled compiled generate
+               less its prefill), host ms per replay; then logits, prefill,
+               eager and compiled generate of the three trees in turns
+               (median of 11): ms per decode token beside the byte bound
+               (the trunk's and the table's bytes at 3.35 TB/s). Card vs
+               CPU at bridge widths in fp32 (logits <= 1e-3, greedy tokens
+               equal, eager and graph); the reference's golden text logits
+               (tests/fixtures/pizero_text_logits.npz) through
+               convert_paligemma and the facade on the card (rtol/atol
+               2e-3, the first token the fixture's argmax)
   5. serve   — the port's serve CLI (python -m
                open_pi_zero_torch.scripts.serve) in a subprocess on a free
                port: configs/eval/bridge.yaml, --random-init, buckets 1,2,
@@ -149,6 +179,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import signal
@@ -166,6 +197,7 @@ import torch
 from open_pi_zero_torch import config as cfg_lib
 from open_pi_zero_torch import serving
 from open_pi_zero_torch.models import compiled, convert, fuse, pizero
+from open_pi_zero_torch.models.paligemma import PaliGemmaForConditionalGeneration, paligemma_config
 from open_pi_zero_torch.models.tree import tree_leaves, tree_map
 from open_pi_zero_torch.ops import _build
 from open_pi_zero_torch.ops import fused_attention as fa
@@ -189,6 +221,8 @@ REPLACES = "open_pi_zero_tpu/ops/pallas_attention.py:123"
 REPLACES_VJP = "open_pi_zero_tpu/ops/pallas_attention.py:165"
 REPLACES_SHARD = "open_pi_zero_tpu/ops/pallas_attention.py:221"
 RANK_TIMEOUT_S = 600  # every collective of a spawned world
+TEXT_PROMPT = 260  # scripts/bench_textgen.py's prompt: 256 image tokens, BOS, 3 text tokens
+TEXT_MAX_NEW = 20  # its new tokens
 KERNEL_SYMBOL = "mot_attention_fwd_kernel"  # the kernel's name in a profile
 ROWS_SYMBOL = "mot_attention_bwd_rows_kernel"  # K1-vjp's backward kernels
 KEYS_SYMBOL = "mot_attention_bwd_keys_kernel"
@@ -196,8 +230,12 @@ MARKERS = 128  # empty kernels before the work of a profiled window
 WINDOW_TRIES = 6  # windows that profiled_window takes at most
 
 
+START = time.time()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the run's log, after the seconds since the script's start."""
+    print(f"[{time.time() - START:7.1f} s] {msg}", flush=True)
 
 
 def log_build_instances(build_log: str) -> None:
@@ -248,7 +286,7 @@ def time_ms(fn, samples: int = 21, calls: int = 10) -> float:
 
 
 def profiled_window(fn, expected: dict, counted=None) -> tuple:
-    """(got, profile, wall ms) of one run of ``fn`` under torch.profiler:
+    """(got, its device events, wall ms) of one run of ``fn`` under torch.profiler:
     ``got[match]`` is (device ms, events) of the device events whose name
     contains ``match`` (all of them for None), the marker kernels left
     out. The profiler loses device events in some windows on an H100:
@@ -283,16 +321,17 @@ def profiled_window(fn, expected: dict, counted=None) -> tuple:
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        marker_ms, markers = device_ms(prof, "opz_empty_kernel")
+        events = device_events(prof)
+        marker_ms, markers = device_ms(events, "opz_empty_kernel")
         got = {}
         for match in expected:
-            ms, count = device_ms(prof, match)
+            ms, count = device_ms(events, match)
             got[match] = (ms - marker_ms, count - markers) if match is None else (ms, count)
         launched = (fa.launches, fa.bwd_launches)
         complete = (markers > 0 and all(n in (None, got[m][1]) for m, n in expected.items())
                     and counted in (None, launched))
         if complete and (not totals or [got[m][1] for m in totals] in passed):
-            return got, prof, wall
+            return got, events, wall
         if complete:
             passed.append([got[m][1] for m in totals])
         if not complete or len(passed) > 1:
@@ -394,11 +433,18 @@ def attention_cases(dev):
     for i in range(TRAIN_B):
         train_am[i, : 257 + i] = 1
     train_mask = pizero.prepare_action_inputs(cfg, train_am)[0]
+    # the text path's masks are broadcast views (batch and row strides 0)
+    # over the static cache: the generate prefill (S = 260 of 280 slots) and
+    # a decode step that sees 270 of them
+    cols = torch.arange(TEXT_PROMPT + TEXT_MAX_NEW, device=dev)
     bf16, fp32 = torch.bfloat16, torch.float32
     return [
         ("prefill", (1, 277, 277, 8, 1, 256), prefix[:1], 50.0, bf16),
         ("euler", euler, action[:1], 50.0, bf16),
         ("decode", (1, 1, 277, 8, 1, 256), rand_mask(1, 1, 277), 50.0, bf16),
+        ("text_prefill", (1, TEXT_PROMPT, 280, 8, 1, 256), pizero._text_mask(cols, TEXT_PROMPT, 1, TEXT_PROMPT), 50.0,
+         bf16),
+        ("text_decode", (1, 1, 280, 8, 1, 256), pizero._text_mask(cols, 270, 1, 1), 50.0, bf16),
         ("shard_euler", (1, 4, 281, 4, 1, 256), action[:1], 50.0, fp32),
         ("train", (TRAIN_B, 281, 281, 8, 1, 256), train_mask, 50.0, fp32),
         ("prefill_b2", (2, 277, 277, 8, 1, 256), prefix, 50.0, bf16),
@@ -409,22 +455,30 @@ def attention_cases(dev):
     ]
 
 
-def bound_ms(shape, dtype=torch.bfloat16) -> tuple:
+def bound_ms(shape, mask, dtype=torch.bfloat16) -> tuple:
     """Least time for the function in ``dtype`` on an H100: q, k, v and the
     fp32 mask read once and the output written once, over HBM;
     4*B*Hq*Lq*Lkv*D FLOP over the peak of ``dtype``. Returns (ms, "bytes" |
     "operations")."""
-    t_bytes, t_ops = bound_parts(shape, dtype)
+    t_bytes, t_ops = bound_parts(shape, mask, dtype)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bound_parts(shape, dtype=torch.bfloat16) -> tuple:
+def mask_bytes(mask: torch.Tensor) -> int:
+    """The bytes of ``mask``'s distinct elements: a broadcast view (stride 0
+    along a dimension, as the text path's masks are) is read once, not once
+    per batch or row."""
+    return mask.element_size() * math.prod(n for n, s in zip(mask.shape, mask.stride()) if s != 0)
+
+
+def bound_parts(shape, mask, dtype=torch.bfloat16) -> tuple:
     """(ms to move the bytes, ms to do the operations) of one call: q, k,
-    v in ``dtype`` and the fp32 mask read once, the output written once;
-    4*B*Hq*Lq*Lkv*D FLOP at the peak rate of ``dtype``."""
+    v in ``dtype`` and the fp32 mask's distinct elements read once, the
+    output written once; 4*B*Hq*Lq*Lkv*D FLOP at the peak rate of
+    ``dtype``."""
     b, lq, lkv, hq, hkv, d = shape
     size = torch.finfo(dtype).bits // 8
-    moved = size * (2 * b * lq * hq * d + 2 * b * lkv * hkv * d) + 4 * b * lq * lkv
+    moved = size * (2 * b * lq * hq * d + 2 * b * lkv * hkv * d) + mask_bytes(mask)
     peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
     return moved / HBM_BYTES_PER_S * 1e3, 4 * b * hq * lq * lkv * d / peak * 1e3
 
@@ -440,7 +494,7 @@ def launch_floor(dev) -> dict:
         for _ in range(200):
             fa.empty_launch(dev)
         torch.cuda.synchronize()
-    ms, count = device_ms(prof, "opz_empty_kernel")
+    ms, count = device_ms(device_events(prof), "opz_empty_kernel")
     return {"device_ms_per_launch": ms / count, "interval_ms": interval}
 
 
@@ -486,7 +540,7 @@ def check_kernel(dev) -> dict:
         row["library_ms"] = device_time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mh)
         )
-        row["bound_ms"], row["bound_by"] = bound_ms(shape, time_dtype)
+        row["bound_ms"], row["bound_by"] = bound_ms(shape, mask, time_dtype)
         results[name] = row
     return results
 
@@ -552,10 +606,32 @@ def check_bwd_kernels(dev) -> dict:
 # --------------------------------------------------------------------------- #
 
 
-def check_parity_with_cpu(dev) -> float:
+def with_adaln(cfg):
+    """``cfg`` with adaLN-Zero action and proprio experts (the vlm keeps its
+    Gemma norms)."""
+    mixtures = tuple(dataclasses.replace(m, adaptive_mode="adaLN-Zero") if i else m
+                     for i, m in enumerate(cfg.joint.mixtures))
+    return dataclasses.replace(cfg, joint=dataclasses.replace(cfg.joint, mixtures=mixtures),
+                               action_expert_adaptive_mode="adaLN-Zero")
+
+
+def cpu_params(cfg, seed: int = 1) -> dict:
+    """fp32 params on the CPU from ``seed``; adaLN-Zero's gate kernels,
+    zero at init, drawn off zero so that the time conditioning reaches the
+    gates."""
+    params = pizero.init_params(cfg, seed=seed, device="cpu", dtype=torch.float32)
+    gen = torch.Generator().manual_seed(seed)
+    for mixture in params["joint"]["mixtures"].values():
+        for stage in ("post_scale", "final_scale"):
+            if stage in mixture["layers"]:
+                mixture["layers"][stage]["kernel"].normal_(0.0, 0.05, generator=gen)
+    return params
+
+
+def check_parity_with_cpu(dev, cfg=None) -> float:
     """Bridge widths, depth 2, fp32: card (kernel) vs CPU (plain version)."""
-    cfg = cfg_lib.bridge_width_dryrun_config()
-    params_cpu = pizero.init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
+    cfg = cfg or cfg_lib.bridge_width_dryrun_config()
+    params_cpu = cpu_params(cfg)
     params_dev = tree_map(lambda x: x.to(dev), params_cpu)
     rng = np.random.default_rng(1)
     batch = example_batch(cfg, 2, rng)
@@ -576,7 +652,10 @@ def check_parity_with_cpu(dev) -> float:
     return err
 
 
-def check_main_path(dev, cfg, params) -> dict:
+def check_main_path(dev, cfg, params, samples: int = 11) -> dict:
+    """Two chunks of ``params`` at B = 1 (L + L * steps K1 launches each,
+    bitwise equal, finite, inside the clip), then ``samples`` warm chunks
+    timed (none: ``chunk_ms`` None), the peak memory."""
     rng = np.random.default_rng(2)
     batch = example_batch(cfg, 1, rng)
     a0 = rng.normal(size=(1, cfg.horizon_steps, cfg.action_dim)).astype(np.float32)
@@ -603,7 +682,7 @@ def check_main_path(dev, cfg, params) -> dict:
     if not torch.equal(first, second):
         raise AssertionError("two runs with the same noise differ")
     times = []
-    for _ in range(11):
+    for _ in range(samples):
         t0 = time.perf_counter()
         run_infer(params, cfg, batch, a0, dev, torch.bfloat16)
         torch.cuda.synchronize()
@@ -611,7 +690,7 @@ def check_main_path(dev, cfg, params) -> dict:
     peak = torch.cuda.max_memory_allocated(dev)
     return {
         "launches": launches,
-        "chunk_ms": statistics.median(times),
+        "chunk_ms": statistics.median(times) if times else None,
         "peak_mem_gb": peak / 1e9,
         # the params' own bytes plus the chunk's peak above what was resident:
         # the peak with this tree alone on the card
@@ -884,17 +963,17 @@ def check_compiled_chunk(dev, cfg, tree, t_start: float, pool, label: str) -> tu
     for i, batch in enumerate(batches):
         got, want = graph(batch), eager(batch)
         if not torch.equal(got, want):
-            raise AssertionError(f"compiled {label}: replay {i} differs from the eager chunk by "
+            raise AssertionError(f"{label}: replay {i} differs from the eager chunk by "
                                  f"{float((got.float() - want.float()).abs().max())}")
         if not (torch.isfinite(got).all() and got.abs().max() <= cfg.final_action_clip_value):
-            raise AssertionError(f"compiled {label}: replay {i} not finite or outside the clip")
-    got, prof, wall = profiled_window(
+            raise AssertionError(f"{label}: replay {i} not finite or outside the clip")
+    got, traced, wall = profiled_window(
         lambda: graph(batches[0]),
         {None: None, "Memcpy": None, "Memset": None, KERNEL_SYMBOL: expected, ROWS_SYMBOL: 0, KEYS_SYMBOL: 0},
         counted=(0, 0),
     )
     busy, events = got[None]
-    log_profile(f"compiled {label}", prof, wall, busy)
+    log_profile(label, traced, wall, busy)
     copies = got["Memcpy"][1] + got["Memset"][1]
     on_card = {k: torch.as_tensor(v, device=dev) for k, v in batches[0].items()}
     host = []
@@ -913,7 +992,7 @@ def check_compiled_chunk(dev, cfg, tree, t_start: float, pool, label: str) -> tu
     return row, graph, eager, batches[0]
 
 
-def check_compiled(dev, cfg, trees: dict, eager_rows: dict, info: str) -> dict:
+def check_compiled(dev, cfg, trees: dict, eager_rows: dict, info: str, label: str = "compiled") -> dict:
     """Phase 4c: the float, fused and production trees' B = 1 chunks and the
     production tree's refined chunk from t = 0.5 as CUDA graphs in one
     pool (as one server holds them), each held bitwise against the eager
@@ -925,11 +1004,11 @@ def check_compiled(dev, cfg, trees: dict, eager_rows: dict, info: str) -> dict:
     runs = [(name, tree, 0.0) for name, tree in trees.items()] + [("production_refined", trees["production"], 0.5)]
     results, timed, pool = {}, {}, None
     for name, tree, t_start in runs:
-        row, graph, eager, batch = check_compiled_chunk(dev, cfg, tree, t_start, pool, name)
+        row, graph, eager, batch = check_compiled_chunk(dev, cfg, tree, t_start, pool, f"{label} {name}")
         pool = graph.pool
         results[name], timed[name] = row, (graph, eager, batch)
         eager_row = eager_rows.get(name, {})
-        log(f"compiled {name}: {row['k1_launches_per_replay']} K1 launches traced per replay, "
+        log(f"{label} {name}: {row['k1_launches_per_replay']} K1 launches traced per replay, "
             f"{row['kernels_per_replay']} kernels and {row['copies_per_replay']} copies per replay (eager chunk: "
             f"{eager_row.get('kernels_per_chunk', 'not profiled')} and {eager_row.get('copies_per_chunk', '-')}), "
             f"device busy {row['busy_ms']:.3f} ms of a profiled {row['profiled_wall_ms']:.3f} ms, K1 "
@@ -946,9 +1025,285 @@ def check_compiled(dev, cfg, trees: dict, eager_rows: dict, info: str) -> dict:
     for name, t in times.items():
         results[name]["graph_chunk_ms"] = statistics.median(t["graph"])
         results[name]["eager_chunk_ms"] = statistics.median(t["eager"])
-        log(f"compiled {name}: warm chunk in turns (median of 11) graph {results[name]['graph_chunk_ms']:.3f} ms, "
+        log(f"{label} {name}: warm chunk in turns (median of 11) graph {results[name]['graph_chunk_ms']:.3f} ms, "
             f"eager {results[name]['eager_chunk_ms']:.3f} ms, on {info}")
     results["pool_bytes"] = sum(r["pool_bytes"] for r in results.values() if isinstance(r, dict))
+    return results
+
+
+
+# --------------------------------------------------------------------------- #
+# phase 4d: the adaLN-Zero action expert
+# --------------------------------------------------------------------------- #
+
+
+def check_adaln(dev, info: str) -> dict:
+    """Phase 4d: the full-width model with adaLN-Zero action and proprio
+    experts in bf16, B = 1: the float and production trees driven eagerly
+    (launches, bitwise chunks, clip, memory), then as CUDA graphs with
+    phase 4c's checks (the refined chunk included; the replays' profiles
+    give the device-busy and K1 ms, the in-turn timing the warm graph and
+    eager chunks); card vs CPU at bridge widths in fp32; one fp32 training
+    update at bridge widths, card vs CPU."""
+    t0 = time.time()
+    cfg = with_adaln(cfg_lib.PiZeroConfig())
+    params = pizero.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    trees = {"float": params, "production": fuse.prepare_for_serving(params, **fuse.serving_layout_kwargs({}))}
+    torch.cuda.synchronize()
+    log(f"adaln: full-width adaLN-Zero float and production trees built in {time.time() - t0:.1f} s")
+    results = {}
+    for name, tree in trees.items():
+        row = check_main_path(dev, cfg, tree, samples=0)  # 198 launches, bitwise chunks, clip, memory
+        row["tree_gb"] = tree_bytes(tree) / 1e9
+        results[name] = row
+        log(f"adaln {name}: {row['launches']} K1 launches per chunk, two chunks bitwise equal; tree "
+            f"{row['tree_gb']:.3f} GB, peak with the tree alone {row['alone_peak_mem_gb']:.3f} GB, on {info}")
+    results["compiled"] = check_compiled(dev, cfg, trees, results, info, label="adaln compiled")
+    del params, trees
+    torch.cuda.empty_cache()
+    bridge = with_adaln(cfg_lib.bridge_width_dryrun_config())
+    results["parity_max_abs_diff"] = check_parity_with_cpu(dev, bridge)
+    results["train_parity"] = check_train_parity(dev, bridge)
+    return results
+
+
+# --------------------------------------------------------------------------- #
+# phase 4e: the PaliGemma text path
+# --------------------------------------------------------------------------- #
+
+
+def text_prompt(cfg, b: int, rng, text_len: int = 3):
+    """scripts/bench_textgen.py's prompt: every image token, BOS, then
+    ``text_len`` text tokens; random pixels in the params' dtype."""
+    n_img = cfg.siglip.num_image_tokens
+    ids = np.full((b, n_img + 1 + text_len), 100, np.int64)
+    ids[:, :n_img] = cfg.image_token_index
+    ids[:, n_img] = 2
+    ids[:, n_img + 1 :] += np.arange(b)[:, None]  # rows differ
+    size = cfg.siglip.image_size
+    pix = rng.uniform(-1, 1, size=(b, size, size, 3)).astype(np.float32)
+    return ids, pix
+
+
+def text_bytes_per_token(tree) -> int:
+    """Bytes a decode step must read at least: the vlm trunk's weights and
+    the tied table (the lm head reads all of it)."""
+    return tree_bytes(tree["joint"]["mixtures"]["vlm"]) + tree_bytes({"t": tree["embed_tokens"]})
+
+
+def check_tied_head_reads_in_place(dev, tree, hidden) -> int:
+    """The bytes allocated above what was resident during one tied-head
+    call on one row: its [1, 1, V] output, not a copy of the table's
+    transpose (1.05 GB at full width)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    pizero.lm_logits(tree, hidden)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(dev) - resident
+    if extra > tree_bytes({"t": tree["embed_tokens"]}) // 10:
+        raise AssertionError(f"the tied head allocated {extra} bytes: a copy of the table")
+    return extra
+
+
+def check_text_tree(dev, cfg, tree, ids, pix, pool) -> tuple:
+    """One tree at B = 1: the prompt's logits; an eager generate of
+    TEXT_MAX_NEW tokens (L + TEXT_MAX_NEW * L K1 launches, its first token
+    the logits' last argmax, two calls bitwise equal); the compiled decode,
+    bitwise the eager tokens, and its K/V caches bitwise those of the eager
+    decode (at init the tied head copies the prompt's last token back, so
+    the caches are the stronger check); the tied head reads the table in
+    place; one replayed decode step under the profiler (K1's and the
+    device's busy ms per token, the kernels per step); host ms per replay.
+    Returns (row, the decoder)."""
+    L = cfg.joint.num_hidden_layers
+    expected = L + TEXT_MAX_NEW * L
+    logits = pizero.infer_text_logits(tree, cfg, ids, pix)
+    if tuple(logits.shape) != (1, ids.shape[1], cfg.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError(f"text logits {tuple(logits.shape)} or not finite")
+    fa.launches = 0
+    eager = pizero.generate_text(tree, cfg, ids, pix, TEXT_MAX_NEW, eos_token_id=-1)
+    torch.cuda.synchronize()
+    launches = fa.launches
+    again = pizero.generate_text(tree, cfg, ids, pix, TEXT_MAX_NEW, eos_token_id=-1)
+    if launches != expected or not torch.equal(eager, again):
+        raise AssertionError(f"eager generate: {launches} K1 launches (want {expected}), two calls equal "
+                             f"{torch.equal(eager, again)}")
+    if int(eager[0, 0]) != int(logits[0, -1].argmax()):
+        raise AssertionError(f"first token {int(eager[0, 0])}, the logits' argmax {int(logits[0, -1].argmax())}")
+    t0 = time.perf_counter()
+    decoder = compiled.CompiledDecode(tree, cfg, 1, ids.shape[1] + TEXT_MAX_NEW, eos_token_id=-1, device=dev,
+                                      pool=pool)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    for call in range(2):
+        got = decoder(ids, pix, TEXT_MAX_NEW)
+        if not torch.equal(got, eager):
+            raise AssertionError(f"compiled decode call {call}: {got.tolist()} vs eager {eager.tolist()}")
+    state = pizero.TextDecode(tree, cfg, 1, ids.shape[1] + TEXT_MAX_NEW, eos_token_id=-1)
+    state.prefill(ids, pix)
+    for _ in range(TEXT_MAX_NEW):
+        state.step()
+    if not (torch.equal(state.tokens[:, :TEXT_MAX_NEW], eager)
+            and all(torch.equal(a, b) for a, b in zip(state.cache, decoder.state.cache))):
+        raise AssertionError("the compiled decode's K/V caches differ from the eager decode's")
+    del state
+    hidden = pizero.text_prefill(tree, cfg, ids, pix, decoder.state.cache)[:, -1:]
+    head_bytes = check_tied_head_reads_in_place(dev, tree, hidden)
+    del hidden
+    decoder.prefill(ids, pix)
+    # one decode step per window (each window a replay; at most WINDOW_TRIES
+    # of the TEXT_MAX_NEW slots after the prompt are used)
+    got, traced, wall = profiled_window(
+        decoder.step, {None: None, KERNEL_SYMBOL: L, ROWS_SYMBOL: 0, KEYS_SYMBOL: 0}, counted=(0, 0)
+    )
+    log_profile("text decode step", traced, wall, got[None][0])
+    decoder.prefill(ids, pix)
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(TEXT_MAX_NEW):
+        t1 = time.perf_counter()
+        decoder.step()
+        host.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    row = {
+        "tokens": eager[0].tolist(), "k1_launches_per_generate": launches,
+        "k1_ms_per_token": got[KERNEL_SYMBOL][0], "busy_ms_per_token": got[None][0],
+        "kernels_per_token": got[None][1], "profiled_step_wall_ms": wall,
+        "host_ms_per_replay": statistics.median(host), "capture_s": capture_s, "tied_head_extra_bytes": head_bytes,
+        "tree_gb": tree_bytes(tree) / 1e9, "bytes_per_token_gb": text_bytes_per_token(tree) / 1e9,
+        "bound_ms_per_token": text_bytes_per_token(tree) / HBM_BYTES_PER_S * 1e3,
+    }
+    return row, decoder
+
+
+def check_text_parity_with_cpu(dev) -> dict:
+    """Bridge widths, depth 2, fp32, B = 2: the prompt's logits card vs CPU
+    (<= 1e-3) on the params at init, and the greedy tokens (eager on both
+    sides, and the card's compiled decode) with the vlm trunk's kernels
+    times 8 and the token table times 0.05, so that the decode leaves the
+    init's fixed point (the tied head copying the last prompt token back)."""
+    cfg = paligemma_config(cfg_lib.bridge_width_dryrun_config())
+    params_cpu = cpu_params(cfg)
+    ids, pix = text_prompt(cfg, 2, np.random.default_rng(13))
+    ids, pix = torch.from_numpy(ids), torch.from_numpy(pix)
+    on_card = pizero.infer_text_logits(tree_map(lambda x: x.to(dev), params_cpu), cfg, ids.to(dev), pix.to(dev))
+    err = float((on_card.cpu() - pizero.infer_text_logits(params_cpu, cfg, ids, pix)).abs().max())
+    if not err <= 1e-3:
+        raise AssertionError(f"text logits card vs CPU max|diff| {err} > 1e-3")
+    vlm = params_cpu["joint"]["mixtures"]["vlm"]["layers"]
+    for group in ("attn", "mlp"):
+        vlm[group] = tree_map(lambda x: x * 8, vlm[group])
+    params_cpu["embed_tokens"] = params_cpu["embed_tokens"] * 0.05
+    params_dev = tree_map(lambda x: x.to(dev), params_cpu)
+    want = pizero.generate_text(params_cpu, cfg, ids, pix, 8)
+    eager = pizero.generate_text(params_dev, cfg, ids.to(dev), pix.to(dev), 8).cpu()
+    graph = compiled.CompiledDecode(params_dev, cfg, 2, ids.shape[1] + 8, device=dev)(ids, pix, 8).cpu()
+    if len(set(want.flatten().tolist())) <= 2 or not (torch.equal(eager, want) and torch.equal(graph, want)):
+        raise AssertionError(f"greedy tokens: CPU {want.tolist()}, card {eager.tolist()}, graph {graph.tolist()}")
+    return {"logits_max_abs_diff": err, "tokens": want.tolist()}
+
+
+TEXT_GOLDEN_FIXTURE = "tests/fixtures/pizero_text_logits.npz"
+
+
+def check_text_golden(dev) -> dict:
+    """The reference's recorded text logits: its state under the HF
+    PaliGemma names through the port's ``convert_paligemma``, fp32 on the
+    card through the facade (its ``generate`` is the compiled decode), K1
+    at head dim 8: rtol 2e-3 / atol 2e-3 (the CPU replay's), the first
+    token the fixture's argmax."""
+    with np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), TEXT_GOLDEN_FIXTURE)) as z:
+        payload = {k: z[k] for k in z.files}
+    hf = {}
+    for key, value in payload.items():
+        name = key[len("state/"):]
+        if name.startswith("joint_model.mixtures.vlm."):
+            hf["language_model.model." + name[len("joint_model.mixtures.vlm."):]] = value
+        elif name == "embed_tokens.weight":
+            hf["language_model.model.embed_tokens.weight"] = value
+        elif name.startswith(("vision_tower.", "multi_modal_projector.")):
+            hf[name] = value
+    cfg = paligemma_config(golden_config())
+    model = PaliGemmaForConditionalGeneration(
+        cfg, convert.to_dtype(convert.convert_paligemma(hf, cfg), torch.float32, dev)
+    )
+    ids, pix = payload["ids"].astype(np.int64), np.ascontiguousarray(payload["pix"].transpose(0, 2, 3, 1))
+    fa.launches = 0
+    got = model.logits(ids, pix).cpu().numpy()
+    toks = model.generate(ids, pix, max_new_tokens=3).cpu()
+    want = payload["want"]
+    excess = float((np.abs(got - want) - (2e-3 + 2e-3 * np.abs(want))).max())
+    if not excess <= 0 or int(toks[0, 0]) != int(want[0, -1].argmax()):
+        raise AssertionError(f"golden text logits: outside rtol/atol 2e-3 by {excess}, first token "
+                             f"{int(toks[0, 0])} vs {int(want[0, -1].argmax())}")
+    return {"max_abs_diff": float(np.abs(got - want).max()), "launches": fa.launches, "tokens": toks.tolist()}
+
+
+def check_text(dev, info: str) -> dict:
+    """Phase 4e: ``paligemma_config(PiZeroConfig())`` in bf16 at B = 1 on
+    scripts/bench_textgen.py's prompt (S = 260, 20 new tokens, no EOS): the
+    bf16 tree, the weight-only int8 VLM (bench_textgen's ``int8``) and the
+    production tree (W8A8 VLM trunk), each through ``check_text_tree``; then
+    the logits, the prefill, the eager greedy, the eager top-p (0.9, a
+    seeded generator) and the compiled generate of the three in turns
+    (median of 11); card vs CPU at bridge widths; the golden text logits."""
+    t0 = time.time()
+    cfg = paligemma_config(cfg_lib.PiZeroConfig())
+    params = pizero.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    trees = {
+        "bf16": params,
+        "int8_vlm": fuse.prepare_for_serving(params, quantize_mixtures=("vlm",)),
+        "production": fuse.prepare_for_serving(params, **fuse.serving_layout_kwargs({})),
+    }
+    ids, pix = text_prompt(cfg, 1, np.random.default_rng(14))
+    ids, pix = torch.from_numpy(ids).to(dev), torch.from_numpy(pix).to(dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"text: full-width bf16 PaliGemma trees built in {time.time() - t0:.1f} s")
+    results, decoders, pool = {}, {}, None
+    for name, tree in trees.items():
+        row, decoders[name] = check_text_tree(dev, cfg, tree, ids, pix, pool)
+        pool = decoders[name].pool
+        results[name] = row
+        log(f"text {name}: {row['k1_launches_per_generate']} K1 launches per generate, K1 "
+            f"{row['k1_ms_per_token']:.4f} ms and device busy {row['busy_ms_per_token']:.3f} ms per token "
+            f"({row['kernels_per_token']} kernels), host {row['host_ms_per_replay']:.4f} ms per replay, tree "
+            f"{row['tree_gb']:.3f} GB, tied head +{row['tied_head_extra_bytes']} bytes; graph tokens bitwise eager, "
+            f"on {info}")
+    timed = {name: {"logits": [], "prefill": [], "eager": [], "sampled": [], "graph": []} for name in trees}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(11):
+        for name, tree in trees.items():
+            runs = {
+                "logits": lambda: pizero.infer_text_logits(tree, cfg, ids, pix),
+                "prefill": lambda: decoders[name].prefill(ids, pix),
+                "eager": lambda: pizero.generate_text(tree, cfg, ids, pix, TEXT_MAX_NEW, eos_token_id=-1),
+                "sampled": lambda: pizero.generate_text(tree, cfg, ids, pix, TEXT_MAX_NEW, eos_token_id=-1,
+                                                        generator=gen, top_p=0.9),
+                "graph": lambda: decoders[name](ids, pix, TEXT_MAX_NEW),
+            }
+            for kind, fn in runs.items():
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                timed[name][kind].append((time.perf_counter() - t1) * 1e3)
+    for name, t in timed.items():
+        row = results[name]
+        med = {kind: statistics.median(v) for kind, v in t.items()}
+        row.update({f"{kind}_ms": v for kind, v in med.items()})
+        for kind in ("eager", "sampled", "graph"):
+            row[f"{kind}_ms_per_token"] = (med[kind] - med["prefill"]) / TEXT_MAX_NEW
+        log(f"text {name}: in turns (median of 11) logits {med['logits']:.3f} ms, prefill {med['prefill']:.3f} ms, "
+            f"generate eager {med['eager']:.3f} / top-p 0.9 eager {med['sampled']:.3f} / graph {med['graph']:.3f} "
+            f"ms: per decode token eager {row['eager_ms_per_token']:.3f}, top-p eager "
+            f"{row['sampled_ms_per_token']:.3f}, graph {row['graph_ms_per_token']:.3f} ms (byte bound "
+            f"{row['bound_ms_per_token']:.3f} ms: {row['bytes_per_token_gb']:.3f} GB at the data sheet's 3.35 TB/s), "
+            f"on {info}")
+    del params, trees, decoders
+    torch.cuda.empty_cache()
+    results["parity"] = check_text_parity_with_cpu(dev)
+    results["golden"] = check_text_golden(dev)
     return results
 
 
@@ -1041,12 +1396,17 @@ def check_serving_cli(info: str) -> dict:
     return {"requests": len(replies), "refined": want["refined"], "up_s": up_s, "exit_code": rc}
 
 
-def device_ms(prof, match=None) -> tuple:
-    """(summed self device time in ms, number of calls) of the profiled
-    CUDA events whose name contains `match` (all of them when None). User
-    annotations (such as the optimizer's step) span kernels counted on
-    their own and are left out."""
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and not e.is_user_annotation]
+def device_events(prof) -> list:
+    """The profile's CUDA events averaged by name, once (each
+    ``key_averages`` walks every event of the window). User annotations
+    (such as the optimizer's step) span kernels counted on their own and
+    are left out."""
+    return [e for e in prof.key_averages() if e.device_type.name == "CUDA" and not e.is_user_annotation]
+
+
+def device_ms(events: list, match=None) -> tuple:
+    """(summed self device time in ms, number of calls) of the
+    ``device_events`` whose name contains `match` (all of them when None)."""
     events = [e for e in events if match is None or match in e.key]
     return sum(e.self_device_time_total for e in events) / 1e3, sum(e.count for e in events)
 
@@ -1060,24 +1420,23 @@ def profile_chunk(dev, cfg, params, expected: int, label: str = "profile") -> di
     batch = example_batch(cfg, 1, rng)
     a0 = rng.normal(size=(1, cfg.horizon_steps, cfg.action_dim)).astype(np.float32)
     run_infer(params, cfg, batch, a0, dev, torch.bfloat16)
-    got, prof, wall = profiled_window(
+    got, traced, wall = profiled_window(
         lambda: run_infer(params, cfg, batch, a0, dev, torch.bfloat16),
         {None: None, "Memcpy": None, "Memset": None, KERNEL_SYMBOL: expected, ROWS_SYMBOL: 0, KEYS_SYMBOL: 0},
         counted=(expected, 0),
     )
     busy, events = got[None]
-    log_profile(label, prof, wall, busy)
+    log_profile(label, traced, wall, busy)
     copies = got["Memcpy"][1] + got["Memset"][1]
     return {"launches": expected, "ms": got[KERNEL_SYMBOL][0], "wall_ms": wall, "busy_ms": busy,
             "kernels_per_chunk": events - copies, "copies_per_chunk": copies}
 
 
-def log_profile(label: str, prof, wall: float, busy: float) -> None:
+def log_profile(label: str, events: list, wall: float, busy: float) -> None:
     """Log the device-busy share of a profiled window and its top kernels
-    by device time, the marker kernels left out."""
+    by device time (of its ``device_events``), the marker kernels left out."""
     log(f"{label}: wall {wall:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%)")
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and not e.is_user_annotation
-              and "opz_empty_kernel" not in e.key]
+    events = [e for e in events if "opz_empty_kernel" not in e.key]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in events[:15]:
         log(f"{label}:   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:90]}")
@@ -1139,9 +1498,9 @@ def replay(calls, attention=fa.mot_attention_fused) -> dict:
         # counts it: one traced launch per call
         out[f"{name}_ms"] = kernel_ms(fn, len(calls)) if name == "kernel" else profiled_ms(fn)[0]
     t_bytes = t_ops = 0.0
-    for q, k, v, _, _ in calls:
+    for q, k, v, mask, _ in calls:
         (b, lq, hq, d), (_, lkv, hkv, _) = q.shape, k.shape
-        tb, to = bound_parts((b, lq, lkv, hq, hkv, d), q.dtype)
+        tb, to = bound_parts((b, lq, lkv, hq, hkv, d), mask, q.dtype)
         t_bytes, t_ops = t_bytes + tb, t_ops + to
     out["bound_ms"], out["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     return out
@@ -1262,11 +1621,11 @@ def new_trainer(cfg, train_cfg, params, device):
     return state, train_step.make_train_step(cfg, train_cfg, optimizer, GRAD_ACCUM)
 
 
-def check_train_parity(dev) -> dict:
+def check_train_parity(dev, cfg=None) -> dict:
     """Phase 7: one update at bridge widths, depth 2, fp32, on the card
     (kernel) and on the CPU (plain version) from the same params, batch,
     flow times and noise."""
-    cfg = with_remat(cfg_lib.bridge_width_dryrun_config())
+    cfg = with_remat(cfg or cfg_lib.bridge_width_dryrun_config())
     # warmup 0: the first update takes the full lr, so that it shows. Adam
     # eps 1e-3: at the config's 1e-8, a grad that is rounding noise on both
     # sides (SigLIP's key bias, zero in exact arithmetic) steps by about
@@ -1275,7 +1634,7 @@ def check_train_parity(dev) -> dict:
     sched = cfg_lib.LRSchedulerConfig(warmup_steps=0)
     train_cfg = cfg_lib.TrainingConfig(action_lr_scheduler=sched, vlm_lr_scheduler=sched, adam_eps=1e-3)
     batch = train_batch(cfg, 2, np.random.default_rng(7), inject=True)
-    params_cpu = pizero.init_params(cfg, seed=1, device="cpu", dtype=torch.float32)
+    params_cpu = cpu_params(cfg)
     params_dev = tree_map(lambda x: x.to(dev, copy=True), params_cpu)
     metrics = {}
     for name, params, device in (("card", params_dev, dev), ("cpu", params_cpu, "cpu")):
@@ -1391,13 +1750,13 @@ def profile_update(state, step, batch, expected: int) -> dict:
     """One more update under torch.profiler (``profiled_window``; each
     window is one more update): K1's launches and device time, each
     backward kernel's (``expected`` / 2 VJPs), the busy share."""
-    got, prof, wall = profiled_window(
+    got, traced, wall = profiled_window(
         lambda: step(state, batch),
         {None: None, KERNEL_SYMBOL: expected, ROWS_SYMBOL: expected // 2, KEYS_SYMBOL: expected // 2},
         counted=(expected, expected),
     )
     busy = got[None][0]
-    log_profile("train-profile", prof, wall, busy)
+    log_profile("train-profile", traced, wall, busy)
     return {"launches": expected, "bwd_launches": expected, "kernel_ms": got[KERNEL_SYMBOL][0],
             "backward_ms": got[ROWS_SYMBOL][0] + got[KEYS_SYMBOL][0], "wall_ms": wall, "busy_ms": busy}
 
@@ -1424,19 +1783,19 @@ def record_training_calls(dev, cfg, params, batch) -> list:
     return calls
 
 
-def vjp_bound_parts(q, k) -> tuple:
+def vjp_bound_parts(q, k, mask) -> tuple:
     """(ms to move the bytes, ms to do the operations) of the training
     path's attention for one (layer, microbatch): two forwards (the second
     a remat recompute) and one VJP. Bytes: each forward reads q, k, v and
-    the fp32 mask and writes the output; the VJP reads q, k, v, the mask
-    and the cotangent and writes dq, dk, dv. Operations: 4N per forward
-    (q k^T and p v) and 8N for the VJP (dv, dp, dq, dk), N = B Hq Lq Lkv D,
-    at the peak rate of the inputs' type."""
+    the fp32 mask's distinct elements and writes the output; the VJP reads
+    q, k, v, the mask and the cotangent and writes dq, dk, dv. Operations:
+    4N per forward (q k^T and p v) and 8N for the VJP (dv, dp, dq, dk), N =
+    B Hq Lq Lkv D, at the peak rate of the inputs' type."""
     (b, lq, hq, d), (_, lkv, hkv, _) = q.shape, k.shape
     size = q.element_size()
-    q_bytes, kv_bytes, mask_bytes = b * lq * hq * d * size, 2 * b * lkv * hkv * d * size, 4 * b * lq * lkv
-    forward = 2 * q_bytes + kv_bytes + mask_bytes
-    vjp = 3 * q_bytes + 2 * kv_bytes + mask_bytes
+    q_bytes, kv_bytes, m_bytes = b * lq * hq * d * size, 2 * b * lkv * hkv * d * size, mask_bytes(mask)
+    forward = 2 * q_bytes + kv_bytes + m_bytes
+    vjp = 3 * q_bytes + 2 * kv_bytes + m_bytes
     peak = FP32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
     ops = 16 * b * hq * lq * lkv * d
     return (2 * forward + vjp) / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
@@ -1517,8 +1876,8 @@ def replay_vjp(calls) -> dict:
         else:
             out[f"{name}_ms"] = profiled_ms(fn)[0]
     t_bytes = t_ops = 0.0
-    for q, k, *_ in calls:
-        tb, to = vjp_bound_parts(q, k)
+    for q, k, _, mask, *_ in calls:
+        tb, to = vjp_bound_parts(q, k, mask)
         t_bytes, t_ops = t_bytes + tb, t_ops + to
     out["bound_ms"], out["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     return out
@@ -1644,7 +2003,7 @@ def single_card_phases(dev, info: str) -> list:
         f"{floor['interval_ms']:.5f} ms between back-to-back launches, on {info}")
     kernel = check_kernel(dev)
     log("kernel_vs_plain, per launch: " + json.dumps(kernel))
-    for name in ("euler", "prefill", "decode", "shard_euler", "train"):
+    for name in ("euler", "prefill", "decode", "text_prefill", "text_decode", "shard_euler", "train"):
         r = kernel[name]
         log(f"kernel per launch {name} {r['shape']} {r['time_dtype']}: {r['ms']:.5f} ms "
             f"(bound {r['bound_ms']:.5f} ms, {r['bound_by']}; plain {r['plain_ms']:.5f}, library "
@@ -1708,6 +2067,21 @@ def single_card_phases(dev, info: str) -> list:
     torch.cuda.empty_cache()
 
     t0 = time.time()
+    adaln = check_adaln(dev, info)
+    log("adaln: " + json.dumps(adaln))
+    log(f"adaln: bridge widths depth 2 fp32 card vs CPU max|diff| {adaln['parity_max_abs_diff']:.3e} (<= 1e-3); "
+        f"one training update card vs CPU {json.dumps(adaln['train_parity'])}")
+    log(f"phase adaln ok in {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    text = check_text(dev, info)
+    log("text: " + json.dumps(text))
+    log(f"text: bridge widths depth 2 fp32 card vs CPU logits max|diff| {text['parity']['logits_max_abs_diff']:.3e} "
+        f"(<= 1e-3), greedy tokens equal (eager and graph); golden text logits (pizero_text_logits.npz) through "
+        f"convert_paligemma on the card max|diff| {text['golden']['max_abs_diff']:.3e} (rtol/atol 2e-3)")
+    log(f"phase text ok in {time.time() - t0:.1f} s")
+
+    t0 = time.time()
     served = check_serving_cli(info)  # the JAX daemon's default layout, with the refined tier
     log(f"serve: the serve CLI answered {served['requests']} requests ({served['refined']} refined), up in "
         f"{served['up_s']:.1f} s; phase serve ok in {time.time() - t0:.1f} s")
@@ -1763,6 +2137,13 @@ def single_card_phases(dev, info: str) -> list:
         # chunk's CUDA graph (the wrapper's count moves only at the capture)
         "compiled_traced_launches": compiled_rows["production"]["k1_launches_per_replay"],
         "compiled_ms": compiled_rows["production"]["k1_ms"],
+        # the adaLN-Zero float chunk, and the text path: launches per eager
+        # 20-token generate and device ms per decode token in the compiled
+        # decode of the bf16 tree
+        "adaln_launches": adaln["float"]["launches"],
+        "adaln_ms": adaln["compiled"]["float"]["k1_ms"],
+        "text_launches_per_generate": text["bf16"]["k1_launches_per_generate"],
+        "text_ms_per_token": text["bf16"]["k1_ms_per_token"],
     }
     vjp_entry = {
         "name": "mot_attention_vjp",
@@ -1844,7 +2225,7 @@ def main() -> None:
     log(f"build: {', '.join(sources)} in {time.time() - t0:.1f} s")
     for source in sources:
         log_build_instances(_build.build_log(source))
-    log(f"card: {info}")
+    print(f"card: {info}", flush=True)  # as nvidia-smi prints it
 
     kernels = single_card_phases(dev, info)
     kernels.append(mesh_phases(dev, info))

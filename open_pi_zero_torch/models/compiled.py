@@ -1,7 +1,11 @@
 """The compiled chunk: one CUDA graph per batch bucket, the counterpart of
 the JAX package's ``jax.jit`` over ``infer_action`` (and over
 ``infer_action_refined`` for the refined tier), whose Euler scan is fully
-unrolled into one program.
+unrolled into one program. And the compiled text decode
+(``CompiledDecode``), the counterpart of the ``jax.jit`` over
+``generate_text`` in the JAX package's ``models/paligemma.py``: the
+prompt's prefill runs eagerly, and each greedy decode step is one replay
+of a captured graph.
 
 The eager chunk launches some 13,000-16,000 kernels from Python, and the
 card waits for the host between them. ``compile_chunk`` runs the chunk once
@@ -31,6 +35,17 @@ A failed capture raises; nothing falls back to the eager chunk.
 
 ``fused_attention.launches`` is a Python counter: it moves at the capture
 (by the chunk's K1 launches) and never at a replay.
+
+The decode step (``CompiledDecode``) follows the same pattern: one graph
+per (B, T_max), T_max the static cache's slots, over the state of a
+``pizero.TextDecode``, which lives in static device buffers: the two
+caches, the last token, the write offset (a 0-d tensor that
+``pizero.text_decode_step`` reads on the device for the RoPE positions,
+the mask and the cache write), the done flags and the emitted tokens. The
+graph holds ``TextDecode.step``: the embedding gather, the trunk,
+``lm_logits``, the greedy pick and the updates of the token, offset and
+flags. Sampled (top-p) decoding stays eager (``pizero.generate_text``
+with a generator): only greedy decoding is captured.
 """
 
 from __future__ import annotations
@@ -44,6 +59,35 @@ from open_pi_zero_torch.models import pizero
 from open_pi_zero_torch.parallel.mesh import get_mesh
 
 Tensor = torch.Tensor
+
+
+def _graph_device(device, on_cpu: str) -> torch.device:
+    """The card a graph is captured on; raises on the CPU and under a mesh."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise RuntimeError(f"a CUDA graph needs a card: {on_cpu}")
+    if get_mesh() is not None:
+        raise NotImplementedError(
+            "no CUDA graph under a mesh: gloo collectives cannot be captured "
+            "(TP graphs wait in ROADMAP.md)"
+        )
+    return device
+
+
+def _capture(fn, device: torch.device, pool):
+    """(graph, its output, its stream): ``fn`` run once eagerly on a side
+    stream (the warm-up: it builds and loads K1, sets its attributes and
+    makes cuBLAS's handle and workspace for that stream), then captured
+    into one graph in ``pool`` on that stream."""
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool, stream=stream):
+        out = fn()
+    return graph, out, stream
 
 
 class CompiledChunk:
@@ -66,17 +110,7 @@ class CompiledChunk:
         device="cuda",
         pool=None,
     ):
-        device = resolve_device(device)
-        if device.type != "cuda":
-            raise RuntimeError(
-                "a CUDA graph needs a card: on the CPU serve the eager chunk "
-                "(serving.make_infer_fn)"
-            )
-        if get_mesh() is not None:
-            raise NotImplementedError(
-                "no CUDA graph under a mesh: gloo collectives cannot be captured "
-                "(TP graphs wait in ROADMAP.md)"
-            )
+        device = _graph_device(device, "on the CPU serve the eager chunk (serving.make_infer_fn)")
         if not 0.0 <= t_start < 1.0:
             raise ValueError(f"t_start must be in [0, 1), got {t_start}")
         self.params, self.cfg, self.t_start, self.generator = params, cfg, t_start, generator
@@ -93,15 +127,7 @@ class CompiledChunk:
         if t_start > 0.0:
             self.inputs["prev_chunk"] = zeros(chunk_shape, torch.float32)
         self.noise = zeros(chunk_shape, self.dtype)
-
-        self.stream = torch.cuda.Stream(device)
-        self.stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(self.stream):
-            self._chunk()  # the warm-up: see the module docstring
-        torch.cuda.current_stream(device).wait_stream(self.stream)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool, stream=self.stream):
-            self.out = self._chunk()
+        self.graph, self.out, self.stream = _capture(self._chunk, device, pool)
         self.pool = self.graph.pool()
 
     def _chunk(self) -> Tensor:
@@ -148,3 +174,50 @@ def compile_chunk(
     return CompiledChunk(
         params, cfg, batch_size, generator=generator, t_start=t_start, device=device, pool=pool
     )
+
+
+class CompiledDecode:
+    """Greedy text decoding of ``batch_size`` rows against a static cache of
+    ``max_len`` slots, each decode step one replay of a captured CUDA graph
+    of ``pizero.TextDecode.step``; see the module docstring.
+    ``decoder(input_ids, pixel_values, max_new_tokens)`` runs ``prefill``
+    eagerly, then ``step`` max_new_tokens times, and returns the [B,
+    max_new_tokens] ids; with ``max_len`` = S + max_new_tokens they are
+    ``pizero.generate_text``'s greedy ids."""
+
+    def __init__(
+        self,
+        params: dict,
+        cfg: PiZeroConfig,
+        batch_size: int,
+        max_len: int,
+        *,
+        eos_token_id: int = 1,
+        device="cuda",
+        pool=None,
+    ):
+        device = _graph_device(device, "on the CPU decode eagerly (pizero.generate_text)")
+        self.device, self.dtype = device, params["embed_tokens"].dtype
+        self.state = pizero.TextDecode(params, cfg, batch_size, max_len, eos_token_id)
+        self.graph, _, self.stream = _capture(self.state.step, device, pool)
+        self.pool = self.graph.pool()
+
+    def prefill(self, input_ids, pixel_values) -> None:
+        """The prompt [B, S] eagerly into the zeroed caches
+        (``TextDecode.prefill``)."""
+        input_ids = torch.as_tensor(input_ids, device=self.device)
+        pixel_values = torch.as_tensor(pixel_values, device=self.device).to(self.dtype)
+        self.state.prefill(input_ids, pixel_values)
+
+    def step(self) -> None:
+        """One decode step: a replay of the graph."""
+        self.graph.replay()
+
+    def __call__(self, input_ids, pixel_values, max_new_tokens: int) -> Tensor:
+        slots = self.state.tokens.shape[1]
+        if torch.as_tensor(input_ids).shape[1] + max_new_tokens > slots:
+            raise ValueError(f"S + max_new_tokens must fit in the cache's {slots} slots")
+        self.prefill(input_ids, pixel_values)
+        for _ in range(max_new_tokens):
+            self.step()
+        return self.state.tokens[:, :max_new_tokens].clone()

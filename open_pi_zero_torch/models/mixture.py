@@ -1,19 +1,23 @@
 """Per-expert (mixture) layer ops (counterpart of the JAX package's
-``models/mixture.py``, without adaLN).
+``models/mixture.py``).
 
 One mixture is a PaliGemma-layout transformer expert: RMSNorm -> GQA
-attention -> RMSNorm -> geglu MLP, and an optional final RMSNorm.
+attention -> RMSNorm -> geglu MLP, with optional adaLN(-Zero) time
+conditioning, and an optional final RMSNorm.
 Projections carry no bias and are stored [in, out]; activations keep the
 [B, S, H, D] layout.
 
 Param tree for one mixture (L = num layers, D = hidden, I = intermediate,
 Hq/Hkv = query/kv heads, Dh = head_dim):
   layers:
-    input_norm:  {weight [L, D]}
+    input_norm:  {weight [L, D]}                      (or adaLN: gamma/beta)
     attn: {q [L, D, Hq*Dh], k [L, D, Hkv*Dh], v [L, D, Hkv*Dh], o [L, Hq*Dh, D]}
-    post_norm:   {weight [L, D]}
+    post_norm:   {weight [L, D]}                      (or adaLN)
     mlp: {gate [L, D, I], up [L, D, I], down [L, I, D]}
-  final_norm: {weight [D]} | absent (vlm w/o lm head)
+    post_scale / final_scale: {kernel [L, Dc, D], bias [L, D]}  (adaLN-Zero only)
+  final_norm: {weight [D]} | adaLN variant | absent (vlm w/o lm head)
+An adaLN norm holds {gamma_kernel [(L,) Dc, D], gamma_bias [(L,) D],
+beta_kernel [(L,) Dc, D]}, Dc = ``JointConfig.time_hidden_size``.
 The fused serving layout (models/fuse.py) holds attn qkv [L, D, (Hq+2Hkv)*Dh]
 and mlp gateup [L, D, 2I] instead; any kernel may be a quantized dict
 (ops/linear.py).
@@ -33,21 +37,31 @@ import torch.nn.functional as F
 
 from open_pi_zero_torch.config import JointConfig, MixtureConfig
 from open_pi_zero_torch.ops.linear import proj
-from open_pi_zero_torch.ops.norms import rms_norm
+from open_pi_zero_torch.ops.norms import adaptive_layerscale, adaptive_rms_norm, rms_norm
 from open_pi_zero_torch.ops.rope import apply_rope
 from open_pi_zero_torch.parallel.collectives import sum_row_parallel
 
 
-def _no_adaptive(mix: MixtureConfig) -> None:
+def norm(
+    lp_norm: dict, mix: MixtureConfig, eps: float, x: torch.Tensor, time_cond: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """The mixture's norm: adaLN on ``time_cond`` [B, Dc] for an adaptive
+    mixture, else Gemma's (1 + w) RMSNorm (``time_cond`` unused)."""
     if mix.adaptive_mode is not None:
-        raise NotImplementedError(
-            f"adaptive_mode={mix.adaptive_mode!r}: adaLN is not ported yet"
+        return adaptive_rms_norm(
+            x, time_cond, lp_norm["gamma_kernel"], lp_norm["gamma_bias"], lp_norm["beta_kernel"], eps
         )
-
-
-def norm(lp_norm: dict, mix: MixtureConfig, eps: float, x: torch.Tensor) -> torch.Tensor:
-    _no_adaptive(mix)
     return rms_norm(x, lp_norm["weight"], eps)
+
+
+def adaptive_scale(
+    lp: dict, mix: MixtureConfig, stage: str, x: torch.Tensor, time_cond: Optional[torch.Tensor]
+) -> torch.Tensor:
+    """adaLN-Zero's residual gate ``stage`` ("post_scale" | "final_scale");
+    the identity otherwise."""
+    if mix.adaptive_mode != "adaLN-Zero":
+        return x
+    return adaptive_layerscale(x, time_cond, lp[stage]["kernel"], lp[stage]["bias"])
 
 
 def q_proj(lp_attn: dict, joint: JointConfig, x: torch.Tensor, scaling: float = 1.0) -> torch.Tensor:
@@ -109,6 +123,8 @@ def rope_qk(
     return q, k
 
 
-def final_norm(params: dict, mix: MixtureConfig, eps: float, x: torch.Tensor) -> torch.Tensor:
+def final_norm(
+    params: dict, mix: MixtureConfig, eps: float, x: torch.Tensor, time_cond: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """Mixture-level final norm (present only when use_final_norm)."""
-    return norm(params["final_norm"], mix, eps, x)
+    return norm(params["final_norm"], mix, eps, x, time_cond)

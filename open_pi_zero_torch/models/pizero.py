@@ -1,13 +1,18 @@
 """PiZero: the full π0 VLA model (counterpart of the JAX package's
-``models/pizero.py``: init, encoders, KV-cached action inference and the
-flow-matching training loss).
+``models/pizero.py``: init, encoders, KV-cached action inference, the
+flow-matching training loss and the PaliGemma text path).
 
 Everything is a plain function over a params tree + a static
 ``PiZeroConfig``. ``infer_action`` prefills the VLM/proprio prefix once
 into a stacked [L, B, I+P, Hkv, Dh] K/V cache, then runs the Euler (or
 midpoint) steps of the action expert against it in a Python loop.
 ``flow_matching_loss`` runs the whole sequence through ``joint_forward``
-with no cache.
+with no cache. With ``action_expert_adaptive_mode`` (adaLN, adaLN-Zero)
+the flow time conditions the action expert's norms and gates instead of
+being concatenated into the action encoder's input. ``generate_text``
+decodes greedily (or top-p) against a static text cache through
+``TextDecode``, whose greedy step ``models/compiled.CompiledDecode``
+holds as a CUDA graph.
 
 Param tree (the JAX package's layout, so ``params_from_jax`` is a
 leaf-by-leaf copy):
@@ -35,8 +40,9 @@ from open_pi_zero_torch.config import PiZeroConfig
 from open_pi_zero_torch.models import joint as joint_lib
 from open_pi_zero_torch.models import siglip as siglip_lib
 from open_pi_zero_torch.ops.embeddings import sinusoidal_time_embedding
-from open_pi_zero_torch.ops.linear import linear
+from open_pi_zero_torch.ops.linear import linear, matmul_f32
 from open_pi_zero_torch.ops.masks import (
+    MASK_NEG,
     action_position_ids,
     build_block_causal_mask,
     proprio_position_ids,
@@ -107,30 +113,47 @@ def _init_siglip(init: _Init, cfg) -> dict:
 
 
 def _init_mixture(init: _Init, joint, mix) -> dict:
-    if mix.adaptive_mode is not None or mix.use_lora:
-        raise NotImplementedError("adaLN/LoRA mixtures are not ported yet")
+    """One mixture's params in JAX's layout and distributions: Gemma norm
+    weights at 0, or adaLN norms U(+-1/sqrt(Dc)); adaLN-Zero gates with
+    kernel 0 and bias -2."""
+    if mix.use_lora:
+        raise NotImplementedError("LoRA mixtures are not ported yet")
     L, D, I = joint.num_hidden_layers, mix.hidden_size, mix.intermediate_size
+    Dc = joint.time_hidden_size
     q_out = joint.num_attention_heads * joint.head_dim
     kv_out = joint.num_key_value_heads * joint.head_dim
 
     def kernel(din, dout):
         return init.uniform((L, din, dout), 1.0 / din**0.5)
 
+    def norm(*lead):
+        if mix.adaptive_mode is None:
+            return {"weight": init.full((*lead, D), 0.0)}
+        bound = 1.0 / Dc**0.5
+        return {
+            "gamma_kernel": init.uniform((*lead, Dc, D), bound),
+            "gamma_bias": init.uniform((*lead, D), bound),
+            "beta_kernel": init.uniform((*lead, Dc, D), bound),
+        }
+
     params = {
         "layers": {
-            "input_norm": {"weight": init.full((L, D), 0.0)},
+            "input_norm": norm(L),
             "attn": {
                 "q": kernel(D, q_out),
                 "k": kernel(D, kv_out),
                 "v": kernel(D, kv_out),
                 "o": kernel(q_out, D),
             },
-            "post_norm": {"weight": init.full((L, D), 0.0)},
+            "post_norm": norm(L),
             "mlp": {"gate": kernel(D, I), "up": kernel(D, I), "down": kernel(I, D)},
         }
     }
+    if mix.adaptive_mode == "adaLN-Zero":
+        for stage in ("post_scale", "final_scale"):
+            params["layers"][stage] = {"kernel": init.full((L, Dc, D), 0.0), "bias": init.full((L, D), -2.0)}
     if mix.use_final_norm:
-        params["final_norm"] = {"weight": init.full((D,), 0.0)}
+        params["final_norm"] = norm()
     return params
 
 
@@ -149,8 +172,6 @@ def _draw_params(cfg: PiZeroConfig, init: _Init, mixture_fn=None, siglip_fn=None
     params)`` and ``siglip_fn(params)`` replace each such module as soon as
     it is drawn (``models/fuse.build_serving_params``), so that its float
     copy is freed before the next one is drawn."""
-    if cfg.action_expert_adaptive_mode is not None:
-        raise NotImplementedError("adaptive action expert is not ported yet")
     vlm_hidden = cfg.mixture("vlm").hidden_size
     action_hidden = cfg.mixture("action").hidden_size
     embed = init.normal((cfg.vocab_size, vlm_hidden))
@@ -172,7 +193,9 @@ def _draw_params(cfg: PiZeroConfig, init: _Init, mixture_fn=None, siglip_fn=None
         "joint": {"mixtures": mixtures},
         "action_encoder": {
             "linear_1": init.linear(cfg.action_dim, action_hidden),
-            "linear_2": init.linear(2 * action_hidden, action_hidden),
+            # the flow time is concatenated into this input unless adaLN takes it
+            "linear_2": init.linear(action_hidden if cfg.action_expert_adaptive_mode else 2 * action_hidden,
+                                    action_hidden),
             "linear_3": init.linear(action_hidden, action_hidden),
         },
         "proprio_encoder": init.linear(cfg.proprio_dim, cfg.mixture("proprio").hidden_size),
@@ -186,19 +209,22 @@ def _draw_params(cfg: PiZeroConfig, init: _Init, mixture_fn=None, siglip_fn=None
 
 
 def time_embedding(cfg: PiZeroConfig, t: Tensor, dtype) -> Tensor:
-    """[B] -> [B, W]: sinusoidal flow-time embedding of the action width."""
-    if cfg.action_expert_adaptive_mode:
-        raise NotImplementedError("adaptive action expert is not ported yet")
-    dim = cfg.mixture("action").hidden_size
+    """[B] -> [B, W]: sinusoidal flow-time embedding, W the action width, or
+    ``time_hidden_size`` when adaLN conditions on it."""
+    dim = cfg.time_hidden_size if cfg.action_expert_adaptive_mode else cfg.mixture("action").hidden_size
     return sinusoidal_time_embedding(t, dim, cfg.time_max_period, dtype)
 
 
-def encode_action(params: dict, cfg: PiZeroConfig, action: Tensor, time_emb: Tensor) -> Tensor:
-    """[B, A, act_dim] + [B, W] time -> [B, A, W] (time concatenated first)."""
+def encode_action(
+    params: dict, cfg: PiZeroConfig, action: Tensor, time_emb: Optional[Tensor]
+) -> Tensor:
+    """[B, A, act_dim] (+ [B, W] time, concatenated first; None under adaLN)
+    -> [B, A, W]."""
     p = params["action_encoder"]
     emb = linear(action, p["linear_1"]["kernel"], p["linear_1"]["bias"])
-    tfull = time_emb[:, None, :].to(emb.dtype).expand(emb.shape[0], emb.shape[1], -1)
-    emb = torch.cat([tfull, emb], dim=-1)
+    if cfg.action_expert_adaptive_mode is None:
+        tfull = time_emb[:, None, :].to(emb.dtype).expand(emb.shape[0], emb.shape[1], -1)
+        emb = torch.cat([tfull, emb], dim=-1)
     emb = F.silu(linear(emb, p["linear_2"]["kernel"], p["linear_2"]["bias"]))
     return linear(emb, p["linear_3"]["kernel"], p["linear_3"]["bias"])
 
@@ -288,6 +314,23 @@ def _hoist_4bit(tree):
     return tree
 
 
+def _time_inputs(cfg: PiZeroConfig, t: Tensor, dtype):
+    """(the action encoder's time input, the action expert's adaLN cond) at
+    flow times ``t`` [B]: the time embedding goes to one of the two."""
+    t_emb = time_embedding(cfg, t, dtype)
+    return (None, t_emb) if cfg.action_expert_adaptive_mode else (t_emb, None)
+
+
+def _prefix_cond(cfg: PiZeroConfig, b: int, device, dtype) -> Optional[dict]:
+    """adaLN: the proprio expert's cond at t = 0. This defines the model, so
+    that the cached prefix (computed once, before any flow step) equals what
+    the naive path recomputes at every step; the reference leaves the
+    adaptive cached path undefined. None without adaLN."""
+    if not cfg.action_expert_adaptive_mode:
+        return None
+    return {"proprio": time_embedding(cfg, torch.zeros((b,), dtype=dtype, device=device), dtype)}
+
+
 def _noise(generator: Optional[torch.Generator], b: int, shape, device, dtype) -> Tensor:
     """Standard normal noise [b, *shape] from ``generator``. Under a
     registered mesh every rank draws the whole batch's noise (from a
@@ -326,8 +369,6 @@ def infer_action(
     dtype = pixel_values.dtype
     device = pixel_values.device
     b = input_ids.shape[0]
-    if cfg.action_expert_adaptive_mode:
-        raise NotImplementedError("adaptive action expert is not ported yet")
     params = {**params, "joint": _hoist_4bit(params["joint"])}  # NF4: decode once per call
     _, prefix_mask, action_mask, pos = prepare_action_inputs(cfg, attention_mask)
 
@@ -339,6 +380,7 @@ def infer_action(
         {"vlm": inputs_embeds, "proprio": proprio_embeds},
         {"vlm": pos["vlm"], "proprio": pos["proprio"]},
         prefix_mask,
+        time_cond=_prefix_cond(cfg, b, device, dtype),
     )
 
     if action0 is None:
@@ -348,10 +390,11 @@ def infer_action(
     delta_t = (t_end - t_start) / n_steps
 
     def vel_at(action, t):
-        t_emb = time_embedding(cfg, t, dtype)
+        t_emb, cond = _time_inputs(cfg, t, dtype)
         action_embeds = encode_action(params, cfg, action, t_emb)
         hidden = joint_lib.joint_action_step(
-            params["joint"], cfg.joint, action_embeds, kv_cache, pos["action"], action_mask
+            params["joint"], cfg.joint, action_embeds, kv_cache, pos["action"], action_mask,
+            time_cond=None if cond is None else {"action": cond},
         )
         return decode_action(params, hidden)
 
@@ -432,9 +475,8 @@ def infer_action_naive(
     dtype = pixel_values.dtype
     device = pixel_values.device
     b = input_ids.shape[0]
-    if cfg.action_expert_adaptive_mode:
-        raise NotImplementedError("adaptive action expert is not ported yet")
     full_mask, _, _, pos = prepare_action_inputs(cfg, attention_mask)
+    prefix_cond = _prefix_cond(cfg, b, device, dtype)  # as the cached path's
 
     inputs_embeds = embed_image_text(params, cfg, input_ids, pixel_values)
     proprio_embeds = encode_proprio(params, proprios).to(dtype)
@@ -444,13 +486,15 @@ def infer_action_naive(
     delta_t = 1.0 / cfg.num_inference_steps
 
     def vel_at(action, t):
-        action_embeds = encode_action(params, cfg, action, time_embedding(cfg, t, dtype))
+        t_emb, cond = _time_inputs(cfg, t, dtype)
+        action_embeds = encode_action(params, cfg, action, t_emb)
         hidden = joint_lib.joint_forward(
             params["joint"],
             cfg.joint,
             {"vlm": inputs_embeds, "proprio": proprio_embeds, "action": action_embeds},
             pos,
             full_mask,
+            time_cond=None if cond is None else {**prefix_cond, "action": cond},
         )["action"]
         return decode_action(params, hidden)
 
@@ -497,8 +541,6 @@ def flow_matching_loss(
     noise comes from ``generator`` (on the inputs' device) unless ``x0`` is
     given."""
     dtype = pixel_values.dtype
-    if cfg.action_expert_adaptive_mode:
-        raise NotImplementedError("adaptive action expert is not ported yet")
     full_mask, _, _, pos = prepare_action_inputs(cfg, attention_mask)
 
     if x0 is None:
@@ -508,14 +550,192 @@ def flow_matching_loss(
 
     inputs_embeds = embed_image_text(params, cfg, input_ids, pixel_values)
     proprio_embeds = encode_proprio(params, proprios).to(dtype)
-    action_embeds = encode_action(params, cfg, xt, time_embedding(cfg, t, dtype))
+    # adaLN: every mixture takes the flow time t (the vlm ignores it), as in
+    # the reference's training forward
+    t_emb, cond = _time_inputs(cfg, t, dtype)
+    action_embeds = encode_action(params, cfg, xt, t_emb)
     hidden = joint_lib.joint_forward(
         params["joint"],
         cfg.joint,
         {"vlm": inputs_embeds, "proprio": proprio_embeds, "action": action_embeds},
         pos,
         full_mask,
+        time_cond=cond,
     )["action"]
     v_psi = decode_action(params, hidden).to(torch.float32)
     d_psi = (x1 - (1 - cfg.flow_sig_min) * x0).to(torch.float32)
     return torch.mean(torch.square(v_psi - d_psi))
+
+
+# --------------------------------------------------------------------------- #
+# text generation (the PaliGemma path)
+# --------------------------------------------------------------------------- #
+
+
+def lm_logits(params: dict, hidden: Tensor) -> Tensor:
+    """The tied lm head: hidden [B, Q, Dv] @ embed_tokens^T -> fp32 logits
+    [B, Q, V]. The table's transpose is a view: on the card the bf16 product
+    reads it in place (``matmul_f32``), with no copy of the table."""
+    return matmul_f32(hidden, params["embed_tokens"].t())
+
+
+def _text_mask(cols: Tensor, kv_len, b: int, lq: int) -> Tensor:
+    """[B, 1, Lq, T] additive fp32 mask, broadcast (no copy): 0 on the
+    columns below ``kv_len`` (an int or a 0-d device tensor), MASK_NEG on
+    the rest of the static cache."""
+    return torch.where(cols < kv_len, 0.0, MASK_NEG).to(torch.float32).expand(b, 1, lq, -1)
+
+
+def text_prefill(
+    params: dict, cfg: PiZeroConfig, input_ids: Tensor, pixel_values: Tensor, cache
+) -> Tensor:
+    """The prompt [B, S] (image tokens, BOS, text) through the vlm trunk,
+    bidirectional over the prompt, its K/V written into ``cache``
+    ([L, B, T_max, Hkv, Dh] each) at [0, S). Returns the hidden states
+    [B, S, Dv]."""
+    embeds = embed_image_text(params, cfg, input_ids, pixel_values)
+    b, s, _ = embeds.shape
+    cols = torch.arange(cache[0].shape[2], device=embeds.device)
+    positions = torch.arange(1, s + 1, dtype=torch.int32, device=embeds.device).expand(b, s)
+    hidden, _ = joint_lib.joint_text_forward(
+        params["joint"], cfg.joint, embeds, positions, _text_mask(cols, s, b, s), cache, 0
+    )
+    return hidden
+
+
+def text_decode_step(params: dict, cfg: PiZeroConfig, cache, tok: Tensor, offset) -> Tensor:
+    """One decode step: the tokens ``tok`` [B, 1] at cache slot ``offset`` (a
+    Python int, or a 0-d int64 device tensor, which a CUDA graph can hold),
+    attending to the slots up to and including it. Returns the next
+    position's logits [B, 1, V]."""
+    b = tok.shape[0]
+    positions = torch.zeros((b, 1), dtype=torch.int32, device=tok.device) + offset + 1
+    cols = torch.arange(cache[0].shape[2], device=tok.device)
+    hidden, _ = joint_lib.joint_text_forward(
+        params["joint"], cfg.joint, params["embed_tokens"][tok], positions,
+        _text_mask(cols, offset + 1, b, 1), cache, offset,
+    )
+    return lm_logits(params, hidden)
+
+
+@torch.no_grad()
+def infer_text_logits(
+    params: dict, cfg: PiZeroConfig, input_ids: Tensor, pixel_values: Tensor
+) -> Tensor:
+    """One bidirectional prefill over the prompt: fp32 logits [B, S, V] at
+    every position."""
+    b, s = input_ids.shape
+    dtype = params["embed_tokens"].dtype
+    cache = joint_lib.init_text_cache(cfg.joint, b, s, dtype, input_ids.device)
+    return lm_logits(params, text_prefill(params, cfg, input_ids, pixel_values, cache))
+
+
+def top_p_filter(logits: Tensor, temperature: float = 1.0, top_p: float = 1.0) -> Tensor:
+    """[B, V] logits -> fp32 logits / temperature with MASK_NEG outside the
+    nucleus, JAX's formulation: sorted descending, a token is kept while the
+    probability mass before it (the exclusive cumulative sum) is at most
+    ``top_p``, so the top token always is; the kept set is every logit at or
+    above the last kept one's (a per-row threshold, no scatter back through
+    the sort)."""
+    logits = logits.to(torch.float32) / temperature
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    sorted_probs = torch.softmax(sorted_logits, dim=-1)
+    keep = (torch.cumsum(sorted_probs, dim=-1) - sorted_probs) <= top_p
+    n_keep = keep.sum(dim=-1, keepdim=True)
+    thresh = torch.gather(sorted_logits, -1, n_keep - 1)
+    return torch.where(logits >= thresh, logits, MASK_NEG)
+
+
+def sample_top_p(
+    generator: torch.Generator, logits: Tensor, temperature: float = 1.0, top_p: float = 1.0
+) -> Tensor:
+    """[B, V] logits -> [B] ids drawn from the renormalized nucleus
+    (``top_p_filter``) with ``generator``."""
+    probs = torch.softmax(top_p_filter(logits, temperature, top_p), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def greedy_pick(logits: Tensor) -> Tensor:
+    """[B, 1, V] logits -> [B, 1] ids: the first maximal index."""
+    return logits.argmax(dim=-1)
+
+
+class TextDecode:
+    """The text decode of ``batch`` rows against a static cache of
+    ``max_len`` slots. Its state lives in device buffers that keep their
+    addresses, so that a CUDA graph can hold ``step``
+    (``models/compiled.CompiledDecode``): the two caches, the token picked
+    last [B, 1], the write offset and the step index (0-d int64), the done
+    flags [B] and the emitted tokens [B, max_len] (step i writes column i).
+    ``pick`` maps [B, 1, V] logits to [B, 1] ids."""
+
+    def __init__(self, params: dict, cfg: PiZeroConfig, batch: int, max_len: int, eos_token_id: int = 1):
+        device = params["embed_tokens"].device
+        self.params, self.cfg, self.eos_token_id = params, cfg, eos_token_id
+        self.cache = joint_lib.init_text_cache(cfg.joint, batch, max_len, params["embed_tokens"].dtype, device)
+        index = lambda shape: torch.zeros(shape, dtype=torch.int64, device=device)  # noqa: E731
+        self.tok, self.offset, self.step_index = index((batch, 1)), index(()), index(())
+        self.done = torch.zeros((batch,), dtype=torch.bool, device=device)
+        self.tokens = index((batch, max_len))
+
+    @torch.no_grad()
+    def prefill(self, input_ids: Tensor, pixel_values: Tensor, pick=greedy_pick) -> None:
+        """The prompt [B, S] into the zeroed caches, and the state set for
+        the first step: its token picked from the last position's logits,
+        offset S, no row done."""
+        b, s = input_ids.shape
+        if b != self.tok.shape[0] or s >= self.tokens.shape[1]:
+            raise ValueError(f"prompt {(b, s)}; this decode takes {self.tok.shape[0]} rows "
+                             f"and fewer than {self.tokens.shape[1]} tokens")
+        for c in self.cache:
+            c.zero_()
+        hidden = text_prefill(self.params, self.cfg, input_ids, pixel_values, self.cache)
+        self.tok.copy_(pick(lm_logits(self.params, hidden[:, -1:])))
+        self.offset.fill_(s)
+        self.step_index.zero_()
+        self.done.zero_()
+
+    @torch.no_grad()
+    def step(self, pick=greedy_pick) -> None:
+        """Emits the token picked before this step (``pad_token_id`` once
+        the row has emitted EOS), runs it through the trunk at the offset
+        and picks the next."""
+        logits = text_decode_step(self.params, self.cfg, self.cache, self.tok, self.offset)
+        emitted = torch.where(self.done, self.cfg.pad_token_id, self.tok[:, 0])
+        self.tokens.index_copy_(1, self.step_index.view(1), emitted[:, None])
+        self.done |= self.tok[:, 0] == self.eos_token_id
+        self.tok.copy_(pick(logits))
+        self.offset += 1
+        self.step_index += 1
+
+
+@torch.no_grad()
+def generate_text(
+    params: dict,
+    cfg: PiZeroConfig,
+    input_ids: Tensor,  # [B, S] unpadded prompt (image tokens + BOS + text)
+    pixel_values: Tensor,
+    max_new_tokens: Optional[int] = None,
+    eos_token_id: int = 1,
+    generator: Optional[torch.Generator] = None,
+    temperature: float = 1.0,
+    top_p: float = 1.0,
+) -> Tensor:
+    """Text decoding against a static cache of S + max_new slots, eagerly
+    (``TextDecode``): greedy (the first maximal index) unless a
+    ``generator`` is given, then top-p sampling from it at ``temperature``
+    (a generator seeded alike reproduces the sequence). Returns [B,
+    max_new] ids in JAX's order: position i emits the token picked before
+    step i; after EOS (which is emitted) a row emits ``pad_token_id``."""
+    max_new = max_new_tokens or cfg.max_decode_tokens
+    b, s = input_ids.shape
+    if generator is None:
+        pick = greedy_pick
+    else:
+        def pick(logits):
+            return sample_top_p(generator, logits[:, -1], temperature, top_p)[:, None]
+    state = TextDecode(params, cfg, b, s + max_new, eos_token_id)
+    state.prefill(input_ids, pixel_values, pick)
+    for _ in range(max_new):
+        state.step(pick)
+    return state.tokens[:, :max_new]

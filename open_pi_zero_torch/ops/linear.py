@@ -24,6 +24,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from open_pi_zero_torch.ops.quantization import dequantize_kernel_nf4, quantize_act_per_token
 
@@ -42,21 +43,25 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(torch.float32), w.to(torch.float32))
 
 
+_INT_MM_MIN_ROWS = 17  # torch._int_mm on a card takes more than 16 rows
+
+
 def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """int8 [..., K] @ int8 [K, N] -> the exact int32 product. On a card
-    ``torch._int_mm`` takes more than 16 rows and K, N multiples of 8: other
-    shapes raise here, where the W8A8 tier would otherwise fail inside
-    cuBLAS. The W8A8 trunk runs at prefill, B x 276 rows at full width.
-    ``wq`` is read in its own layout: column-major is the fast one
+    ``torch._int_mm`` takes more than 16 rows and K, N multiples of 8: fewer
+    rows (a decode step's B rows) are padded with zero rows up to 17, on
+    every device, and the product's padding rows dropped (exact: a zero row
+    gives a zero row of the product); K or N off the multiple raise on a
+    card, where the W8A8 tier would otherwise fail inside cuBLAS. ``wq`` is
+    read in its own layout: column-major is the fast one
     (``quantization.int8_mm_layout``)."""
     x2d = xq.reshape(-1, xq.shape[-1])
     m, (k, n) = x2d.shape[0], wq.shape
-    if xq.device.type == "cuda" and (m <= 16 or k % 8 or n % 8):
-        raise ValueError(
-            f"W8A8 on a card needs more than 16 rows and K, N multiples of 8; got "
-            f"M={m}, K={k}, N={n}"
-        )
-    return torch._int_mm(x2d, wq).reshape(*xq.shape[:-1], n)
+    if xq.device.type == "cuda" and (k % 8 or n % 8):
+        raise ValueError(f"W8A8 on a card needs K and N multiples of 8; got K={k}, N={n}")
+    if m < _INT_MM_MIN_ROWS:
+        x2d = F.pad(x2d, (0, 0, 0, _INT_MM_MIN_ROWS - m))
+    return torch._int_mm(x2d, wq)[:m].reshape(*xq.shape[:-1], n)
 
 
 def base_matmul(x: torch.Tensor, w) -> torch.Tensor:

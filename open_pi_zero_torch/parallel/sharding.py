@@ -5,7 +5,8 @@ the JAX package's ``parallel/sharding.py``): Megatron-style TP over the
 Rules (kernels are stored ``[(L,) in, out]``), as in JAX:
   column-parallel (split the out dim): attn q/k/v, mlp gate/up, SigLIP fc1
   row-parallel (split the in dim):     attn o, mlp down, SigLIP fc2
-  replicated:                          norms, embeddings, encoders, decoders
+  replicated:                          norms (adaLN's too), adaLN-Zero's
+                                       gates, embeddings, encoders, decoders
 and a dim that does not divide over the model axis stays replicated.
 LoRA leaves raise: they are not ported.
 

@@ -32,10 +32,11 @@ def test_import_leaves_jax_and_yaml_out():
         for p in PORT.rglob("*.py")
         if p.name != "__init__.py"
     )
-    # the training slice and the serving entry point's modules are among them
+    # the training slice's, the serving entry point's and the text path's
+    # modules are among them
     for name in ("sampling", "schedules", "optimizer", "averaging", "train_step"):
         assert f"open_pi_zero_torch.training.{name}" in modules
-    for name in ("yaml_subset", "config", "models.convert", "models.compiled", "scripts.serve"):
+    for name in ("yaml_subset", "config", "models.convert", "models.compiled", "scripts.serve", "models.paligemma"):
         assert f"open_pi_zero_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"

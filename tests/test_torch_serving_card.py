@@ -64,12 +64,23 @@ def test_int8_matmul_card_is_bitwise_cpu(cuda, column_major):
     assert torch.equal(t_lin.int8_matmul(a.to(cuda), b_card).cpu(), t_lin.int8_matmul(a, b))
 
 
-@pytest.mark.parametrize("m, k, n", [(16, 2048, 2560), (276, 2044, 2560), (276, 2048, 2564)])
+@pytest.mark.parametrize("m, k, n", [(276, 2044, 2560), (276, 2048, 2564)])
 def test_int8_matmul_refuses_what_the_card_cannot_take(cuda, m, k, n):
     a = torch.zeros((m, k), dtype=torch.int8, device=cuda)
     b = torch.zeros((k, n), dtype=torch.int8, device=cuda)
-    with pytest.raises(ValueError, match="more than 16 rows"):
+    with pytest.raises(ValueError, match="multiples of 8"):
         t_lin.int8_matmul(a, b)
+
+
+@pytest.mark.parametrize("m", [1, 2, 16])
+def test_int8_matmul_pads_few_rows_on_the_card(cuda, m):
+    """A decode step's B rows, padded to 17 on the card: bitwise the CPU's
+    unpadded product."""
+    gen = torch.Generator().manual_seed(m)
+    a = torch.randint(-127, 128, (m, 2048), dtype=torch.int8, generator=gen)
+    b = torch.randint(-127, 128, (2048, 2560), dtype=torch.int8, generator=gen)
+    got = t_lin.int8_matmul(a.to(cuda), t_quant.int8_mm_layout(b.to(cuda))).cpu()
+    assert torch.equal(got, t_lin.int8_matmul(a, b))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
