@@ -126,7 +126,14 @@ Phases, each of which raises on failure:
                grad_accum=2, injected flow times and noise, Adam eps 1e-3:
                one update on the card (kernel) against the same update on
                the CPU (plain version): loss and grad norm (relative 1e-3)
-               and the updated params (max|diff| <= 1e-6)
+               and the updated params (max|diff| <= 1e-6). Then the same
+               update in the QLoRA recipe (NF4 vlm and SigLIP bases, LoRA
+               adapters with B drawn off zero, int8 Adam moments): loss and
+               grad norm (1e-3), the adapters and the action expert
+               (1e-6), the moments' payloads at most one code apart but
+               where a grad is rounding noise on both sides and its sign
+               differs (codes -1 and +1; both counts printed), their scales
+               (1e-3 relative), the NF4 bases bitwise unchanged
   8. train-main — the training path: full-width PiZeroConfig() in fp32,
                remat on, the bridge TrainingConfig, B=16 per microbatch,
                grad_accum=2, 3 updates on synthetic batches from a seed;
@@ -143,6 +150,31 @@ Phases, each of which raises on failure:
                `backward_ms` (the backward kernels' device time by symbol),
                `recompute_ms`, `plain_ms`, `library_ms` and `bound_ms` of
                the mot_attention_vjp entry
+  8b. train-agent — configs/train/bridge.yaml loaded by the port's
+               load_config in its QLoRA recipe (quantize, lora, remat; B=16
+               x 2, 3 updates, validation at 3, a save at the end) through
+               the TrainAgent on seeded synthetic frames in the RLDS layout
+               (224² images, 7-dim proprio and actions, 4-step chunks):
+               exactly 3 * 2 * 2L K1 and 3 * 2 * 2L backward launches in the
+               updates, one chunk's in the validation; finite losses;
+               every trained leaf changed, the NF4 bases and embed_tokens
+               bitwise unchanged; the validation's l1 and accuracies; update
+               time, peak memory, the tree's, optimizer state's and
+               checkpoint's bytes, save and restore times. A second agent
+               with resume_checkpoint_path=auto takes ckpt_3 over a partial
+               ckpt_99, restores step 3 and cnt_batch, and its update 4
+               equals the first agent's on the same batch (bitwise, or
+               within 1e-6, said which). scripts/serve.load_params serves
+               ckpt_3 (merge, NF4 decode, production layout): one bf16
+               chunk, finite, in the clip, within the drift limit (mean L1
+               5e-3) of the merged float params' bf16 chunk. One more update
+               under torch.profiler: K1's and the backward kernels' ms, and
+               the ms of the kernels inside the NF4 dequant and 8-bit Adam
+               ranges
+  8c. train-8bit — phase 8's full fine-tune with int8 Adam moments
+               (configs/train/bridge_v5e.yaml's recipe on one card), 2
+               updates: finite losses, the launches, update time, peak memory
+               and the optimizer state's bytes beside phase 8's
   9. shard-kernel — K1-shard (the kernel on one rank's shard under a
                mesh) in 2 spawned ranks, mesh (data=1, model=2): each rank's
                shard against the plain version on the whole inputs sliced
@@ -182,6 +214,7 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import statistics
 import subprocess
@@ -196,17 +229,22 @@ import torch
 
 from open_pi_zero_torch import config as cfg_lib
 from open_pi_zero_torch import serving
+from open_pi_zero_torch.agents.train import TrainAgent
 from open_pi_zero_torch.models import compiled, convert, fuse, pizero
 from open_pi_zero_torch.models.paligemma import PaliGemmaForConditionalGeneration, paligemma_config
 from open_pi_zero_torch.models.tree import tree_leaves, tree_map
 from open_pi_zero_torch.ops import _build
 from open_pi_zero_torch.ops import fused_attention as fa
 from open_pi_zero_torch.ops import linear as linear_ops
+from open_pi_zero_torch.ops import lora as lora_lib
 from open_pi_zero_torch.ops.attention import mot_attention_ref
 from open_pi_zero_torch.ops.masks import MASK_NEG
 from open_pi_zero_torch.parallel import ranks, run_ranks
+from open_pi_zero_torch.scripts import serve
+from open_pi_zero_torch.training import checkpoint as ckpt_lib
 from open_pi_zero_torch.training import optimizer as opt_lib
 from open_pi_zero_torch.training import train_step
+from open_pi_zero_torch.training.quantized_adam import AdamW8bit
 
 # H100 SXM published peaks at the full 700 W limit: HBM bytes/s and dense
 # bf16 tensor-core FLOP/s. fp32-accurate products run on the tensor cores
@@ -285,11 +323,12 @@ def time_ms(fn, samples: int = 21, calls: int = 10) -> float:
     return statistics.median(times)
 
 
-def profiled_window(fn, expected: dict, counted=None) -> tuple:
+def profiled_window(fn, expected: dict, counted=None, ranges=()) -> tuple:
     """(got, its device events, wall ms) of one run of ``fn`` under torch.profiler:
     ``got[match]`` is (device ms, events) of the device events whose name
     contains ``match`` (all of them for None), the marker kernels left
-    out. The profiler loses device events in some windows on an H100:
+    out; ``got[name]`` for each of ``ranges`` is (the device ms of the
+    kernels launched inside the ``annotate(name)`` ranges, the ranges). The profiler loses device events in some windows on an H100:
     mostly the first ones, more late in a process, once about half of a
     replayed training update. So ``fn`` runs after MARKERS empty kernels,
     which take the loss of a window's first events, and a window counts
@@ -321,12 +360,16 @@ def profiled_window(fn, expected: dict, counted=None) -> tuple:
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        events = device_events(prof)
+        averages = prof.key_averages()
+        events = device_events(averages)
         marker_ms, markers = device_ms(events, "opz_empty_kernel")
         got = {}
         for match in expected:
             ms, count = device_ms(events, match)
             got[match] = (ms - marker_ms, count - markers) if match is None else (ms, count)
+        for name in ranges:
+            spans = [e for e in averages if e.key == name and e.device_type.name == "CPU"]
+            got[name] = (sum(e.device_time_total for e in spans) / 1e3, sum(e.count for e in spans))
         launched = (fa.launches, fa.bwd_launches)
         complete = (markers > 0 and all(n in (None, got[m][1]) for m, n in expected.items())
                     and counted in (None, launched))
@@ -494,7 +537,7 @@ def launch_floor(dev) -> dict:
         for _ in range(200):
             fa.empty_launch(dev)
         torch.cuda.synchronize()
-    ms, count = device_ms(device_events(prof), "opz_empty_kernel")
+    ms, count = device_ms(device_events(prof.key_averages()), "opz_empty_kernel")
     return {"device_ms_per_launch": ms / count, "interval_ms": interval}
 
 
@@ -616,15 +659,18 @@ def with_adaln(cfg):
 
 
 def cpu_params(cfg, seed: int = 1) -> dict:
-    """fp32 params on the CPU from ``seed``; adaLN-Zero's gate kernels,
-    zero at init, drawn off zero so that the time conditioning reaches the
-    gates."""
+    """fp32 params on the CPU from ``seed``; adaLN-Zero's gate kernels and
+    the LoRA adapters' B, zero at init, drawn off zero so that the time
+    conditioning reaches the gates and every adapter has a grad."""
     params = pizero.init_params(cfg, seed=seed, device="cpu", dtype=torch.float32)
     gen = torch.Generator().manual_seed(seed)
     for mixture in params["joint"]["mixtures"].values():
         for stage in ("post_scale", "final_scale"):
             if stage in mixture["layers"]:
                 mixture["layers"][stage]["kernel"].normal_(0.0, 0.05, generator=gen)
+    for path, b in leaves_with_paths(params):
+        if path.endswith("_lora/b"):
+            b.normal_(0.0, 0.01, generator=gen)
     return params
 
 
@@ -1396,12 +1442,12 @@ def check_serving_cli(info: str) -> dict:
     return {"requests": len(replies), "refined": want["refined"], "up_s": up_s, "exit_code": rc}
 
 
-def device_events(prof) -> list:
-    """The profile's CUDA events averaged by name, once (each
-    ``key_averages`` walks every event of the window). User annotations
+def device_events(averages) -> list:
+    """The CUDA events of a profile's ``key_averages()`` (read once per
+    profile: each call walks every event of the window). User annotations
     (such as the optimizer's step) span kernels counted on their own and
     are left out."""
-    return [e for e in prof.key_averages() if e.device_type.name == "CUDA" and not e.is_user_annotation]
+    return [e for e in averages if e.device_type.name == "CUDA" and not e.is_user_annotation]
 
 
 def device_ms(events: list, match=None) -> tuple:
@@ -1884,6 +1930,361 @@ def replay_vjp(calls) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phases 7 (QLoRA), 8b, 8c: fine-tuning
+# --------------------------------------------------------------------------- #
+
+NF4_RANGE = "opz_nf4_dequant"  # the annotate() ranges of ops/linear.base_matmul and AdamW8bit.step
+ADAM8_RANGE = "opz_adam8bit_step"
+AGENT_CONFIG = "configs/train/bridge.yaml"
+# its QLoRA recipe at B = 16 x 2 for 3 updates, validating and saving once
+# at the end; pretrained_model_path points at no file, so that the agent
+# takes FakeTokenizer whatever the machine's caches hold
+AGENT_OVERRIDES = [
+    "quantize=true", "lora=true", "remat=true", "load_pretrained_weights=false",
+    "per_device_batch_size=16", "global_batch_size=32",
+    "n_updates=3", "log_freq=1", "eval_freq=3", "eval_size=2", "save_model_freq=0",
+]
+INSTRUCTIONS = (b"put the spoon in the pot", b"open the drawer", b"move the carrot to the left of the plate")
+
+
+def qlora_config(cfg):
+    """``cfg`` with LoRA adapters on the vlm mixture and SigLIP and their
+    bases in NF4: configs/train/bridge.yaml's ``quantize: true, lora: true``."""
+    mixtures = tuple(dataclasses.replace(m, use_lora=True, use_quantize=True) if n == "vlm" else m
+                     for n, m in zip(cfg.joint.mixture_names, cfg.joint.mixtures))
+    return dataclasses.replace(cfg, joint=dataclasses.replace(cfg.joint, mixtures=mixtures),
+                               siglip=dataclasses.replace(cfg.siglip, use_lora=True, use_quantize=True))
+
+
+class SyntheticFrames:
+    """Seeded frame batches in the RLDS layout that the TrainAgent takes:
+    224² uint8 images, bridge's 7-dim proprio and action, 4-step chunks,
+    one of three instructions; ``iterator(batch_size)`` starts again from
+    the seed at each call."""
+
+    def __init__(self, seed: int, size: int = 224, horizon: int = 4, dim: int = 7):
+        self.seed, self.size, self.horizon, self.dim = seed, size, horizon, dim
+
+    def iterator(self, batch_size: int):
+        rng = np.random.default_rng(self.seed)
+        while True:
+            yield {
+                "observation": {
+                    "image_primary": rng.integers(0, 256, (batch_size, 1, self.size, self.size, 3), dtype=np.uint8),
+                    "proprio": rng.normal(size=(batch_size, 1, self.dim)).astype(np.float32),
+                },
+                "task": {"language_instruction": np.array(
+                    [INSTRUCTIONS[i] for i in rng.integers(0, len(INSTRUCTIONS), batch_size)], dtype=object)},
+                "action": rng.uniform(-1, 1, size=(batch_size, 1, self.horizon, self.dim)).astype(np.float32),
+            }
+
+
+def opt_tensors(state) -> list:
+    """The optimizer state's tensors, in its params' order."""
+    return [t for group in state.opt_state.param_groups for p in group["params"]
+            for t in state.opt_state.state[p].values() if torch.is_tensor(t)]
+
+
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
+
+
+def nf4_leaves(params: dict) -> list:
+    """(path, tensor) of every NF4 payload and absmax."""
+    return [(p, x) for p, x in leaves_with_paths(params) if p.endswith("/q4") or p.endswith("/absmax")]
+
+
+def check_qlora_parity(dev) -> dict:
+    """Phase 7, QLoRA: one update at bridge widths, depth 2, fp32, remat,
+    B = 2, grad_accum 2, NF4 bases, LoRA adapters (B drawn off zero) and
+    int8 Adam moments, on the card (kernel) and on the CPU (plain version)
+    from the same params, batch, flow times and noise."""
+    cfg = with_remat(qlora_config(cfg_lib.bridge_width_dryrun_config()))
+    sched = cfg_lib.LRSchedulerConfig(warmup_steps=0)
+    # eps 1e-3 as in the float check above
+    train_cfg = cfg_lib.TrainingConfig(action_lr_scheduler=sched, vlm_lr_scheduler=sched, adam_eps=1e-3,
+                                       quantize_optimizer_states=True, lora=True)
+    batch = train_batch(cfg, 2, np.random.default_rng(7), inject=True)
+    params_cpu = lora_lib.quantize_per_model_config(cpu_params(cfg), cfg)
+    params_dev = tree_map(lambda x: x.to(dev, copy=True), params_cpu)
+    nf4_before = {p: x.clone() for p, x in nf4_leaves(params_cpu)}
+    metrics, states = {}, {}
+    for name, params, device in (("card", params_dev, dev), ("cpu", params_cpu, "cpu")):
+        state, step = new_trainer(cfg, train_cfg, params, device)
+        if not isinstance(state.opt_state, AdamW8bit):
+            raise AssertionError(f"{type(state.opt_state).__name__}, want AdamW8bit")
+        before = fa.launches
+        metrics[name] = {k: float(v) for k, v in step(state, on(device, batch)).items()}
+        if name == "card":
+            launches = fa.launches - before
+        states[name] = state
+    expected = GRAD_ACCUM * 2 * cfg.joint.num_hidden_layers
+    if launches != expected:
+        raise AssertionError(f"card QLoRA update launched the kernel {launches} times, want {expected}")
+    rel = {k: abs(metrics["card"][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k]) for k in ("loss", "grad_norm")}
+    trained = [(p, a, b) for (p, a), b in zip(leaves_with_paths(params_dev), tree_leaves(params_cpu)) if b.requires_grad]
+    param_err = max(float((a.detach().cpu() - b.detach()).abs().max()) for _, a, b in trained)
+    if not any("_lora" in p for p, _, _ in trained) or not any(p.startswith("/joint/mixtures/action") for p, _, _ in trained):
+        raise AssertionError("the trained leaves miss the adapters or the action expert")
+    moved = [p for p, x in nf4_leaves(params_dev) if not torch.equal(x.cpu(), nf4_before[p])]
+    moved += [p for p, x in nf4_leaves(params_cpu) if not torch.equal(x, nf4_before[p])]
+    if moved:
+        raise AssertionError(f"NF4 bases changed: {moved[:5]}")
+    # the moments: payloads equal but where a value sits on a rounding tie
+    # and the card's sums round it to the neighbouring code, or where a
+    # grad is rounding noise on both sides and its sign differs: codes -1
+    # and +1, values below 1.6e-6 of their block's absmax; scales to the
+    # grads' own relative difference
+    codes, scale_rel, bad = {"off_by_one": 0, "sign_of_noise": 0}, 0.0, []
+    path_of = {id(x): p for p, x in leaves_with_paths(params_cpu)}
+    opt = states["cpu"].opt_state
+    names = [f"{path_of[id(p)]}:{k}" for group in opt.param_groups for p in group["params"]
+             for k, t in opt.state[p].items() if torch.is_tensor(t)]
+    for name, a, b in zip(names, opt_tensors(states["card"]), opt_tensors(states["cpu"])):
+        a = a.cpu()
+        if a.dtype == torch.int8:
+            a, b = a.to(torch.int32), b.to(torch.int32)
+            d = (a - b).abs()
+            noise = (d > 1) & (a.abs() <= 1) & (b.abs() <= 1)
+            codes["off_by_one"] += int((d == 1).sum())
+            codes["sign_of_noise"] += int(noise.sum())
+            if bool(((d > 1) & ~noise).any()):
+                bad.append((name, int(d.max())))
+        else:
+            scale_rel = max(scale_rel, float(((a - b).abs() / b.abs()).max()))
+    # fp32 on both sides: as in the float check; the adapters and the action
+    # expert move by lr = 5e-5 per update, so 1e-6 catches a wrong group,
+    # lr, code or bias correction
+    if not (max(rel.values()) <= 1e-3 and param_err <= 1e-6 and not bad and scale_rel <= 1e-3):
+        raise AssertionError(f"QLoRA card vs CPU: relative {rel}, params max|diff| {param_err}, moment codes "
+                             f"{codes}, further apart in {bad[:5]}, scales relative {scale_rel}")
+    return {"launches": launches, "metrics": metrics, "rel_diff": rel, "param_max_abs_diff": param_err,
+            "trained_leaves": len(trained), "moment_codes": codes,
+            "moment_codes_total": sum(t.numel() for t in opt_tensors(states["cpu"]) if t.dtype == torch.int8),
+            "moment_scale_max_rel_diff": scale_rel, "nf4_leaves_unchanged": len(nf4_before)}
+
+
+def compare_states(a, b) -> tuple:
+    """(bitwise, max|diff|) over two TrainStates' params, optimizer tensors
+    and generator states."""
+    pairs = list(zip(tree_leaves(a.params), tree_leaves(b.params))) + list(zip(opt_tensors(a), opt_tensors(b)))
+    equal = all(torch.equal(x, y) for x, y in pairs) and torch.equal(a.generator.get_state(), b.generator.get_state())
+    diff = max(float((x.detach().float() - y.detach().float()).abs().max()) for x, y in pairs)
+    return equal and a.step == b.step, diff
+
+
+def check_train_agent(dev, info: str) -> dict:
+    """Phase 8b: the QLoRA recipe through the TrainAgent at full width
+    (``check_agent_run``), in a temporary log_dir removed afterwards."""
+    tmp = tempfile.mkdtemp(prefix="opz_train_agent_")
+    try:
+        return check_agent_run(dev, info, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_agent_run(dev, info: str, tmp: str) -> dict:
+    """3 updates, the validation and the save of ``run``; a second agent
+    resuming from ``auto``; serving from the checkpoint; one profiled
+    update."""
+    overrides = AGENT_OVERRIDES + [f"log_dir={tmp}", f"pretrained_model_path={tmp}/no_tokenizer"]
+    cfg = cfg_lib.load_config(AGENT_CONFIG, overrides=overrides)
+    t0 = time.time()
+    agent = TrainAgent(cfg, dataset=SyntheticFrames(0), val_dataset=SyntheticFrames(1), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    state, mcfg = agent.state, agent.model_cfg
+    if agent.grad_accum != GRAD_ACCUM or not isinstance(state.opt_state, AdamW8bit):
+        raise AssertionError(f"grad_accum {agent.grad_accum}, optimizer {type(state.opt_state).__name__}")
+    L = mcfg.joint.num_hidden_layers
+    per_update = GRAD_ACCUM * 2 * L
+    trained = [(p, x) for p, x in leaves_with_paths(state.params) if x.requires_grad]
+    prints = {p: fingerprint(x) for p, x in trained}
+    frozen = {p: x.detach().clone() for p, x in nf4_leaves(state.params) + [("/embed_tokens", state.params["embed_tokens"])]}
+    tree_gb = nbytes(tree_leaves(state.params)) / 1e9
+    log(f"train-agent: {AGENT_CONFIG} QLoRA at full width built in {build_s:.1f} s: tree {tree_gb:.3f} GB, "
+        f"{len(trained)} trained leaves ({sum(x.numel() for _, x in trained) / 1e9:.4f} B params), "
+        f"{len(frozen) - 1} NF4 leaves")
+
+    timed = {"update_ms": [], "losses": [], "grad_norms": [], "validate_launches": None, "eval": None}
+    train_step_fn, validate_fn, save_fn = agent.train_step, agent.validate, agent.save
+
+    def timed_step(st, batch):
+        t = time.perf_counter()
+        metrics = train_step_fn(st, batch)
+        torch.cuda.synchronize()
+        timed["update_ms"].append((time.perf_counter() - t) * 1e3)
+        timed["losses"].append(float(metrics["loss"]))
+        timed["grad_norms"].append(float(metrics["grad_norm"]))
+        return metrics
+
+    def counted_validate(update):
+        before = fa.launches
+        timed["eval"] = validate_fn(update)
+        timed["validate_launches"] = fa.launches - before
+        return timed["eval"]
+
+    def timed_save(update):
+        t = time.perf_counter()
+        path = save_fn(update)
+        timed["save_s"] = time.perf_counter() - t
+        return path
+
+    agent.train_step, agent.validate, agent.save = timed_step, counted_validate, timed_save
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.launches = fa.bwd_launches = 0
+    agent.run()
+    launches, bwd_launches = fa.launches - (timed["validate_launches"] or 0), fa.bwd_launches
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    opt_gb = nbytes(opt_tensors(state)) / 1e9  # made at the first update
+    agent.train_step = train_step_fn
+    if launches != 3 * per_update or bwd_launches != 3 * per_update:
+        raise AssertionError(f"{launches} K1 and {bwd_launches} backward launches over 3 updates, "
+                             f"want {3 * per_update} and {3 * per_update}")
+    want_val = mcfg.joint.num_hidden_layers * (1 + mcfg.num_inference_steps)  # one batch of 16, one chunk
+    if timed["validate_launches"] != want_val or timed["eval"] is None:
+        raise AssertionError(f"validate: {timed['validate_launches']} K1 launches (want {want_val}), {timed['eval']}")
+    if state.step != 3 or not np.all(np.isfinite(timed["losses"] + timed["grad_norms"])):
+        raise AssertionError(f"step {state.step}, losses {timed['losses']}, grad norms {timed['grad_norms']}")
+    unchanged = [p for p, x in trained if fingerprint(x) == prints[p]]
+    now = dict(leaves_with_paths(state.params))
+    moved = [p for p, x in frozen.items() if not torch.equal(x, now[p])]
+    if unchanged or moved:
+        raise AssertionError(f"trained leaves unchanged: {unchanged[:5]}; frozen leaves changed: {moved[:5]}")
+    ckpt = os.path.join(agent.ckpt_dir, "ckpt_3")
+    ckpt_gb = dir_bytes(ckpt) / 1e9
+    t = time.perf_counter()
+    ckpt_lib.restore_checkpoint(ckpt, state)  # the state it holds: a no-op but for the time
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    del frozen
+    log(f"train-agent: 3 updates, losses {timed['losses']}, grad norms {timed['grad_norms']}; validate at 3: "
+        f"l1 {timed['eval']['l1']:.4f}, accuracy {timed['eval']['accuracy']} ({timed['validate_launches']} K1 "
+        f"launches); update {statistics.median(timed['update_ms'][1:]):.1f} ms (median of updates 2-3), peak memory "
+        f"{peak_gb:.3f} GB, tree {tree_gb:.3f} GB, optimizer state {opt_gb:.3f} GB, checkpoint {ckpt_gb:.3f} GB "
+        f"saved in {timed['save_s']:.2f} s, restored in {restore_s:.2f} s, on {info}")
+
+    # the resume: a partial ckpt_99 beside ckpt_3 (a save cut short: no meta.json)
+    os.makedirs(os.path.join(agent.ckpt_dir, "ckpt_99", ckpt_lib.STATE_DIR))
+    cfg2 = cfg_lib.load_config(AGENT_CONFIG, overrides=overrides + ["resume_checkpoint_path=auto", "n_updates=4"])
+    resumed = TrainAgent(cfg2, dataset=SyntheticFrames(0), device=dev)
+    if resumed.state.step != 3 or resumed.cnt_batch != agent.cnt_batch:
+        raise AssertionError(f"resumed at step {resumed.state.step}, cnt_batch {resumed.cnt_batch}; want 3, {agent.cnt_batch}")
+    resumed.run()  # one update on the dataset's first batches, then ckpt_4
+    agent.train_step(state, agent.next_update_batch(SyntheticFrames(0).iterator(agent.step_batch_size)))
+    bitwise, resume_diff = compare_states(resumed.state, state)
+    if not (bitwise or resume_diff <= 1e-6):
+        raise AssertionError(f"the resumed agent's update 4 differs from the first agent's: max|diff| {resume_diff}")
+    log(f"train-agent: resumed from ckpt_3 (not the partial ckpt_99) at step 3, cnt_batch {resumed.cnt_batch}; "
+        f"update 4 {'bitwise' if bitwise else 'within 1e-6 of'} the first agent's (params, moments, generator): "
+        f"max|diff| {resume_diff:.3e}")
+    del resumed
+    torch.cuda.empty_cache()
+
+    served = check_agent_serving(dev, cfg, mcfg, ckpt)
+    prof = profile_agent_update(agent, per_update)
+    return {
+        "launches": launches, "bwd_launches": bwd_launches, "validate_launches": timed["validate_launches"],
+        "losses": timed["losses"], "grad_norms": timed["grad_norms"], "eval": timed["eval"],
+        "update_ms": timed["update_ms"], "update_ms_median_after_first": statistics.median(timed["update_ms"][1:]),
+        "peak_mem_gb": peak_gb, "tree_gb": tree_gb, "opt_state_gb": opt_gb, "checkpoint_gb": ckpt_gb,
+        "save_s": timed["save_s"], "restore_s": restore_s, "build_s": build_s,
+        "resume_bitwise": bitwise, "resume_max_abs_diff": resume_diff, "serving": served, "profile": prof,
+    }
+
+
+def check_agent_serving(dev, cfg, mcfg, ckpt: str) -> dict:
+    """``scripts/serve.load_params`` on the checkpoint (merge, NF4 decode,
+    the production layout): one bf16 chunk, finite and in the clip, within
+    the drift limit of the chunk of the merged float eval params in bf16,
+    with the same noise."""
+    rng = np.random.default_rng(9)
+    batch = example_batch(mcfg, 1, rng)
+    a0 = rng.normal(size=(1, mcfg.horizon_steps, mcfg.action_dim)).astype(np.float32)
+    t0 = time.time()
+    served = serve.load_params(cfg_lib.ConfigDict({**cfg, "checkpoint_path": ckpt}), mcfg, torch.bfloat16, dev, False)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    if lora_lib.has_lora(served) or "qa" not in served["joint"]["mixtures"]["vlm"]["layers"]["attn"]["qkv"]:
+        raise AssertionError("the served tree is not the production layout of the merged params")
+    chunk = run_infer(served, mcfg, batch, a0, dev, torch.bfloat16).float().cpu()
+    tree_gb = nbytes(tree_leaves(served)) / 1e9
+    del served
+    merged = serve.merge_and_decode(ckpt_lib.restore_params(ckpt, serve.abstract_params(mcfg), dev), mcfg, torch.float32)
+    merged = tree_map(lambda x: x.to(torch.bfloat16), merged)
+    want = run_infer(merged, mcfg, batch, a0, dev, torch.bfloat16).float().cpu()
+    del merged
+    torch.cuda.empty_cache()
+    drift = float((chunk - want).abs().mean())
+    clip = mcfg.final_action_clip_value
+    if not (torch.isfinite(chunk).all() and chunk.abs().max() <= clip and drift <= DRIFT_LIMIT):
+        raise AssertionError(f"served chunk: finite {bool(torch.isfinite(chunk).all())}, max "
+                             f"{float(chunk.abs().max())} (clip {clip}), drift {drift} (limit {DRIFT_LIMIT})")
+    log(f"train-agent: served ckpt_3 through scripts/serve.load_params (loaded in {load_s:.1f} s, production tree "
+        f"{tree_gb:.3f} GB): chunk finite, in the clip, drift from the merged float params' bf16 chunk {drift:.3e} "
+        f"(<= {DRIFT_LIMIT})")
+    return {"load_s": load_s, "tree_gb": tree_gb, "drift": drift}
+
+
+def profile_agent_update(agent, per_update: int) -> dict:
+    """One more update under torch.profiler (``profiled_window``): K1's and
+    the backward kernels' device ms by symbol, and the device ms of the
+    kernels inside the NF4 dequant and the 8-bit Adam step ranges. No
+    total is asked for, so one complete window serves (a confirming
+    second window would cost another profiled update): the busy ms is
+    that window's, unconfirmed."""
+    batch = agent.next_update_batch(SyntheticFrames(2).iterator(agent.step_batch_size))
+    got, traced, wall = profiled_window(
+        lambda: agent.train_step(agent.state, batch),
+        {KERNEL_SYMBOL: per_update, ROWS_SYMBOL: per_update // 2, KEYS_SYMBOL: per_update // 2},
+        counted=(per_update, per_update), ranges=(NF4_RANGE, ADAM8_RANGE),
+    )
+    busy = device_ms(traced)[0] - device_ms(traced, "opz_empty_kernel")[0]
+    log_profile("train-agent-profile", traced, wall, busy)
+    result = {"kernel_ms": got[KERNEL_SYMBOL][0], "backward_ms": got[ROWS_SYMBOL][0] + got[KEYS_SYMBOL][0],
+              "nf4_dequant_ms": got[NF4_RANGE][0], "nf4_dequants": got[NF4_RANGE][1],
+              "adam8bit_ms": got[ADAM8_RANGE][0], "wall_ms": wall, "busy_ms": busy}
+    log(f"train-agent: profiled update {wall:.1f} ms (busy {busy:.1f}): K1 {result['kernel_ms']:.3f} ms over "
+        f"{per_update} launches, backward kernels {result['backward_ms']:.3f} ms over {per_update} launches, NF4 "
+        f"dequant {result['nf4_dequant_ms']:.3f} ms over {result['nf4_dequants']} decodes, 8-bit Adam step "
+        f"{result['adam8bit_ms']:.3f} ms")
+    return result
+
+
+def check_full_finetune_8bit(dev, info: str, updates: int = 2) -> dict:
+    """Phase 8c: phase 8's full fine-tune (fp32, remat, B = 16 x 2) with
+    int8 Adam moments (configs/train/bridge_v5e.yaml's recipe on one card)."""
+    cfg = with_remat(cfg_lib.PiZeroConfig())
+    train_cfg = cfg_lib.TrainingConfig(quantize_optimizer_states=True)
+    params = pizero.init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    state, step = new_trainer(cfg, train_cfg, params, dev)
+    rng = np.random.default_rng(8)
+    batches = [on(dev, train_batch(cfg, TRAIN_B, rng)) for _ in range(updates)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.launches = fa.bwd_launches = 0
+    losses, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        losses.append(float(step(state, batch)["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    expected = updates * GRAD_ACCUM * 2 * cfg.joint.num_hidden_layers
+    if (fa.launches, fa.bwd_launches) != (expected, expected) or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"launches {(fa.launches, fa.bwd_launches)}, want {expected}; losses {losses}")
+    result = {"losses": losses, "update_ms": times, "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+              "opt_state_gb": nbytes(opt_tensors(state)) / 1e9, "launches": fa.launches}
+    log(f"train-8bit: full fine-tune, int8 Adam moments: losses {losses}, update {times[-1]:.1f} ms (update "
+        f"{updates}), peak memory {result['peak_mem_gb']:.3f} GB, optimizer state {result['opt_state_gb']:.3f} GB, "
+        f"on {info}")
+    return result
+
+
+# --------------------------------------------------------------------------- #
 # phases 9-11: inference under a mesh of processes
 # --------------------------------------------------------------------------- #
 
@@ -2097,6 +2498,11 @@ def single_card_phases(dev, info: str) -> list:
         f"{time.time() - t0:.1f} s")
 
     t0 = time.time()
+    qlora_parity = check_qlora_parity(dev)
+    log(f"train-parity: QLoRA (NF4 bases, LoRA adapters, int8 Adam moments), bridge widths depth 2 fp32, one "
+        f"update card vs CPU: {json.dumps(qlora_parity)}, {time.time() - t0:.1f} s")
+
+    t0 = time.time()
     trained, cfg, params, state, step, batch = check_train_main(dev)
     log("train-main: " + json.dumps(trained))
     log(f"train-main: update {trained['update_ms_median_after_first']:.1f} ms (median of updates 2-3), "
@@ -2115,6 +2521,20 @@ def single_card_phases(dev, info: str) -> list:
     log("train-main: replayed calls of one update: " + json.dumps(replayed_vjp))
     log(f"phase train-main ok in {time.time() - t0:.1f} s")
     del train_calls
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    agent = check_train_agent(dev, info)
+    log("train-agent: " + json.dumps(agent))
+    log(f"phase train-agent ok in {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    full8 = check_full_finetune_8bit(dev, info)
+    log("train-8bit: " + json.dumps(full8))
+    log(f"train-8bit: peak memory {full8['peak_mem_gb']:.3f} GB and update {full8['update_ms'][-1]:.1f} ms against "
+        f"fp32 Adam's {trained['peak_mem_gb']:.3f} GB and {trained['update_ms_median_after_first']:.1f} ms (phase 8)")
+    log(f"phase train-8bit ok in {time.time() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     entry = {
@@ -2144,6 +2564,9 @@ def single_card_phases(dev, info: str) -> list:
         "adaln_ms": adaln["compiled"]["float"]["k1_ms"],
         "text_launches_per_generate": text["bf16"]["k1_launches_per_generate"],
         "text_ms_per_token": text["bf16"]["k1_ms_per_token"],
+        # one full-width QLoRA update of the TrainAgent (phase 8b), profiled
+        "qlora_update_launches": agent["launches"] // 3,
+        "qlora_update_ms": agent["profile"]["kernel_ms"],
     }
     vjp_entry = {
         "name": "mot_attention_vjp",
@@ -2165,6 +2588,11 @@ def single_card_phases(dev, info: str) -> list:
         "bound_ms": replayed_vjp["bound_ms"],
         "bound_by": replayed_vjp["bound_by"],
         "library_ms": replayed_vjp["library_ms"],
+        # one full-width QLoRA update of the TrainAgent (phase 8b), profiled:
+        # K1's forwards and the backward kernels' launches, their device ms
+        "qlora_update_launches": (agent["launches"] + agent["bwd_launches"]) // 3,
+        "qlora_update_ms": agent["profile"]["kernel_ms"] + agent["profile"]["backward_ms"],
+        "qlora_update_backward_ms": agent["profile"]["backward_ms"],
     }
     return [entry, vjp_entry]
 

@@ -1,0 +1,337 @@
+"""TrainAgent: the training workspace on one card (counterpart of the JAX
+package's ``agents/train.py``; reference src/agent/train.py).
+
+From a config (``config.load_config``) it builds the params (random from
+the seed, optionally PaliGemma safetensors or a checkpoint's eval export as
+the base, then the config's NF4 quantization of the frozen bases), the
+optimizer (AdamW, or int8 moments with ``quantize``) and the train step
+with gradient accumulation; resumes from a checkpoint (a path, or
+``"auto"``: the newest complete ``ckpt_N``); then ``run`` takes
+``n_updates`` updates on frame batches from ``dataset``, validating every
+``eval_freq`` and saving every ``save_model_freq`` from
+``save_model_start``, and once at the end.
+
+Where it differs from the JAX agent, by design:
+  - one device: a world of more than one rank raises (ROADMAP.md queue 1,
+    item 8); ``zero1`` is a no-op on one device, as in JAX;
+  - the data: the JAX agent builds ``tf.data`` RLDS pipelines from
+    ``cfg.data``; the port has no TensorFlow, so ``dataset=`` is required
+    (any object whose ``iterator(batch_size)`` yields frame batches in the
+    RLDS layout of ``preprocess_batch``), and ``cfg.data`` without one
+    raises (ROADMAP.md queue 1, item 10);
+  - the tokenizer: ``FakeTokenizer`` when ``pretrained_model_path`` does
+    not exist, as in JAX; an existing path raises, since the PaliGemma
+    tokenizer needs transformers (queue 1, item 9);
+  - checkpoints are ``training/checkpoint.py``'s, not orbax directories.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import re
+import tempfile
+from collections import deque
+from typing import Optional
+
+import numpy as np
+import torch
+
+from open_pi_zero_torch import resolve_device
+from open_pi_zero_torch.config import ConfigDict, pizero_config_from_dict, training_config_from_dict
+from open_pi_zero_torch.models import convert, pizero
+from open_pi_zero_torch.ops import lora as lora_lib
+from open_pi_zero_torch.processing import FakeTokenizer, VLAProcessor, load_paligemma_tokenizer
+from open_pi_zero_torch.training import averaging as avg_lib
+from open_pi_zero_torch.training import checkpoint as ckpt_lib
+from open_pi_zero_torch.training import optimizer as opt_lib
+from open_pi_zero_torch.training import schedules
+from open_pi_zero_torch.training.train_step import init_train_state, make_train_step
+from open_pi_zero_torch.utils.metric import get_action_accuracy, l1_loss
+from open_pi_zero_torch.utils.monitor import Timer, log_execution_time
+
+log = logging.getLogger(__name__)
+
+DATA_PIPELINE_ITEM = "ROADMAP.md queue 1, item 10 (the TF-free OXE data pipeline)"
+
+
+def _strip_lora(tree):
+    """Drop the ``<name>_lora`` adapter subtrees: the shape of a plain
+    float checkpoint."""
+    if isinstance(tree, dict):
+        return {k: _strip_lora(v) for k, v in tree.items() if not k.endswith("_lora")}
+    return tree
+
+
+def _graft(dst, src):
+    """Deep-merge ``src`` into ``dst`` where keys exist (adapters absent
+    from ``src`` keep their fresh initialization)."""
+    if isinstance(src, dict) and isinstance(dst, dict):
+        return {**dst, **{k: _graft(dst[k], v) for k, v in src.items()}}
+    return src
+
+
+def _world_size() -> int:
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def _load_tokenizer(cfg: ConfigDict):
+    path = cfg.get("pretrained_model_path")
+    if path and os.path.exists(os.path.expanduser(str(path))):
+        return load_paligemma_tokenizer(os.path.expanduser(str(path)))
+    log.warning("pretrained_model_path missing; using FakeTokenizer (tests only)")
+    return FakeTokenizer(image_token_id=int(cfg.get("image_token_index", 257152)))
+
+
+class TrainAgent:
+    def __init__(self, cfg: ConfigDict, dataset=None, val_dataset=None, device=None):
+        self.cfg = cfg
+        self.device = resolve_device("cuda" if device is None else device)
+        self.seed = int(cfg.get("seed", 42))
+        self.debug = bool(cfg.get("debug", False))
+        self.log_dir = os.path.expanduser(str(cfg.get("log_dir", os.path.join(tempfile.gettempdir(), "opz_train"))))
+        self.ckpt_dir = os.path.join(self.log_dir, "checkpoint")
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+
+        self.model_cfg = pizero_config_from_dict(cfg)
+        self.train_cfg = training_config_from_dict(cfg)
+
+        # ---- batch math (reference train.py:134-139), one device ----
+        if _world_size() > 1:
+            raise NotImplementedError("training on more than one device waits in ROADMAP.md queue 1, item 8")
+        gbs, pbs = self.train_cfg.global_batch_size, self.train_cfg.per_device_batch_size
+        if gbs % pbs:
+            raise ValueError(f"global_batch_size {gbs} not divisible by per_device {pbs} x devices 1")
+        self.grad_accum = max(1, gbs // pbs)
+        self.step_batch_size = pbs  # per microbatch
+        log.info("device=%s accum=%d per-device=%d global=%d", self.device, self.grad_accum, pbs, gbs)
+
+        # ---- params, optimizer, state (zero1 is a no-op on one device) ----
+        params = self._build_params()
+        self.optimizer = opt_lib.build_optimizer(self.train_cfg, params)
+        generator = torch.Generator(self.device).manual_seed(self.seed)
+        self.state = init_train_state(params, self.optimizer, generator, self.train_cfg)
+
+        self.cnt_batch = 0
+        self._wandb_id: Optional[str] = None
+        resume = cfg.get("resume_checkpoint_path")
+        if resume == "auto":
+            resume = self._latest_checkpoint()
+        if resume:
+            self.state, extra = ckpt_lib.restore_checkpoint(str(resume), self.state)
+            self.cnt_batch = int(extra.get("cnt_batch", 0))
+            self._wandb_id = extra.get("wandb_id")
+            log.info("resumed from %s at update %d", resume, self.state.step)
+
+        # ---- data ----
+        self.dataset, self.val_dataset = dataset, val_dataset
+        if self.dataset is None and cfg.get("data") is not None:
+            raise NotImplementedError(
+                f"cfg.data names an RLDS pipeline, which needs TensorFlow; pass dataset= ({DATA_PIPELINE_ITEM})"
+            )
+
+        self.processor = VLAProcessor(
+            _load_tokenizer(cfg),
+            num_image_tokens=self.model_cfg.siglip.num_image_tokens,
+            max_seq_len=self.model_cfg.max_image_text_tokens,
+            tokenizer_padding=str(cfg.get("tokenizer_padding", "max_length")),
+        )
+        self.train_step = make_train_step(self.model_cfg, self.train_cfg, self.optimizer, self.grad_accum)
+
+        # ---- schedule ----
+        self.n_updates = int(cfg.get("n_updates", 0))
+        self.log_freq = int(cfg.get("log_freq", 16))
+        self.save_model_freq = int(cfg.get("save_model_freq", 0) or 0)
+        self.save_model_start = int(cfg.get("save_model_start", 0) or 0)
+        self.eval_freq = int(cfg.get("eval_freq", 0) or 0)
+        self.eval_size = int(cfg.get("eval_size", 0) or 0)
+        self.eval_thresholds = list(cfg.get("eval_thresholds", [0.05, 0.1, 0.2, 0.3, 0.5]))
+
+        self.wandb = None
+        if cfg.get("wandb") and not self.debug:
+            try:
+                import wandb
+
+                run = wandb.init(
+                    project=str(cfg.wandb.get("project", "open-pi-zero-tpu")),
+                    name=str(cfg.get("name", "run")),
+                    config=dict(cfg),
+                    id=self._wandb_id,  # resume the run across restarts
+                    resume="allow" if self._wandb_id else None,
+                )
+                self._wandb_id = run.id
+                self.wandb = wandb  # only after a successful init
+            except Exception as e:  # wandb missing or offline: train without it
+                log.warning("wandb disabled: %s", e)
+
+    def _latest_checkpoint(self) -> Optional[str]:
+        """The newest COMPLETE checkpoint (``state/`` and ``meta.json``): a
+        save cut short leaves a partial ``ckpt_N`` that must not be taken."""
+        best, best_step = None, -1
+        if os.path.isdir(self.ckpt_dir):
+            for d in os.listdir(self.ckpt_dir):
+                m = re.fullmatch(r"ckpt_(\d+)", d)
+                path = os.path.join(self.ckpt_dir, d)
+                complete = os.path.isdir(os.path.join(path, ckpt_lib.STATE_DIR)) and os.path.exists(
+                    os.path.join(path, ckpt_lib.META_FILE)
+                )
+                if m and complete and int(m.group(1)) > best_step:
+                    best, best_step = path, int(m.group(1))
+        return best
+
+    # ------------------------------------------------------------------ #
+    @log_execution_time(log)
+    def _build_params(self) -> dict:
+        params = pizero.init_params(self.model_cfg, seed=self.seed, device=self.device)
+        path = self.cfg.get("pretrained_model_path")
+        if bool(self.cfg.get("load_pretrained_weights", False)) and path:
+            path = os.path.expanduser(str(path))
+            pretrained = convert.convert_paligemma(convert.load_safetensors_dir(path), self.model_cfg)
+            params = convert.merge_pretrained(params, pretrained)
+            log.info("loaded pretrained PaliGemma weights from %s", path)
+        base_ckpt = self.cfg.get("base_params_checkpoint")
+        if base_ckpt:
+            # warm-start the bases from a checkpoint's eval export (a tree
+            # without adapters); the fresh adapters stay
+            loaded = ckpt_lib.restore_params(os.path.expanduser(str(base_ckpt)), _strip_lora(params), self.device)
+            params = _graft(params, loaded)
+            log.info("warm-started base weights from %s", base_ckpt)
+        qparams = lora_lib.quantize_per_model_config(params, self.model_cfg)
+        if qparams is not params:
+            log.info("quantized frozen base weights (NF4) per config")
+        counts = opt_lib.trainable_param_count(qparams, self.train_cfg.train_vlm)
+        log.info("params: %s", {k: f"{v:.3f}B" for k, v in counts.items()})
+        return qparams
+
+    # ------------------------------------------------------------------ #
+    def preprocess_batch(self, batch: dict) -> dict:
+        """Frame batch (numpy, RLDS layout) -> model inputs (reference
+        train.py:271-314): ``observation.image_primary`` uint8 [B, 1, H, W,
+        3], ``observation.proprio`` [B, 1, P], ``task.language_instruction``
+        bytes [B], ``action`` [B, 1, H_a, A]. The window dim is squeezed;
+        the text is tokenized and the images normalized on the host."""
+        obs = batch["observation"]
+        images = obs["image_primary"]
+        if images.ndim == 5:  # [B, W, H, W, C] window
+            images = images[:, -1]
+        texts = [
+            t.decode("utf-8") if isinstance(t, bytes) else str(t)
+            for t in np.asarray(batch["task"]["language_instruction"]).reshape(-1)
+        ]
+        model_inputs = self.processor(texts, images.astype(np.uint8))
+        proprios = np.asarray(obs["proprio"], np.float32)
+        if proprios.ndim == 2:
+            proprios = proprios[:, None]
+        actions = np.asarray(batch["action"], np.float32)
+        if actions.ndim == 4:  # [B, W, H, A]
+            actions = actions[:, -1]
+        return {
+            "input_ids": model_inputs["input_ids"],
+            "pixel_values": model_inputs["pixel_values"],
+            "attention_mask": model_inputs["attention_mask"],
+            "proprios": proprios,
+            "actions": actions,
+        }
+
+    def _stack_accum(self, batches: list) -> dict:
+        if self.grad_accum == 1:
+            return batches[0]
+        return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+
+    def to_device(self, batch: dict) -> dict:
+        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+
+    def next_update_batch(self, it) -> dict:
+        """The next update's batch on the card: ``grad_accum`` frame
+        batches from ``it``, preprocessed and stacked on a leading axis."""
+        micro = []
+        for _ in range(self.grad_accum):
+            micro.append(self.preprocess_batch(next(it)))
+            self.cnt_batch += 1
+        return self.to_device(self._stack_accum(micro))
+
+    # ------------------------------------------------------------------ #
+    def run(self):
+        """The training loop (reference train.py:249-495). Returns the state."""
+        if self.dataset is None:
+            raise ValueError("no dataset: pass dataset= to TrainAgent")
+        it = self.dataset.iterator(self.step_batch_size)
+        timer = Timer()
+        losses = deque(maxlen=self.log_freq)  # device scalars, read at log boundaries only
+        update = self.state.step
+        action_lr = schedules.from_config(self.train_cfg.action_lr, self.train_cfg.action_lr_scheduler)
+
+        while update < self.n_updates:
+            metrics = self.train_step(self.state, self.next_update_batch(it))
+            update += 1
+            losses.append(metrics["loss"])
+
+            if update % self.log_freq == 0:
+                avg_loss = float(torch.stack(list(losses)).mean())
+                grad_norm = float(metrics["grad_norm"])
+                log.info(
+                    "update %d/%d | loss %.4f | grad_norm %.3f | %.2fs/%d updates",
+                    update, self.n_updates, avg_loss, grad_norm, timer(), self.log_freq,
+                )
+                if self.wandb:
+                    self.wandb.log({"loss": avg_loss, "gradient norm": grad_norm, "lr": action_lr(update)}, step=update)
+
+            if self.eval_freq and update % self.eval_freq == 0 and self.val_dataset:
+                self.validate(update)
+
+            if self.save_model_freq and update >= self.save_model_start and update % self.save_model_freq == 0:
+                self.save(update)
+
+        self.save(self.state.step)
+        return self.state
+
+    # ------------------------------------------------------------------ #
+    @torch.no_grad()
+    def validate(self, update: int) -> Optional[dict]:
+        """Held-out L1 and thresholded action accuracy through KV-cached
+        ``infer_action`` on the eval params (reference train.py:413-459).
+        Returns {"l1", "accuracy": {threshold: share}}."""
+        it = self.val_dataset.iterator(self.step_batch_size)
+        n_batches = max(1, self.eval_size // max(1, self.step_batch_size))
+        eval_params = avg_lib.eval_params(self.state.avg, self.state.params)
+        generator = torch.Generator(self.device).manual_seed(self.seed + update)
+        accs, l1s = [], []
+        for _ in range(n_batches):
+            try:
+                batch = self.to_device(self.preprocess_batch(next(it)))
+            except StopIteration:
+                break
+            gt = batch.pop("actions")
+            pred = pizero.infer_action(
+                eval_params, self.model_cfg, generator,
+                batch["input_ids"], batch["pixel_values"], batch["attention_mask"], batch["proprios"],
+            )
+            accs.append(get_action_accuracy(gt, pred, self.eval_thresholds).cpu().numpy())
+            l1s.append(float(l1_loss(gt, pred)))
+        if not accs:
+            return None
+        acc = np.mean(accs, axis=0)
+        l1 = float(np.mean(l1s))
+        result = {"l1": l1, "accuracy": {t: float(a) for t, a in zip(self.eval_thresholds, acc)}}
+        log.info("eval @ %d | l1 %.4f | acc %s", update, l1, {t: f"{a:.3f}" for t, a in result["accuracy"].items()})
+        if self.wandb:
+            payload = {f"eval acc - thres {t}": a for t, a in result["accuracy"].items()}
+            payload["eval l1"] = l1
+            self.wandb.log(payload, step=update)
+        return result
+
+    # ------------------------------------------------------------------ #
+    @log_execution_time(log)
+    def save(self, update: int) -> str:
+        """Save ``ckpt_<update>``: the state, the eval export, the metadata."""
+        path = os.path.join(self.ckpt_dir, f"ckpt_{update}")
+        ckpt_lib.save_checkpoint(
+            path, self.state,
+            extra={"cnt_batch": self.cnt_batch, "wandb_id": self._wandb_id},
+            eval_params=avg_lib.eval_params(self.state.avg, self.state.params),
+        )
+        log.info("saved checkpoint %s", path)
+        return path

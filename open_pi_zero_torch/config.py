@@ -470,6 +470,44 @@ def pizero_config_from_dict(cfg: ConfigDict) -> PiZeroConfig:
     )
 
 
+def training_config_from_dict(cfg: ConfigDict) -> TrainingConfig:
+    """A typed TrainingConfig from a loaded config (the JAX package's
+    mapping: ``quantize`` turns on the 8-bit optimizer states as well as
+    the mixtures' and SigLIP's NF4 bases)."""
+
+    def sched(d):
+        d = d or ConfigDict()
+        return LRSchedulerConfig(
+            first_cycle_steps=int(d.get("first_cycle_steps", 10_000_000)),
+            min_lr=float(d.get("min_lr", 1e-8)),
+            warmup_steps=int(d.get("warmup_steps", 200)),
+            cycle_mult=float(d.get("cycle_mult", 1.0)),
+            gamma=float(d.get("gamma", 1.0)),
+        )
+
+    return TrainingConfig(
+        global_batch_size=int(cfg.get("global_batch_size", 1024)),
+        per_device_batch_size=int(cfg.get("per_device_batch_size", 16)),
+        action_lr=float(cfg.get("action_lr", 5e-5)),
+        vlm_lr=float(cfg.get("vlm_lr", 5e-5)),
+        action_weight_decay=float(cfg.get("action_weight_decay", 0.0)),
+        vlm_weight_decay=float(cfg.get("vlm_weight_decay", 0.0)),
+        max_grad_norm=float(cfg.get("max_grad_norm", 1.0)),
+        train_vlm=bool(cfg.get("train_vlm", True)),
+        action_lr_scheduler=sched(cfg.get("action_lr_scheduler")),
+        vlm_lr_scheduler=sched(cfg.get("vlm_lr_scheduler")),
+        use_ema=bool(cfg.get("use_ema", False)),
+        ema_decay=float(cfg.get("ema_decay", 0.99)),
+        ema_start=int(cfg.get("ema_start", 0) or 0),
+        ema_freq=int(cfg.get("ema_freq", 1)),
+        use_swa=bool(cfg.get("use_swa", False)),
+        swa_start=int(cfg.get("swa_start", 0) or 0),
+        swa_freq=int(cfg.get("swa_freq", 1) or 1),
+        quantize_optimizer_states=bool(cfg.get("quantize", False)),
+        lora=bool(cfg.get("lora", False)),
+    )
+
+
 def tiny_pizero_config(**kw) -> PiZeroConfig:
     """A scaled-down config for fast tests (same topology, tiny dims)."""
     joint = JointConfig(
@@ -572,8 +610,7 @@ class TrainingConfig:
     use_swa: bool = False
     swa_start: int = 0
     swa_freq: int = 1
-    # 8-bit optimizer states (reference bnb AdamW8bit); not ported yet
+    # 8-bit optimizer states (reference bnb AdamW8bit; training/quantized_adam.py)
     quantize_optimizer_states: bool = False
-    # LoRA fine-tune of the VLM side (reference freeze_non_lora_weights_in_vlm);
-    # not ported yet
+    # LoRA fine-tune of the VLM side (reference freeze_non_lora_weights_in_vlm)
     lora: bool = False

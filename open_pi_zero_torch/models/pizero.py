@@ -39,6 +39,7 @@ from open_pi_zero_torch import resolve_device
 from open_pi_zero_torch.config import PiZeroConfig
 from open_pi_zero_torch.models import joint as joint_lib
 from open_pi_zero_torch.models import siglip as siglip_lib
+from open_pi_zero_torch.ops import lora as lora_lib
 from open_pi_zero_torch.ops.embeddings import sinusoidal_time_embedding
 from open_pi_zero_torch.ops.linear import linear, matmul_f32
 from open_pi_zero_torch.ops.masks import (
@@ -90,14 +91,24 @@ class _Init:
             "bias": self.uniform((*lead, dout), bound),
         }
 
+    def lora(self, din: int, dout: int, r: int, stack: int = 0) -> dict:
+        """A LoRA adapter {a, b} (``ops/lora.lora_init``) from the one generator."""
+        return lora_lib.lora_init(self.gen, din, dout, r, self.dtype, stack)
+
+
+def _add_adapters(init: _Init, layers: dict, dims: dict, r: int, stack: int) -> None:
+    """``<name>_lora`` beside each kernel ``dims[group][name] = (in, out)``,
+    in place, in JAX's key order."""
+    for group, named in dims.items():
+        for n, (din, dout) in named.items():
+            layers[group][f"{n}_lora"] = init.lora(din, dout, r, stack)
+
 
 def _init_siglip(init: _Init, cfg) -> dict:
-    if cfg.use_lora:
-        raise NotImplementedError("SigLIP LoRA is not ported yet")
     L, D, I = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
     patch_in = cfg.patch_size * cfg.patch_size * cfg.num_channels
     ln = lambda: {"scale": init.full((L, D), 1.0), "bias": init.full((L, D), 0.0)}  # noqa: E731
-    return {
+    params = {
         "embeddings": {
             "patch": init.linear(patch_in, D),
             "position": init.normal((cfg.num_patches, D), 0.02),
@@ -110,14 +121,25 @@ def _init_siglip(init: _Init, cfg) -> dict:
         },
         "post_layernorm": {"scale": init.full((D,), 1.0), "bias": init.full((D,), 0.0)},
     }
+    if cfg.use_lora:  # beside every encoder projection, like the trunk's
+        dims = {"attn": {n: (D, D) for n in ("q", "k", "v", "o")}, "mlp": {"fc1": (D, I), "fc2": (I, D)}}
+        _add_adapters(init, params["layers"], dims, cfg.lora.r, L)
+    return params
+
+
+def _init_projector(init: _Init, cfg) -> dict:
+    """The multimodal projector, with ``kernel_lora`` when SigLIP is LoRA."""
+    params = init.linear(cfg.hidden_size, cfg.projection_dim)
+    if cfg.use_lora:
+        params["kernel_lora"] = init.lora(cfg.hidden_size, cfg.projection_dim, cfg.lora.r)
+    return params
 
 
 def _init_mixture(init: _Init, joint, mix) -> dict:
     """One mixture's params in JAX's layout and distributions: Gemma norm
     weights at 0, or adaLN norms U(+-1/sqrt(Dc)); adaLN-Zero gates with
-    kernel 0 and bias -2."""
-    if mix.use_lora:
-        raise NotImplementedError("LoRA mixtures are not ported yet")
+    kernel 0 and bias -2; with ``use_lora`` an adapter beside each of q, k,
+    v, o, gate, up and down."""
     L, D, I = joint.num_hidden_layers, mix.hidden_size, mix.intermediate_size
     Dc = joint.time_hidden_size
     q_out = joint.num_attention_heads * joint.head_dim
@@ -149,6 +171,12 @@ def _init_mixture(init: _Init, joint, mix) -> dict:
             "mlp": {"gate": kernel(D, I), "up": kernel(D, I), "down": kernel(I, D)},
         }
     }
+    if mix.use_lora:
+        dims = {
+            "attn": {"q": (D, q_out), "k": (D, kv_out), "v": (D, kv_out), "o": (q_out, D)},
+            "mlp": {"gate": (D, I), "up": (D, I), "down": (I, D)},
+        }
+        _add_adapters(init, params["layers"], dims, mix.lora.r, L)
     if mix.adaptive_mode == "adaLN-Zero":
         for stage in ("post_scale", "final_scale"):
             params["layers"][stage] = {"kernel": init.full((L, Dc, D), 0.0), "bias": init.full((L, D), -2.0)}
@@ -163,6 +191,28 @@ def init_params(
     """Random params in the JAX package's tree layout, drawn on ``device``
     (CUDA by default; raises without a card unless ``device='cpu'``)."""
     return _draw_params(cfg, _Init(seed, resolve_device(device), dtype))
+
+
+class _AbstractInit(_Init):
+    """``_Init``'s shapes and dtypes as ``meta`` tensors: no storage, no draw."""
+
+    def __init__(self, dtype: torch.dtype):
+        self.device, self.dtype = torch.device("meta"), dtype
+
+    def _empty(self, shape, *_) -> Tensor:
+        return torch.empty(shape, dtype=self.dtype, device=self.device)
+
+    uniform = normal = full = _empty
+
+    def lora(self, din: int, dout: int, r: int, stack: int = 0) -> dict:
+        lead = (stack,) if stack else ()
+        return {"a": self._empty((*lead, din, r)), "b": self._empty((*lead, r, dout))}
+
+
+def abstract_params(cfg: PiZeroConfig, dtype=torch.float32) -> dict:
+    """``init_params``' tree as ``meta`` tensors: its structure, shapes and
+    dtypes, for checking a loaded checkpoint, at no memory."""
+    return _draw_params(cfg, _AbstractInit(dtype))
 
 
 def _draw_params(cfg: PiZeroConfig, init: _Init, mixture_fn=None, siglip_fn=None) -> dict:
@@ -189,7 +239,7 @@ def _draw_params(cfg: PiZeroConfig, init: _Init, mixture_fn=None, siglip_fn=None
     return {
         "embed_tokens": embed,
         "siglip": siglip,
-        "projector": init.linear(cfg.siglip.hidden_size, cfg.siglip.projection_dim),
+        "projector": _init_projector(init, cfg.siglip),
         "joint": {"mixtures": mixtures},
         "action_encoder": {
             "linear_1": init.linear(cfg.action_dim, action_hidden),

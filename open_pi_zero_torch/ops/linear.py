@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from open_pi_zero_torch.ops.quantization import dequantize_kernel_nf4, quantize_act_per_token
+from open_pi_zero_torch.utils.monitor import annotate
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -69,7 +70,9 @@ def base_matmul(x: torch.Tensor, w) -> torch.Tensor:
     if not isinstance(w, dict):
         return matmul_f32(x, w)
     if "q4" in w:
-        return matmul_f32(x, dequantize_kernel_nf4(w, x.dtype))
+        with annotate("opz_nf4_dequant"):  # its device time in a profile (chip_smoke.py)
+            kernel = dequantize_kernel_nf4(w, x.dtype)
+        return matmul_f32(x, kernel)
     if "q" in w:
         return matmul_f32(x, w["q"].to(x.dtype)) * w["scale"].to(torch.float32)
     if "qa" in w:

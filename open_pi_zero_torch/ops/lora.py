@@ -1,10 +1,18 @@
-"""Tree transforms of the quantized base weights (counterpart of the tree
-part of the JAX package's ``ops/lora.py``): quantize the kernels of a
-param tree, find and undo the quantization.
+"""LoRA adapters and quantized base weights as tree transforms
+(counterpart of the JAX package's ``ops/lora.py``; reference
+src/model/lora.py:83-360).
+
+An adapter is a sibling subtree ``<name>_lora: {a [(L,) in, r], b [(L,)
+r, out]}`` next to the base kernel it adapts, stacked ``[L, ...]`` like its
+kernel: A ~ U(+-1/sqrt(in)) and B = 0, so training starts at the base
+function (``lora_init``). ``merge_lora`` folds every adapter into its base
+(dequantizing a quantized base first) for serving; ``lora_label_fn`` and
+``extract_lora`` pick the adapters out. The quantized base kernels are
+made, found and undone by ``quantize_base_weights``, ``is_quantized_base``
+and ``dequantize_base_weights``.
 
 The projections themselves (``proj``, ``base_matmul``, ``lora_delta``)
-live in ``ops/linear.py``. ``has_lora`` finds adapters; making them,
-``merge_lora`` and the LoRA labels are not ported yet.
+live in ``ops/linear.py``.
 """
 
 from __future__ import annotations
@@ -33,6 +41,82 @@ def _is_int8_payload(d: dict) -> bool:
 def is_quantized_base(d) -> bool:
     """True if ``d`` is one quantized kernel: {q4, absmax} or {q|qa, scale}."""
     return isinstance(d, dict) and (("q4" in d and "absmax" in d) or _is_int8_payload(d))
+
+
+def lora_init(
+    generator: torch.Generator, in_dim: int, out_dim: int, r: int, dtype=torch.float32, stack: int = 0
+) -> dict:
+    """A ~ U(+-1/sqrt(in_dim)) (torch's kaiming_uniform(a=sqrt(5)) on an
+    [r, in] matrix) drawn from ``generator`` on its device, B = 0; with
+    ``stack`` both carry a leading [stack] axis."""
+    bound = 1.0 / in_dim**0.5
+    lead = (stack,) if stack else ()
+    a = torch.empty((*lead, in_dim, r), dtype=dtype, device=generator.device)
+    return {
+        "a": a.uniform_(-bound, bound, generator=generator),
+        "b": torch.zeros((*lead, r, out_dim), dtype=dtype, device=generator.device),
+    }
+
+
+def _merged(base, lora: dict, scaling: float) -> torch.Tensor:
+    """The base kernel (a quantized one decoded) in fp32 plus
+    ``scaling * A @ B`` in fp32, cast to the adapter's dtype."""
+    delta = scaling * torch.matmul(lora["a"].to(torch.float32), lora["b"].to(torch.float32))
+    return (dequantize_base_weights(base).to(torch.float32) + delta).to(lora["a"].dtype)
+
+
+def merge_lora(params, scaling: float = 1.0):
+    """Fold every ``<name>_lora`` adapter into its base kernel and drop the
+    adapter (the reference's eval-time merge, LoRALinear.train(False)). A
+    biased SigLIP linear {kernel, bias} keeps its bias. Returns a new tree."""
+
+    def merge_dict(d: dict) -> dict:
+        out = {}
+        for k, v in d.items():
+            if k.endswith("_lora"):
+                continue
+            if isinstance(v, dict) and "a" not in v:
+                v = merge_dict(v)
+            lora = d.get(f"{k}_lora")
+            if lora is not None and isinstance(v, dict) and "kernel" in v:
+                v = {**v, "kernel": _merged(v["kernel"], lora, scaling)}
+            elif lora is not None:
+                v = _merged(v, lora, scaling)
+            out[k] = v
+        return out
+
+    return merge_dict(params)
+
+
+def lora_label_fn(params, lora_label: str = "lora", base_label: str = "frozen"):
+    """Label tree: adapters ``lora_label``, everything else ``base_label``
+    (reference mark_only_lora_as_trainable, lora.py:366+)."""
+
+    def walk(d, in_lora):
+        if isinstance(d, dict):
+            return {k: walk(v, in_lora or k.endswith("_lora")) for k, v in d.items()}
+        return lora_label if in_lora else base_label
+
+    return walk(params, False)
+
+
+def extract_lora(params) -> dict:
+    """The subtree holding only the adapters (reference lora_state_dict)."""
+
+    def walk(d):
+        if not isinstance(d, dict):
+            return None
+        out = {}
+        for k, v in d.items():
+            if k.endswith("_lora"):
+                out[k] = v
+            else:
+                sub = walk(v)
+                if sub:
+                    out[k] = sub
+        return out
+
+    return walk(params) or {}
 
 
 def has_lora(params) -> bool:

@@ -11,18 +11,25 @@ Three payload dicts replace a float ``[(L,) in, out]`` kernel:
       blocks along the last dim (``quantize_kernel_nf4``)
 
 The arithmetic is the JAX package's, op for op in fp32, so that a kernel
-quantized here is bitwise the one JAX makes from the same weights. The
-blockwise optimizer-state formats (``QTensor``, ``Q4Tensor``) are not
-ported.
+quantized here is bitwise the one JAX makes from the same weights.
+
+The 8-bit optimizer states (``training/quantized_adam.py``) use the
+blockwise int8 format ``QTensor``: the flattened tensor, zero-padded to
+whole blocks of 2048, one fp32 absmax scale per block, and a power-law
+code (``quantize_blockwise``). The JAX package's ``Q4Tensor`` (a flat
+4-bit tensor) is not ported: no path of the port uses it.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from dataclasses import dataclass
 from typing import Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 # QLoRA's NF4 code (bitsandbytes ``functional.quantize_4bit``); index = the
 # stored nibble
@@ -139,3 +146,86 @@ def dequantize_kernel_nf4(d: dict, dtype=torch.float32) -> torch.Tensor:
     g = d["absmax"].shape[-1]
     vals = _nf4_table(idx.device)[idx].reshape(*idx.shape[:-1], g, -1) * d["absmax"][..., None]
     return vals.reshape(idx.shape).to(dtype)
+
+
+# --------------------------------------------------------------------------- #
+# blockwise int8 (the 8-bit optimizer states)
+# --------------------------------------------------------------------------- #
+
+DEFAULT_BLOCK = 2048  # bitsandbytes' blockwise default
+
+
+@dataclass
+class QTensor:
+    """Blockwise int8 tensor: payload ``q`` int8 [n_blocks, block] and one
+    fp32 absmax ``scale`` [n_blocks, 1] per block of the flattened,
+    zero-padded tensor; ``shape`` restores the original layout. ``power``
+    selects the code: 1 is linear symmetric int8, p > 1 the power-law code
+    q = 127 (|x| / absmax)^(1/p), which keeps small optimizer moments off
+    zero."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+    shape: Tuple[int, ...]
+    power: int = 1
+
+
+def _pow_root(frac: torch.Tensor, power: int) -> torch.Tensor:
+    """frac^(1/power) in fp32 as XLA computes ``frac ** (1.0 / power)``:
+    the exponent rounded to fp32 first, the power taken in float64 and
+    rounded once. torch's fp32 ``pow`` is a last-ulp approximation that
+    differs from XLA's on about 2% of values, this on about 0.06%."""
+    exponent = float(np.float32(1.0 / power))
+    return torch.exp(torch.log(frac.to(torch.float64)) * exponent).to(torch.float32)
+
+
+def _integer_pow(x: torch.Tensor, power: int) -> torch.Tensor:
+    """x^power by the products JAX's ``lax.integer_pow`` takes (square and
+    multiply from the lowest bit: x^3 = x * x^2, x^4 = x^2 * x^2)."""
+    acc = None
+    while power > 0:
+        if power & 1:
+            acc = x if acc is None else acc * x
+        power >>= 1
+        if power:
+            x = x * x
+    return acc
+
+
+def quantize_blocks(blocks: torch.Tensor, power: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 [n_blocks, block] -> (int8 payload, fp32 scale [n_blocks, 1]),
+    each block by its own absmax (1 for an all-zero block)."""
+    absmax = blocks.abs().amax(dim=1, keepdim=True)
+    scale = torch.where(absmax == 0, 1.0, absmax)
+    frac = blocks.abs() / scale
+    if power != 1:
+        frac = _pow_root(frac, power)
+    q = torch.clamp(torch.round(torch.sign(blocks) * frac * 127.0), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_blocks(q: torch.Tensor, scale: torch.Tensor, power: int = 1) -> torch.Tensor:
+    """The inverse of ``quantize_blocks``: fp32 [n_blocks, block]."""
+    qf = q.to(torch.float32)
+    # a device tensor as divisor: CUDA divides by a Python scalar as a
+    # product with its reciprocal, which rounds otherwise than JAX
+    frac = qf.abs() / qf.new_full((), 127.0)
+    if power != 1:
+        frac = _integer_pow(frac, power)
+    return torch.sign(qf) * frac * scale
+
+
+def quantize_blockwise(x: torch.Tensor, block: int = DEFAULT_BLOCK, power: int = 1) -> QTensor:
+    """Any tensor -> its ``QTensor`` (the JAX package's arithmetic; the
+    payload bitwise JAX's on the same fp32 input but where XLA's ``pow``
+    and this one's round a code's argument to either side of a half)."""
+    flat = x.to(torch.float32).reshape(-1)
+    blocks = F.pad(flat, (0, (-flat.numel()) % block)).reshape(-1, block)
+    q, scale = quantize_blocks(blocks, power)
+    return QTensor(q, scale, tuple(x.shape), power)
+
+
+def dequantize_blockwise(qt: QTensor) -> torch.Tensor:
+    """``QTensor`` -> the fp32 tensor of its shape."""
+    n = math.prod(qt.shape)
+    return dequantize_blocks(qt.q, qt.scale, qt.power).reshape(-1)[:n].reshape(qt.shape)

@@ -18,11 +18,12 @@ log names it ("serving on host:port"). On SIGINT or SIGTERM the daemon
 logs how many requests it answered, how many of them refined, and stops.
 
 On a card (``--device cuda``, the default) it always serves the compiled
-chunk; ``--device cpu`` serves the eager chunk. A ``.pt`` checkpoint (the
-reference trainer's, through ``models/convert.py``) with LoRA adapters or
-NF4 bases, or an orbax checkpoint directory, raises NotImplementedError:
-merging adapters, decoding bases and the port's checkpoint module wait in
-ROADMAP.md queue 1, item 7.
+chunk; ``--device cpu`` serves the eager chunk. ``checkpoint_path`` is a
+reference ``.pt`` (through ``models/convert.py``) or a checkpoint
+directory of the port's trainer (``training/checkpoint.py``: its eval
+export); LoRA adapters are merged and NF4 bases decoded before the serving
+layout, as the JAX package's EvalAgent does. An orbax directory of the JAX
+package raises NotImplementedError (ROADMAP.md queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -37,12 +38,13 @@ import torch
 
 from open_pi_zero_torch import resolve_device, serving
 from open_pi_zero_torch.config import load_config, pizero_config_from_dict
-from open_pi_zero_torch.models import convert, fuse
+from open_pi_zero_torch.models import convert, fuse, pizero
 from open_pi_zero_torch.ops import lora as lora_lib
+from open_pi_zero_torch.training import checkpoint as ckpt_lib
 
 log = logging.getLogger("serve")
 
-NOT_PORTED = "ROADMAP.md queue 1, item 7"
+ORBAX_ITEM = "ROADMAP.md queue 1, item 12"
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -69,11 +71,42 @@ def parse_args(argv=None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
+def abstract_params(model_cfg) -> dict:
+    """The param tree of ``model_cfg`` as ``meta`` tensors (shapes and
+    dtypes, no storage), with the config's NF4 bases: what a checkpoint
+    directory of this config must hold."""
+    tree = pizero.abstract_params(model_cfg)
+    return lora_lib.quantize_per_model_config(tree, model_cfg)
+
+
+def merge_and_decode(params: dict, model_cfg, dtype) -> dict:
+    """Fold the LoRA adapters into their bases (each mixture at its own
+    ``lora_scaling``, then SigLIP and the projector at SigLIP's) and decode
+    any quantized base to ``dtype``: the float tree that the serving
+    layout starts from (the JAX package's ``EvalAgent._load_params``)."""
+    if lora_lib.has_lora(params):
+        joint = {
+            "mixtures": {
+                name: lora_lib.merge_lora(m, model_cfg.joint.mixture(name).lora_scaling)
+                for name, m in params["joint"]["mixtures"].items()
+            }
+        }
+        params = {**params, "joint": joint}
+        for key in ("siglip", "projector"):
+            if lora_lib.has_lora(params.get(key, {})):
+                params[key] = lora_lib.merge_lora(params[key], model_cfg.siglip.lora_scaling)
+    if lora_lib.has_quantized_bases(params):
+        params = lora_lib.dequantize_base_weights(params, dtype)
+    return params
+
+
 def load_params(cfg, model_cfg, dtype, device, random_init: bool) -> dict:
-    """The serving params: random from the config's seed, or a reference
-    ``.pt`` checkpoint converted, cast and moved to ``device``; then the
-    serving layout of the config's knobs (``fuse.serving_layout_kwargs``),
-    as the JAX package's EvalAgent builds it."""
+    """The serving params: random from the config's seed, or a checkpoint
+    (a reference ``.pt`` converted, or a directory of the port's trainer)
+    cast to ``dtype`` on ``device``, its adapters merged and its NF4 bases
+    decoded; then the serving layout of the config's knobs
+    (``fuse.serving_layout_kwargs``), as the JAX package's EvalAgent builds
+    it."""
     knobs = fuse.serving_layout_kwargs(cfg)
     if random_init:
         return fuse.build_serving_params(
@@ -83,18 +116,17 @@ def load_params(cfg, model_cfg, dtype, device, random_init: bool) -> dict:
     if not path:
         raise ValueError("checkpoint_path=... is required without --random-init")
     path = os.path.expanduser(str(path))
-    if not path.endswith(".pt"):
+    if path.endswith(".pt"):
+        params = convert.load_vla_checkpoint(path, model_cfg, dtype)
+    elif ckpt_lib.is_checkpoint(path):
+        params = ckpt_lib.restore_params(path, abstract_params(model_cfg), device)
+    else:
         raise NotImplementedError(
-            f"{path}: only reference .pt checkpoints load here; orbax checkpoints wait for the "
-            f"port's checkpoint module ({NOT_PORTED})"
+            f"{path}: neither a .pt nor a checkpoint directory of the port's trainer; reading the JAX "
+            f"package's orbax directories waits in {ORBAX_ITEM}"
         )
-    params = convert.load_vla_checkpoint(path, model_cfg, dtype)
-    if lora_lib.has_lora(params) or lora_lib.has_quantized_bases(params):
-        raise NotImplementedError(
-            f"{path}: a checkpoint with LoRA adapters or NF4 bases needs merge_lora / "
-            f"dequantize_base_weights, not ported yet ({NOT_PORTED})"
-        )
-    return fuse.prepare_for_serving(convert.to_dtype(params, dtype, device), **knobs)
+    params = convert.to_dtype(params, dtype, device)
+    return fuse.prepare_for_serving(merge_and_decode(params, model_cfg, dtype), **knobs)
 
 
 def example_request(model_cfg) -> dict:

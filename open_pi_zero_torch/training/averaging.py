@@ -45,6 +45,10 @@ def maybe_update(
         return state
 
     def blend(avg, p):
+        if not avg.is_floating_point():
+            # integer leaves (QLoRA's frozen NF4 / int8 payloads) are not
+            # averaged: blending would promote them to float
+            return p.detach()
         p = p.detach().to(avg.dtype)
         if cfg.use_ema:
             d = 0.0 if state.n_averaged == 0 else cfg.ema_decay

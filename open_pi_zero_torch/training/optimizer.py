@@ -8,7 +8,13 @@ package's ``training/optimizer.py``; reference src/agent/train.py:169-210):
   - "frozen": embed_tokens (reference pizero.py:251-256).
 
 Frozen leaves take ``requires_grad=False``, so they get no grad buffer and
-no Adam state. The reference also leaves the *last layer's* vlm
+no Adam state, and the clip's global norm counts the trained leaves only,
+as the reference's ``clip_grad_norm_`` does. (The JAX package differentiates
+every float leaf and clips over all of them but embed_tokens: with LoRA
+that includes the frozen float bases and an NF4 base's absmax. The port
+does not compute those grads; ROADMAP.md §3 lists the difference.) A
+LoRA tree trains only the VLM side's ``*_lora`` adapters, and a quantized
+base is always frozen. The reference also leaves the *last layer's* vlm
 post-attention norm, MLP, o_proj and v_proj untrained; with stacked
 ``[L, ...]`` params those are slices, not leaves, so their grads are zeroed
 by surgery before the global-norm clip, and Adam, whose moments then stay
@@ -22,7 +28,8 @@ when ``norm >= max_norm`` (``clip_grad_norm_`` would scale by
 ``max_norm / (norm + 1e-6)`` always). ``torch.optim.AdamW`` is
 optax.adamw's update (eps outside the sqrt, the same bias corrections,
 decoupled decay ``p * (1 - lr * wd)``); the vlm decay must stay 0, as in
-the JAX package. The surgery and the clip work in place on the ``.grad``
+the JAX package. With ``quantize_optimizer_states`` the moments are int8
+(``training/quantized_adam.AdamW8bit``, the JAX package's ``adamw8bit``). The surgery and the clip work in place on the ``.grad``
 tensors, where JAX builds new trees.
 """
 
@@ -34,7 +41,9 @@ import torch
 
 from open_pi_zero_torch.config import TrainingConfig
 from open_pi_zero_torch.models.tree import tree_leaves, tree_map
+from open_pi_zero_torch.ops.lora import is_quantized_base
 from open_pi_zero_torch.training import schedules
+from open_pi_zero_torch.training.quantized_adam import AdamW8bit
 
 # vlm layer-stacked leaves whose last-layer slice is untrained
 # (path inside joint.mixtures.vlm.layers)
@@ -60,9 +69,9 @@ def zero_unused_vlm_last_layer(grads: dict) -> dict:
     a tree of grads (None leaves are skipped). Returns the tree."""
     vlm_layers = grads["joint"]["mixtures"]["vlm"]["layers"]
     for path in UNUSED_LAST_LAYER_PATHS:
-        g = _at(vlm_layers, path)
-        if g is not None:
-            g[-1] = 0.0
+        for g in tree_leaves(_at(vlm_layers, path)):  # a quantized kernel's are all None
+            if g is not None:
+                g[-1] = 0.0
     return grads
 
 
@@ -75,32 +84,14 @@ def apply_freeze_surgery(grads: dict) -> dict:
     return zero_unused_vlm_last_layer(grads)
 
 
-def _is_quantized_base(d) -> bool:
-    """A quantized kernel payload ({q4, absmax} NF4, {q|qa, scale} int8)."""
-    if not isinstance(d, dict):
-        return False
-    if "q4" in d and "absmax" in d:
-        return True
-    return "scale" in d and ("qa" in d or ("q" in d and not isinstance(d["q"], dict)))
-
-
-def _refuse_lora_and_quantized(tree, path="") -> None:
-    if _is_quantized_base(tree):
-        raise NotImplementedError(f"quantized base at {path}: not ported yet")
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            if k.endswith("_lora"):
-                raise NotImplementedError(f"LoRA adapter at {path}/{k}: not ported yet")
-            _refuse_lora_and_quantized(v, f"{path}/{k}")
-
-
 def param_labels(params: dict, train_vlm: bool = True, lora: bool = False) -> dict:
-    """Label tree ("action" | "vlm" | "frozen") of a float param tree, the
-    JAX package's routing (reference pizero.py:114-158). LoRA and quantized
-    trees are not ported and raise."""
-    if lora:
-        raise NotImplementedError("LoRA training is not ported yet")
-    _refuse_lora_and_quantized(params)
+    """Label tree ("action" | "vlm" | "frozen"), the JAX package's routing
+    (reference pizero.py:114-158). Quantized bases ({q4, absmax},
+    {q|qa, scale}) are always frozen (the reference keeps bnb-quantized
+    modules fully frozen, train.py:90-93). With ``lora`` the VLM side
+    (SigLIP, the projector, the vlm mixture) trains only its ``*_lora``
+    adapters (reference freeze_non_lora_weights_in_vlm, train.py:101-102);
+    the action expert trains fully."""
     vlm_label = "vlm" if train_vlm else "frozen"
     top = {
         "embed_tokens": "frozen",
@@ -110,34 +101,57 @@ def param_labels(params: dict, train_vlm: bool = True, lora: bool = False) -> di
         "proprio_encoder": "action",
         "action_decoder": "action",
     }
+
+    def label_tree(subtree, label):
+        if is_quantized_base(subtree):
+            return tree_map(lambda _: "frozen", subtree)
+        if isinstance(subtree, dict):
+            return {k: label_tree(v, label) for k, v in subtree.items()}
+        return label
+
+    def label_lora_only(subtree, in_lora=False):
+        if isinstance(subtree, dict):
+            return {k: label_lora_only(v, in_lora or k.endswith("_lora")) for k, v in subtree.items()}
+        return vlm_label if in_lora else "frozen"
+
+    def vlm_side(subtree):
+        return label_lora_only(subtree) if lora else label_tree(subtree, vlm_label)
+
     out = {}
     for k, sub in params.items():
         if k == "joint":
             out[k] = {
                 "mixtures": {
-                    name: tree_map(lambda _, n=name: vlm_label if n == "vlm" else "action", t)
+                    name: vlm_side(t) if name == "vlm" else label_tree(t, "action")
                     for name, t in sub["mixtures"].items()
                 }
             }
+        elif k in ("siglip", "projector"):
+            out[k] = vlm_side(sub)
         else:
-            out[k] = tree_map(lambda _, lab=top[k]: lab, sub)
+            out[k] = label_tree(sub, top[k])
     return out
 
 
 def trainable_param_count(params: dict, train_vlm: bool = True) -> Dict[str, float]:
-    """Param counts per group in units of 1e9, the reference's logging
-    (train.py:167-208). The action group includes proprio via weight tying
-    exactly once (params hold one subtree)."""
+    """Param counts per group in units of 1e9, as the JAX package counts
+    them (reference train.py:167-208): by ``param_labels`` without the
+    LoRA flag, a quantized payload by its stored elements, the surgically
+    frozen last-layer vlm slices moved to "frozen" unless the kernel is
+    quantized (then its whole dict is frozen already). The action group
+    includes proprio via weight tying exactly once."""
     labels = param_labels(params, train_vlm)
     counts = {"action": 0, "vlm": 0, "frozen": 0}
     for lab, leaf in zip(tree_leaves(labels), tree_leaves(params)):
         counts[lab] += leaf.numel()
-    if train_vlm:  # the surgically frozen last-layer vlm slices
+    if train_vlm:
         vlm_layers = params["joint"]["mixtures"]["vlm"]["layers"]
         for path in UNUSED_LAST_LAYER_PATHS:
-            n = _at(vlm_layers, path)[0].numel()
-            counts["vlm"] -= n
-            counts["frozen"] += n
+            node = _at(vlm_layers, path)
+            if isinstance(node, dict):
+                continue
+            counts["vlm"] -= node[0].numel()
+            counts["frozen"] += node[0].numel()
     return {k: v / 1e9 for k, v in counts.items()}
 
 
@@ -157,8 +171,6 @@ class Optimizer:
     moments are the Adam state) and ``update`` applies one update."""
 
     def __init__(self, cfg: TrainingConfig, labels: dict):
-        if cfg.quantize_optimizer_states:
-            raise NotImplementedError("8-bit optimizer states are not ported yet")
         if cfg.train_vlm and cfg.vlm_weight_decay:
             raise NotImplementedError(
                 "nonzero vlm weight decay would decay the frozen last-layer "
@@ -171,10 +183,11 @@ class Optimizer:
             "vlm": schedules.from_config(cfg.vlm_lr, cfg.vlm_lr_scheduler),
         }
 
-    def init(self, params: dict) -> torch.optim.AdamW:
+    def init(self, params: dict) -> torch.optim.Optimizer:
         """Mark each leaf trained or frozen (``requires_grad``) and return
-        the AdamW state over the trained leaves, one param group per
-        label."""
+        the AdamW state over the trained leaves, one param group per label:
+        ``torch.optim.AdamW``, or ``AdamW8bit`` (int8 moments) with
+        ``quantize_optimizer_states``."""
         groups = {g: [] for g in GROUPS}
         for lab, leaf in zip(tree_leaves(self.labels), tree_leaves(params)):
             leaf.requires_grad_(lab != "frozen")
@@ -182,12 +195,13 @@ class Optimizer:
                 groups[lab].append(leaf)
         cfg = self.cfg
         decay = {"action": cfg.action_weight_decay, "vlm": cfg.vlm_weight_decay}
-        return torch.optim.AdamW(
+        adam = AdamW8bit if cfg.quantize_optimizer_states else torch.optim.AdamW
+        return adam(
             [{"params": groups[g], "name": g, "weight_decay": decay[g]} for g in GROUPS if groups[g]],
             lr=0.0, betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps,
         )
 
-    def update(self, params: dict, state: torch.optim.AdamW, count: int) -> torch.Tensor:
+    def update(self, params: dict, state: torch.optim.Optimizer, count: int) -> torch.Tensor:
         """Apply one update from the params' ``.grad`` (then cleared), the
         ``count``-th (0 for the first). Returns the global grad norm after
         the surgery and before the clip."""

@@ -4,8 +4,12 @@ AdamW -> EMA/SWA, with gradient accumulation over microbatches.
 
 The JAX step is a pure function that returns a new state; here
 ``step(state, batch)`` updates ``state`` in place (params, Adam moments,
-update count, generator, average) and returns the metrics. Zero-1 and the
-mesh come with the multi-device slice.
+update count, generator, average) and returns the metrics. A LoRA or QLoRA
+tree trains the same way: its frozen leaves, the NF4 bases' integer
+payloads among them, carry no ``requires_grad`` and get no grad, where
+JAX differentiates them with ``allow_int`` and zeroes the integer tangents.
+``TrainState`` is what ``training/checkpoint.py`` saves, the generator's
+state included. Zero-1 and the mesh come with the multi-device slice.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from open_pi_zero_torch.training.sampling import sample_flow_time
 @dataclass
 class TrainState:
     params: dict
-    opt_state: torch.optim.AdamW  # the Adam moments, over the trained leaves
+    opt_state: torch.optim.Optimizer  # AdamW or AdamW8bit over the trained leaves
     step: int  # number of optimizer updates applied
     generator: torch.Generator  # flow times and noise, on the params' device
     avg: Optional[avg_lib.AveragingState]  # EMA/SWA, None when disabled

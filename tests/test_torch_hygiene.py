@@ -1,6 +1,7 @@
-"""The port's boundaries: it imports neither jax, yaml, safetensors nor the
-JAX package; its source names none of them; and its serving loop answers
-concurrent requests with a tiny model on the CPU."""
+"""The port's boundaries: it imports neither jax, yaml, safetensors, optax,
+orbax, tensorflow, transformers nor the JAX package; its source names none
+of them; and its serving loop answers concurrent requests with a tiny
+model on the CPU."""
 
 import json
 import os
@@ -38,11 +39,16 @@ def test_import_leaves_jax_and_yaml_out():
         assert f"open_pi_zero_torch.training.{name}" in modules
     for name in ("yaml_subset", "config", "models.convert", "models.compiled", "scripts.serve", "models.paligemma"):
         assert f"open_pi_zero_torch.{name}" in modules
+    # and single-device fine-tuning's
+    for name in ("training.checkpoint", "training.quantized_adam", "agents.train", "processing", "utils.metric",
+                 "utils.monitor"):
+        assert f"open_pi_zero_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'yaml', 'safetensors', 'open_pi_zero_tpu'))))\n"
+        "('jax', 'jaxlib', 'yaml', 'safetensors', 'open_pi_zero_tpu', 'optax', 'orbax', 'tensorflow', "
+        "'transformers'))))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -55,11 +61,12 @@ def test_import_leaves_jax_and_yaml_out():
 
 def test_sources_import_no_jax_package():
     # the JAX package's name may appear in notes that say which TPU kernel
-    # a kernel replaces; what is refused is any import of it, jax, yaml or
-    # safetensors (the card's machine has none of them)
+    # a kernel replaces; what is refused is any import of it, jax, yaml,
+    # safetensors, optax, orbax, tensorflow or transformers (the card's
+    # machine has none of them)
+    names = "jax|jaxlib|yaml|safetensors|open_pi_zero_tpu|optax|orbax|tensorflow|transformers"
     bad = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|yaml|safetensors|open_pi_zero_tpu)\b"
-        r"|import_module\(\s*['\"](jax|jaxlib|yaml|safetensors|open_pi_zero_tpu)\b",
+        rf"^\s*(import|from)\s+({names})\b|import_module\(\s*['\"]({names})\b",
         re.M,
     )
     hits = [

@@ -399,16 +399,38 @@ def test_cli_policy_serves_the_checkpoint_on_cpu(cli_files):
 def test_cli_policy_refuses_what_is_not_ported(cli_files, tmp_path):
     with pytest.raises(NotImplementedError, match="orbax"):
         serve.build_policy(cli_args(cli_files, f"checkpoint_path={tmp_path}"))
-    state = golden.load_fixture_or_skip("pizero_infer_action")["state"]
-    lora = {k: torch.from_numpy(v) for k, v in state.items()}
-    for i in range(2):
-        lora[f"joint_model.mixtures.vlm.layers.{i}.self_attn.q_proj.lora_A"] = torch.zeros(2, 32)
-        lora[f"joint_model.mixtures.vlm.layers.{i}.self_attn.q_proj.lora_B"] = torch.zeros(32, 2)
-    torch.save(lora, tmp_path / "lora.pt")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        serve.build_policy(cli_args(cli_files, f"checkpoint_path={tmp_path / 'lora.pt'}"))
     with pytest.raises(ValueError, match="checkpoint_path"):
         serve.build_policy(serve.parse_args(["--config", str(cli_files / "base.yaml"), "--device", "cpu"]))
+
+
+def test_cli_loads_a_lora_pt_by_merging_its_adapters(cli_files, tmp_path):
+    """A reference .pt with LoRA adapters loads: the adapters are merged
+    into their bases before the serving layout. The fixture's adapters
+    are (A, B) = (ones, 0.5) on vlm layer 0's q_proj, so the merged kernel
+    is the base plus scaling * A @ B = the base + 16 everywhere."""
+    state = golden.load_fixture_or_skip("pizero_infer_action")["state"]
+    lora = {k: torch.from_numpy(v) for k, v in state.items()}
+    lora["joint_model.mixtures.vlm.layers.0.self_attn.q_proj.lora_A"] = torch.ones(32, 32)
+    lora["joint_model.mixtures.vlm.layers.0.self_attn.q_proj.lora_B"] = torch.full((32, 32), 0.5)
+    lora["joint_model.mixtures.vlm.layers.1.self_attn.q_proj.lora_A"] = torch.zeros(32, 32)
+    lora["joint_model.mixtures.vlm.layers.1.self_attn.q_proj.lora_B"] = torch.zeros(32, 32)
+    torch.save(lora, tmp_path / "lora.pt")
+    config = t_config.load_config(str(cli_files / "serve.yaml"), overrides=[f"checkpoint_path={tmp_path / 'lora.pt'}"])
+    cfg = t_config.pizero_config_from_dict(config)
+    plain = serve.load_params(
+        t_config.load_config(str(cli_files / "serve.yaml"), overrides=["quantize=false", f"checkpoint_path={cli_files / 'ckpt.pt'}"]),
+        cfg, torch.float32, torch.device("cpu"), random_init=False,
+    )
+    merged = serve.load_params(
+        t_config.load_config(str(cli_files / "serve.yaml"), overrides=["quantize=false", f"checkpoint_path={tmp_path / 'lora.pt'}"]),
+        cfg, torch.float32, torch.device("cpu"), random_init=False,
+    )
+    want, got = plain["joint"]["mixtures"]["vlm"]["layers"]["attn"]["qkv"], merged["joint"]["mixtures"]["vlm"]["layers"]["attn"]["qkv"]
+    q_out = cfg.joint.num_attention_heads * cfg.joint.head_dim
+    assert torch.equal(got[0, :, :q_out], want[0, :, :q_out] + 16.0) and torch.equal(got[1], want[1])
+    assert torch.equal(got[:, :, q_out:], want[:, :, q_out:])
+    served = serve.load_params(config, cfg, torch.float32, torch.device("cpu"), random_init=False)
+    assert "qa" in served["joint"]["mixtures"]["vlm"]["layers"]["attn"]["qkv"]  # then the production layout
 
 
 def test_compile_chunk_needs_a_card():

@@ -360,8 +360,8 @@ def test_param_labels_and_counts_match_jax(tiny, train_vlm):
     assert t_opt.param_labels(tparams, train_vlm) == j_opt.param_labels(jparams, train_vlm)
     got = t_opt.trainable_param_count(tparams, train_vlm)
     assert got == pytest.approx(j_opt.trainable_param_count(jparams, train_vlm), abs=1e-12)
-    with pytest.raises(NotImplementedError):
-        t_opt.param_labels(tparams, lora=True)
+    # a tree without adapters under lora=True: the VLM side all frozen, as in JAX
+    assert t_opt.param_labels(tparams, train_vlm, lora=True) == j_opt.param_labels(jparams, train_vlm, lora=True)
 
 
 @pytest.mark.parametrize("mode", ["ema", "swa"])
