@@ -2070,8 +2070,12 @@ def check_qlora_parity(dev) -> dict:
 
 def compare_states(a, b) -> tuple:
     """(bitwise, max|diff|) over two TrainStates' params, optimizer tensors
-    and generator states."""
+    and generator states. A dtype that differs raises: torch.equal promotes
+    its operands, so an fp32 copy of an int8 moment would pass as equal."""
     pairs = list(zip(tree_leaves(a.params), tree_leaves(b.params))) + list(zip(opt_tensors(a), opt_tensors(b)))
+    dtypes = [(i, x.dtype, y.dtype) for i, (x, y) in enumerate(pairs) if x.dtype != y.dtype]
+    if dtypes or len(opt_tensors(a)) != len(opt_tensors(b)):
+        raise AssertionError(f"the states' tensors differ in dtype or number: {dtypes[:5]}")
     equal = all(torch.equal(x, y) for x, y in pairs) and torch.equal(a.generator.get_state(), b.generator.get_state())
     diff = max(float((x.detach().float() - y.detach().float()).abs().max()) for x, y in pairs)
     return equal and a.step == b.step, diff
@@ -2174,14 +2178,18 @@ def check_agent_run(dev, info: str, tmp: str) -> dict:
     resumed = TrainAgent(cfg2, dataset=SyntheticFrames(0), device=dev)
     if resumed.state.step != 3 or resumed.cnt_batch != agent.cnt_batch:
         raise AssertionError(f"resumed at step {resumed.state.step}, cnt_batch {resumed.cnt_batch}; want 3, {agent.cnt_batch}")
+    resumed_opt_gb = nbytes(opt_tensors(resumed.state)) / 1e9  # as restored, before its update
     resumed.run()  # one update on the dataset's first batches, then ckpt_4
     agent.train_step(state, agent.next_update_batch(SyntheticFrames(0).iterator(agent.step_batch_size)))
     bitwise, resume_diff = compare_states(resumed.state, state)
     if not (bitwise or resume_diff <= 1e-6):
         raise AssertionError(f"the resumed agent's update 4 differs from the first agent's: max|diff| {resume_diff}")
-    log(f"train-agent: resumed from ckpt_3 (not the partial ckpt_99) at step 3, cnt_batch {resumed.cnt_batch}; "
-        f"update 4 {'bitwise' if bitwise else 'within 1e-6 of'} the first agent's (params, moments, generator): "
-        f"max|diff| {resume_diff:.3e}")
+    if resumed_opt_gb != opt_gb:
+        raise AssertionError(f"optimizer state {resumed_opt_gb:.3f} GB as restored, {opt_gb:.3f} GB as saved")
+    log(f"train-agent: resumed from ckpt_3 (not the partial ckpt_99) at step 3, cnt_batch {resumed.cnt_batch}, "
+        f"optimizer state {resumed_opt_gb:.3f} GB as restored ({opt_gb:.3f} GB saved); update 4 "
+        f"{'bitwise' if bitwise else 'within 1e-6 of'} the first agent's (params, moments and their dtypes, "
+        f"generator): max|diff| {resume_diff:.3e}")
     del resumed
     torch.cuda.empty_cache()
 
@@ -2191,7 +2199,8 @@ def check_agent_run(dev, info: str, tmp: str) -> dict:
         "launches": launches, "bwd_launches": bwd_launches, "validate_launches": timed["validate_launches"],
         "losses": timed["losses"], "grad_norms": timed["grad_norms"], "eval": timed["eval"],
         "update_ms": timed["update_ms"], "update_ms_median_after_first": statistics.median(timed["update_ms"][1:]),
-        "peak_mem_gb": peak_gb, "tree_gb": tree_gb, "opt_state_gb": opt_gb, "checkpoint_gb": ckpt_gb,
+        "peak_mem_gb": peak_gb, "tree_gb": tree_gb, "opt_state_gb": opt_gb, "resumed_opt_state_gb": resumed_opt_gb,
+        "checkpoint_gb": ckpt_gb,
         "save_s": timed["save_s"], "restore_s": restore_s, "build_s": build_s,
         "resume_bitwise": bitwise, "resume_max_abs_diff": resume_diff, "serving": served, "profile": prof,
     }

@@ -70,7 +70,7 @@ def base_matmul(x: torch.Tensor, w) -> torch.Tensor:
     if not isinstance(w, dict):
         return matmul_f32(x, w)
     if "q4" in w:
-        with annotate("opz_nf4_dequant"):  # its device time in a profile (chip_smoke.py)
+        with annotate("opz_nf4_dequant"):  # the NF4 layer's range in a profiler trace
             kernel = dequantize_kernel_nf4(w, x.dtype)
         return matmul_f32(x, kernel)
     if "q" in w:

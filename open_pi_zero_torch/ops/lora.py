@@ -6,10 +6,11 @@ An adapter is a sibling subtree ``<name>_lora: {a [(L,) in, r], b [(L,)
 r, out]}`` next to the base kernel it adapts, stacked ``[L, ...]`` like its
 kernel: A ~ U(+-1/sqrt(in)) and B = 0, so training starts at the base
 function (``lora_init``). ``merge_lora`` folds every adapter into its base
-(dequantizing a quantized base first) for serving; ``lora_label_fn`` and
-``extract_lora`` pick the adapters out. The quantized base kernels are
-made, found and undone by ``quantize_base_weights``, ``is_quantized_base``
-and ``dequantize_base_weights``.
+(dequantizing a quantized base first) for serving; ``lora_label_fn``
+labels the adapters apart from the rest (the optimizer's LoRA labels).
+The quantized base kernels are made, found and undone by
+``quantize_base_weights``, ``is_quantized_base`` and
+``dequantize_base_weights``.
 
 The projections themselves (``proj``, ``base_matmul``, ``lora_delta``)
 live in ``ops/linear.py``.
@@ -98,25 +99,6 @@ def lora_label_fn(params, lora_label: str = "lora", base_label: str = "frozen"):
         return lora_label if in_lora else base_label
 
     return walk(params, False)
-
-
-def extract_lora(params) -> dict:
-    """The subtree holding only the adapters (reference lora_state_dict)."""
-
-    def walk(d):
-        if not isinstance(d, dict):
-            return None
-        out = {}
-        for k, v in d.items():
-            if k.endswith("_lora"):
-                out[k] = v
-            else:
-                sub = walk(v)
-                if sub:
-                    out[k] = sub
-        return out
-
-    return walk(params) or {}
 
 
 def has_lora(params) -> bool:

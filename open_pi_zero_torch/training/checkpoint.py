@@ -102,6 +102,19 @@ def _check_tree(want, got, where: str = "") -> None:
         )
 
 
+def _check_opt_state(opt: torch.optim.Optimizer, saved: dict, path: str) -> None:
+    """Raise ValueError unless the optimizer holds every saved state tensor
+    at its saved shape and dtype (the int8 moments of AdamW8bit stay int8)."""
+    loaded = opt.state_dict()["state"]
+    for i, st in saved["state"].items():
+        for k, v in st.items():
+            got = loaded.get(i, {}).get(k)
+            if torch.is_tensor(v) and (got is None or got.dtype != v.dtype or got.shape != v.shape):
+                theirs = None if got is None else f"{tuple(got.shape)} {got.dtype}"
+                raise ValueError(f"checkpoint {path}: optimizer state {i}/{k} loaded as {theirs}, "
+                                 f"saved as {tuple(v.shape)} {v.dtype}")
+
+
 @torch.no_grad()
 def _copy_into(dst, src) -> None:
     if isinstance(dst, dict):
@@ -132,7 +145,8 @@ def save_checkpoint(
         os.path.join(path, STATE_DIR, STATE_FILE),
     )
     if eval_params is not None:
-        _save_params_file(path, eval_params)
+        os.makedirs(os.path.join(path, PARAMS_DIR), exist_ok=True)
+        _save(_detached(eval_params), os.path.join(path, PARAMS_DIR, PARAMS_FILE))
     _write_meta(path, {**(extra or {}), **_quant_meta(state.params)})
 
 
@@ -152,6 +166,7 @@ def restore_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, dict]:
                          "unlike the state restored into")
     _copy_into(state.params, saved["params"])
     state.opt_state.load_state_dict(saved["opt_state"])
+    _check_opt_state(state.opt_state, saved["opt_state"], path)
     state.step = int(saved["step"])
     state.generator.set_state(saved["generator"])
     if state.avg is not None:
@@ -159,21 +174,6 @@ def restore_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, dict]:
         _copy_into(state.avg.avg_params, saved["avg"]["avg_params"])
         state.avg = AveragingState(state.avg.avg_params, int(saved["avg"]["n_averaged"]))
     return state, extra
-
-
-def _save_params_file(path: str, params: dict) -> None:
-    os.makedirs(os.path.join(path, PARAMS_DIR), exist_ok=True)
-    _save(_detached(params), os.path.join(path, PARAMS_DIR, PARAMS_FILE))
-
-
-def save_params(path: str, params: dict) -> None:
-    """Params-only export (for eval and serving): ``path/params/``, and
-    ``meta.json`` only when the tree carries quantized bases."""
-    path = os.path.abspath(path)
-    _save_params_file(path, params)
-    meta = _quant_meta(params)
-    if meta:
-        _write_meta(path, meta)
 
 
 def is_checkpoint(path: str) -> bool:

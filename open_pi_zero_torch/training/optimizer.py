@@ -41,7 +41,7 @@ import torch
 
 from open_pi_zero_torch.config import TrainingConfig
 from open_pi_zero_torch.models.tree import tree_leaves, tree_map
-from open_pi_zero_torch.ops.lora import is_quantized_base
+from open_pi_zero_torch.ops.lora import is_quantized_base, lora_label_fn
 from open_pi_zero_torch.training import schedules
 from open_pi_zero_torch.training.quantized_adam import AdamW8bit
 
@@ -109,13 +109,8 @@ def param_labels(params: dict, train_vlm: bool = True, lora: bool = False) -> di
             return {k: label_tree(v, label) for k, v in subtree.items()}
         return label
 
-    def label_lora_only(subtree, in_lora=False):
-        if isinstance(subtree, dict):
-            return {k: label_lora_only(v, in_lora or k.endswith("_lora")) for k, v in subtree.items()}
-        return vlm_label if in_lora else "frozen"
-
     def vlm_side(subtree):
-        return label_lora_only(subtree) if lora else label_tree(subtree, vlm_label)
+        return lora_label_fn(subtree, vlm_label, "frozen") if lora else label_tree(subtree, vlm_label)
 
     out = {}
     for k, sub in params.items():

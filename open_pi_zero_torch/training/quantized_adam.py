@@ -38,20 +38,42 @@ def _bias_correction(beta: float, count: int) -> float:
 
 class AdamW8bit(torch.optim.Optimizer):
     """AdamW whose per-leaf state is the two moments' int8 payloads
-    (``mu``, ``nu``: [n_blocks, block]) and fp32 scales (``mu_scale``,
-    ``nu_scale``: [n_blocks, 1]). Each param group counts its updates in
-    ``count``; ``state_dict`` and ``load_state_dict`` are torch's, so a
-    checkpoint carries the payloads and the counts."""
+    (``mu``, ``nu``: [n_blocks, DEFAULT_BLOCK]) and fp32 scales
+    (``mu_scale``, ``nu_scale``: [n_blocks, 1]). Each param group counts
+    its updates in ``count``; ``state_dict`` is torch's, so a checkpoint
+    carries the payloads and the counts."""
 
-    def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0, block=DEFAULT_BLOCK):
-        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay, block=block, count=0))
+    def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay, count=0))
 
-    def _leaf_state(self, p: torch.Tensor, block: int) -> dict:
+    def load_state_dict(self, state_dict: dict) -> None:
+        """torch's load, but each moment keeps its saved dtype: torch's own
+        casts every state tensor of a float param to the param's dtype,
+        which would turn the int8 payloads into fp32 for the rest of the
+        run (4x the state and every later checkpoint)."""
+        super().load_state_dict({**state_dict, "state": {}})  # the groups: hyperparameters and counts
+        saved_ids = [i for g in state_dict["param_groups"] for i in g["params"]]
+        params = [p for g in self.param_groups for p in g["params"]]
+        for i, p in zip(saved_ids, params):
+            if i not in state_dict["state"]:
+                continue
+            st = state_dict["state"][i]
+            n_blocks = -(-p.numel() // DEFAULT_BLOCK)
+            for m in ("mu", "nu"):
+                q, scale = st[m], st[f"{m}_scale"]
+                if (q.dtype, scale.dtype) != (torch.int8, torch.float32) or (
+                    tuple(q.shape), tuple(scale.shape)) != ((n_blocks, DEFAULT_BLOCK), (n_blocks, 1)):
+                    raise ValueError(
+                        f"AdamW8bit state {m} of param {i}: {q.dtype} {tuple(q.shape)} with {scale.dtype} scales "
+                        f"{tuple(scale.shape)}, want int8 {(n_blocks, DEFAULT_BLOCK)} with float32 {(n_blocks, 1)}")
+            self.state[p] = {k: v.to(p.device) for k, v in st.items()}
+
+    def _leaf_state(self, p: torch.Tensor) -> dict:
         st = self.state[p]
         if not st:  # zero moments: an all-zero block quantizes to q = 0, scale = 1
-            n_blocks = -(-p.numel() // block)
+            n_blocks = -(-p.numel() // DEFAULT_BLOCK)
             for m in ("mu", "nu"):
-                st[m] = torch.zeros((n_blocks, block), dtype=torch.int8, device=p.device)
+                st[m] = torch.zeros((n_blocks, DEFAULT_BLOCK), dtype=torch.int8, device=p.device)
                 st[f"{m}_scale"] = torch.ones((n_blocks, 1), dtype=torch.float32, device=p.device)
         return st
 
@@ -67,8 +89,8 @@ class AdamW8bit(torch.optim.Optimizer):
 
     def _update_leaf(self, p: torch.Tensor, group: dict) -> None:
         b1, b2 = group["betas"]
-        eps, wd, lr, block = group["eps"], group["weight_decay"], group["lr"], group["block"]
-        st = self._leaf_state(p, block)
+        eps, wd, lr, block = group["eps"], group["weight_decay"], group["lr"], DEFAULT_BLOCK
+        st = self._leaf_state(p)
         full = lambda v: torch.full((), v, dtype=torch.float32, device=p.device)  # noqa: E731
         bc1, bc2 = full(_bias_correction(b1, group["count"])), full(_bias_correction(b2, group["count"]))
         flat_p = p.view(-1)
@@ -76,7 +98,10 @@ class AdamW8bit(torch.optim.Optimizer):
         n, n_blocks = p.numel(), st["mu"].shape[0]
         # the new moments go to new tensors, never into ones that a
         # state_dict handed out may share
-        new = {k: torch.empty_like(v) for k, v in st.items()}
+        new = {}
+        for m in ("mu", "nu"):
+            new[m] = torch.empty((n_blocks, block), dtype=torch.int8, device=p.device)
+            new[f"{m}_scale"] = torch.empty((n_blocks, 1), dtype=torch.float32, device=p.device)
         for b0 in range(0, n_blocks, CHUNK_BLOCKS):
             b_end = min(b0 + CHUNK_BLOCKS, n_blocks)
             lo, hi = b0 * block, min(b_end * block, n)

@@ -1,7 +1,6 @@
-"""Timing, logging and device-memory probes (counterpart of the JAX
-package's ``utils/monitor.py``; reference src/utils/monitor.py): memory
-from ``torch.cuda``'s allocator, traces from ``torch.profiler``, the rank
-from ``torch.distributed``."""
+"""Timing, logging and profiler ranges (counterpart of the JAX package's
+``utils/monitor.py``; reference src/utils/monitor.py). Ranges are
+``torch.profiler``'s."""
 
 from __future__ import annotations
 
@@ -11,15 +10,6 @@ import time
 from typing import Optional
 
 import torch
-
-
-def log_device_memory(log=None, stage: str = "loading model", device=None) -> int:
-    """Log and return the bytes that tensors hold on one card (the
-    reference's log_allocated_gpu_memory, monitor.py:8-12)."""
-    in_use = torch.cuda.memory_allocated(device)
-    msg = f"Device memory after {stage}: {in_use / 1024**3:.2f} GB"
-    (log.info if log else print)(msg)
-    return in_use
 
 
 def log_execution_time(logger: Optional[logging.Logger] = None):
@@ -53,63 +43,6 @@ class Timer:
         if reset:
             self._start = now
         return diff
-
-
-def _rank() -> int:
-    dist = torch.distributed
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
-
-
-class MainRankFilter(logging.Filter):
-    """Log on rank 0 only (reference monitor.py:51-58). The rank is read
-    per record, so a filter made before the process group still works."""
-
-    def __init__(self, main_rank: Optional[bool] = None):
-        super().__init__()
-        self._forced = main_rank  # None: decide per record
-
-    def filter(self, record):
-        if self._forced is not None:
-            return bool(self._forced)
-        return _rank() == 0
-
-
-def main_process_only(func):
-    """Run only on rank 0 (reference main_rank_only,
-    src/utils/decorator.py:31-37)."""
-
-    @functools.wraps(func)
-    def wrapper(*args, **kwargs):
-        return func(*args, **kwargs) if _rank() == 0 else None
-
-    return wrapper
-
-
-class profile_trace:
-    """``torch.profiler`` trace of the host and the card, written as a
-    Chrome trace into ``log_dir`` on exit:
-
-        with profile_trace("/tmp/opz_trace"):
-            step(...)
-    """
-
-    def __init__(self, log_dir: str):
-        self.log_dir = log_dir
-        self._prof = None
-
-    def __enter__(self):
-        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-        activities = [ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            activities.append(ProfilerActivity.CUDA)
-        self._prof = profile(activities=activities, on_trace_ready=tensorboard_trace_handler(self.log_dir))
-        self._prof.__enter__()
-        return self._prof
-
-    def __exit__(self, *exc):
-        self._prof.__exit__(*exc)
-        return False
 
 
 def annotate(name: str):

@@ -8,6 +8,7 @@ from the state's generator, so a resume that lost the generator's state
 would take another update."""
 
 import json
+import shutil
 
 import numpy as np
 import pytest
@@ -84,13 +85,18 @@ def test_trainstate_round_trip_and_resume_equivalence(tmp_path, recipe):
     for a, b in zip(live, resumed):
         assert float(a["loss"]) == float(b["loss"]) and float(a["grad_norm"]) == float(b["grad_norm"])
     for a, b in zip(tree_leaves(state.params), tree_leaves(restored.params)):
-        assert torch.equal(a, b)
+        assert a.dtype == b.dtype and torch.equal(a, b)
     for a, b in zip(tree_leaves(state.avg.avg_params), tree_leaves(restored.avg.avg_params)):
-        assert torch.equal(a, b)
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    # torch.equal promotes its operands: the dtypes are compared apart, so
+    # that int8 moments come back int8
     sa, sb = state.opt_state.state_dict()["state"], restored.opt_state.state_dict()["state"]
     assert sa.keys() == sb.keys()
     for i in sa:
-        assert all(torch.equal(sa[i][k], sb[i][k]) for k in sa[i])
+        assert sa[i].keys() == sb[i].keys()
+        assert all(sa[i][k].dtype == sb[i][k].dtype and torch.equal(sa[i][k], sb[i][k]) for k in sa[i])
+    if recipe == "qlora":
+        assert all(sb[i][m].dtype == torch.int8 for i in sb for m in ("mu", "nu"))
 
 
 def test_restore_refuses_another_tree(tmp_path):
@@ -103,10 +109,18 @@ def test_restore_refuses_another_tree(tmp_path):
         t_ckpt.restore_checkpoint(str(tmp_path / "ckpt"), other)
 
 
+def _save_params_only(path, params, train_cfg):
+    """A checkpoint directory holding only the eval export (a serving
+    deployment ships ``params/`` and ``meta.json`` without ``state/``)."""
+    state = t_train.init_train_state(params, t_opt.build_optimizer(train_cfg, params), torch.Generator(), train_cfg)
+    t_ckpt.save_checkpoint(str(path), state, eval_params=params)
+    shutil.rmtree(path / t_ckpt.STATE_DIR)
+
+
 def test_params_only_round_trip(tmp_path):
-    cfg = t_config.tiny_pizero_config()
+    cfg, train_cfg = _cfgs("float")
     params = t_pizero.init_params(cfg, seed=3, device="cpu")
-    t_ckpt.save_params(str(tmp_path / "p"), params)
+    _save_params_only(tmp_path / "p", params, train_cfg)
     out = t_ckpt.restore_params(str(tmp_path / "p"), t_pizero.abstract_params(cfg), device="cpu")
     for a, b in zip(tree_leaves(params), tree_leaves(out)):
         assert torch.equal(a, b)
@@ -134,10 +148,10 @@ def test_train_checkpoint_carries_eval_params(tmp_path):
 def test_quant_layout_version_stamped_and_checked(tmp_path):
     """4-bit payloads save with the packing-layout version in meta.json; an
     absent or other version fails at restore; float trees carry no
-    meta.json from save_params and restore without the check."""
-    cfg = lora_config(t_config.tiny_pizero_config(), quantize=True)
+    no stamp and restore without the check."""
+    cfg, train_cfg = _cfgs("qlora")
     params = _params(cfg, seed=3)
-    t_ckpt.save_params(str(tmp_path / "q"), params)
+    _save_params_only(tmp_path / "q", params, train_cfg)
     meta = json.loads((tmp_path / "q" / "meta.json").read_text())
     assert meta["quant_layout_version"] == QUANT_LAYOUT_VERSION
     out = t_ckpt.restore_params(str(tmp_path / "q"), params, device="cpu")
@@ -150,7 +164,8 @@ def test_quant_layout_version_stamped_and_checked(tmp_path):
     with pytest.raises(ValueError, match="packing layout"):
         t_ckpt.restore_params(str(tmp_path / "q"), params, device="cpu")
 
-    fparams = t_pizero.init_params(t_config.tiny_pizero_config(), seed=4, device="cpu")
-    t_ckpt.save_params(str(tmp_path / "f"), fparams)
-    assert not (tmp_path / "f" / "meta.json").exists()
+    fcfg, ftrain_cfg = _cfgs("float")
+    fparams = t_pizero.init_params(fcfg, seed=4, device="cpu")
+    _save_params_only(tmp_path / "f", fparams, ftrain_cfg)
+    assert json.loads((tmp_path / "f" / "meta.json").read_text()) == {}
     t_ckpt.restore_params(str(tmp_path / "f"), fparams, device="cpu")

@@ -168,7 +168,26 @@ def test_adamw8bit_state_dict_round_trip():
         opt.step()
     assert opt_b.param_groups[0]["count"] == 2
     assert torch.equal(a, b)
-    assert all(torch.equal(opt_a.state[a][k], opt_b.state[b][k]) for k in opt_a.state[a])
+    # torch.equal promotes its operands: the int8 payloads must stay int8
+    assert opt_a.state[a].keys() == opt_b.state[b].keys()
+    for k in opt_a.state[a]:
+        assert opt_a.state[a][k].dtype == opt_b.state[b][k].dtype and torch.equal(opt_a.state[a][k], opt_b.state[b][k])
+    assert opt_b.state[b]["mu"].dtype == opt_b.state[b]["nu"].dtype == torch.int8
+
+
+def test_adamw8bit_load_refuses_moments_not_int8():
+    """A state whose payloads are not int8 blocks of the param (torch's own
+    load would have cast them to the param's fp32) raises, naming the
+    moment."""
+    a = torch.zeros(3, 700)
+    opt = t_qadam.AdamW8bit([a], lr=LR)
+    a.grad = torch.ones_like(a)
+    opt.step()
+    sd = opt.state_dict()
+    for bad in ({"mu": sd["state"][0]["mu"].float()}, {"nu_scale": sd["state"][0]["nu_scale"].double()},
+                {"mu": sd["state"][0]["mu"][:, :1024]}):
+        with pytest.raises(ValueError, match="AdamW8bit state"):
+            t_qadam.AdamW8bit([a.clone()], lr=LR).load_state_dict({**sd, "state": {0: {**sd["state"][0], **bad}}})
 
 
 def test_build_optimizer_quantized_states_matches_optax_chain():

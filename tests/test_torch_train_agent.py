@@ -109,7 +109,10 @@ def test_run_saves_and_resumes(tmp_path, caplog):
     agent2 = t_agent.TrainAgent(cfg2, dataset=Frames(0), device="cpu")
     assert agent2.state.step == 2 and agent2.cnt_batch == 4
     for a, b in zip(tree_leaves(agent2.state.params), tree_leaves(state.params)):
-        assert torch.equal(a, b)
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    resumed = agent2.state.opt_state
+    moments = [st[m] for st in resumed.state.values() for m in ("mu", "nu")]
+    assert isinstance(resumed, t_opt.AdamW8bit) and moments and all(m.dtype == torch.int8 for m in moments)
     assert agent2.run().step == 3 and os.path.isdir(os.path.join(agent2.ckpt_dir, "ckpt_3"))
 
 
@@ -219,7 +222,7 @@ def test_serve_load_params_on_the_agents_checkpoint_equals_jax(tmp_path, quantiz
     assert ("qa" in qkv) if quantize else torch.is_tensor(qkv)
 
 
-def test_monitor_helpers(tmp_path, caplog):
+def test_monitor_helpers(caplog):
     from open_pi_zero_torch.utils import monitor
 
     timer = monitor.Timer()
@@ -233,11 +236,7 @@ def test_monitor_helpers(tmp_path, caplog):
     with caplog.at_level(logging.INFO, logger="opz_monitor_test"):
         assert twice(3) == 6
     assert any("twice took" in r.getMessage() for r in caplog.records)
-    record = logging.LogRecord("x", logging.INFO, __file__, 1, "m", None, None)
-    assert monitor.MainRankFilter().filter(record)  # rank 0 without a process group
-    assert not monitor.MainRankFilter(main_rank=False).filter(record)
-    assert monitor.main_process_only(lambda: 7)() == 7
-    with monitor.profile_trace(str(tmp_path / "trace")):
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         with monitor.annotate("opz_test_range"):
             torch.ones(4).sum()
-    assert any(p.suffix == ".json" for p in (tmp_path / "trace").iterdir())
+    assert any(e.key == "opz_test_range" for e in prof.key_averages())
