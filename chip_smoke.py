@@ -171,6 +171,24 @@ Phases, each of which raises on failure:
                under torch.profiler: K1's and the backward kernels' ms, and
                the ms of the kernels inside the NF4 dequant and 8-bit Adam
                ranges
+  8d. eval   — run right after 8b, in its temporary log_dir: the
+               launcher (open_pi_zero_torch.scripts.run's main) evaluates
+               8b's ckpt_3 with configs/eval/bridge.yaml, env.task=
+               simpler_lite_reach, bf16, 3 episodes, and the keys of the
+               model 8b trained (its serving layout: the production tree):
+               the EvalAgent's closed loop on the port's ReachEnv, each 112²
+               frame resized to 224² by the Lanczos-4 resize, FakeTokenizer.
+               Every act one replay of the captured chunk (the wrapper counts
+               K1 only at the capture), the first 3 in-loop chunks bitwise
+               the eager chunk on their batch and noise, every chunk finite
+               and in the clip; one profiled act traces 198 K1; the in-loop
+               chunk latency and the host ms per chunk (resize, processor,
+               postprocess, the 4 env steps). One more episode with
+               refine_from_prev=0.5 on the same params: the full graph
+               replays first, then the refined graph (a profiled act: 108
+               K1). Card vs CPU at bridge widths, depth 2, fp32: one reach
+               episode, the CPU's chunk on each card replay's noise, actions
+               <= 1e-3, the same success
   8c. train-8bit — phase 8's full fine-tune with int8 Adam moments
                (configs/train/bridge_v5e.yaml's recipe on one card), 2
                updates: finite losses, the launches, update time, peak memory
@@ -210,6 +228,7 @@ Without a card, or outside a checkout, it exits non-zero before any result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -229,7 +248,11 @@ import torch
 
 from open_pi_zero_torch import config as cfg_lib
 from open_pi_zero_torch import serving
+from open_pi_zero_torch.agents import env_adapter
+from open_pi_zero_torch.agents.eval import EvalAgent
 from open_pi_zero_torch.agents.train import TrainAgent
+from open_pi_zero_torch.envs import make_env
+from open_pi_zero_torch.envs.reach_env import ReachEnv
 from open_pi_zero_torch.models import compiled, convert, fuse, pizero
 from open_pi_zero_torch.models.paligemma import PaliGemmaForConditionalGeneration, paligemma_config
 from open_pi_zero_torch.models.tree import tree_leaves, tree_map
@@ -240,7 +263,8 @@ from open_pi_zero_torch.ops import lora as lora_lib
 from open_pi_zero_torch.ops.attention import mot_attention_ref
 from open_pi_zero_torch.ops.masks import MASK_NEG
 from open_pi_zero_torch.parallel import ranks, run_ranks
-from open_pi_zero_torch.scripts import serve
+from open_pi_zero_torch.processing import VLAProcessor
+from open_pi_zero_torch.scripts import run, serve
 from open_pi_zero_torch.training import checkpoint as ckpt_lib
 from open_pi_zero_torch.training import optimizer as opt_lib
 from open_pi_zero_torch.training import train_step
@@ -2081,12 +2105,23 @@ def compare_states(a, b) -> tuple:
     return equal and a.step == b.step, diff
 
 
-def check_train_agent(dev, info: str) -> dict:
+def check_train_agent(dev, info: str) -> tuple:
     """Phase 8b: the QLoRA recipe through the TrainAgent at full width
-    (``check_agent_run``), in a temporary log_dir removed afterwards."""
+    (``check_agent_run``), then phase 8d on its checkpoint (``check_eval``),
+    in a temporary log_dir removed afterwards. Returns both results."""
     tmp = tempfile.mkdtemp(prefix="opz_train_agent_")
     try:
-        return check_agent_run(dev, info, tmp)
+        t0 = time.time()
+        agent = check_agent_run(dev, info, tmp)
+        log("train-agent: " + json.dumps(agent))
+        log(f"phase train-agent ok in {time.time() - t0:.1f} s")
+        gc.collect()  # the agent and its wrapped methods form a cycle
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        evaluated = check_eval(dev, info, tmp)
+        log("eval: " + json.dumps(evaluated))
+        log(f"phase eval ok in {time.time() - t0:.1f} s")
+        return agent, evaluated
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2262,6 +2297,291 @@ def profile_agent_update(agent, per_update: int) -> dict:
         f"dequant {result['nf4_dequant_ms']:.3f} ms over {result['nf4_dequants']} decodes, 8-bit Adam step "
         f"{result['adam8bit_ms']:.3f} ms")
     return result
+
+
+# --------------------------------------------------------------------------- #
+# phase 8d: closed-loop evaluation through the launcher
+# --------------------------------------------------------------------------- #
+
+EVAL_CONFIG = "configs/eval/bridge.yaml"
+EVAL_EPISODES = 3
+EVAL_CHECKED = 3  # in-loop chunks of the launcher's run held bitwise against the eager chunk
+# the keys that make the eval config's model the one phase 8b trained: the
+# train config's time embedding period and action-expert RoPE theta, and
+# its QLoRA keys (AGENT_OVERRIDES; SigLIP's adapters and NF4 base too)
+TRAINED_MODEL_OVERRIDES = [
+    "time_max_period=100.0", "action_expert_rope_theta=100.0", "quantize=true", "lora=true",
+    "vision.use_lora=true", "vision.use_quantize=true",
+]
+# bridge widths at depth 2 (config.bridge_width_dryrun_config) as eval
+# config keys: a 56² image of 16 tokens, a 4096 vocabulary
+BRIDGE_WIDTH_OVERRIDES = [
+    "joint.config.num_hidden_layers=2", "vision.config.num_hidden_layers=2", "vision.config.image_size=56",
+    "vision.config.num_image_tokens=16", "vocab_size=4096", "image_token_index=4000", "max_seq_len=24",
+    "env.adapter.max_seq_len=24", "env.adapter.num_image_tokens=16", "env.adapter.image_size=[56, 56]",
+    "env.adapter.image_token_index=4000",
+]
+HOST_PARTS = (  # (label, owner, method): the host work of a chunk, timed at the class
+    ("preprocess", env_adapter.SimplerAdapter, "preprocess"),
+    ("resize", env_adapter.SimplerAdapter, "resize_image"),
+    ("processor", VLAProcessor, "__call__"),
+    ("act", EvalAgent, "act"),
+    ("postprocess", env_adapter.SimplerAdapter, "postprocess"),
+    ("env_steps", ReachEnv, "step"),
+)
+
+
+class EvalProbe:
+    """Instruments one eval run at the class level, and restores the
+    classes on exit: the host ms of each part of a chunk (``HOST_PARTS``),
+    each act's agent, inputs and chunk, and each graph replay's tier
+    (t_start), noise and batch; ``check`` replays are held bitwise against
+    the eager chunk afterwards."""
+
+    def __init__(self):
+        self.ms = {label: [] for label, _, _ in HOST_PARTS}
+        self.acts, self.replays = [], []
+        self._saved = []
+
+    def __enter__(self):
+        for label, owner, name in HOST_PARTS:
+            self._wrap(owner, name, self._timed(label, getattr(owner, name)))
+        self._wrap(EvalAgent, "act", self._recorded_act(EvalAgent.act))
+        self._wrap(compiled.CompiledChunk, "__call__", self._recorded_replay(compiled.CompiledChunk.__call__))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, original in reversed(self._saved):
+            setattr(owner, name, original)
+        self._saved.clear()
+
+    def _wrap(self, owner, name, fn):
+        self._saved.append((owner, name, owner.__dict__[name]))
+        setattr(owner, name, fn)
+
+    def _timed(self, label, fn):
+        times = self.ms[label]
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return timed
+
+    def _recorded_act(self, act):
+        def recorded(agent, inputs):
+            out = act(agent, inputs)
+            self.acts.append({"agent": agent, "inputs": inputs, "chunk": out})
+            return out
+
+        return recorded
+
+    def _recorded_replay(self, call):
+        def recorded(graph, batch):
+            out = call(graph, batch)
+            self.replays.append({"t_start": graph.t_start, "noise": graph.noise.clone(), "batch": batch})
+            return out
+
+        return recorded
+
+
+def eager_chunk(agent, replay: dict) -> np.ndarray:
+    """The eager chunk of one replay's batch and noise on the agent's
+    params (its graph's ``_chunk``): ``infer_action`` or, from the
+    batch's ``prev_chunk``, ``infer_action_refined``."""
+    x = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v, device=agent.device)
+         for k, v in replay["batch"].items()}
+    dtype = agent.dtype
+    args = (agent.params, agent.model_cfg, None, x["input_ids"], x["pixel_values"].to(dtype), x["attention_mask"],
+            x["proprios"].to(dtype))
+    if replay["t_start"] > 0.0:
+        out = pizero.infer_action_refined(*args, x["prev_chunk"].to(dtype), t_start=replay["t_start"], x0=replay["noise"])
+    else:
+        out = pizero.infer_action(*args, action0=replay["noise"])
+    return out[0].float().cpu().numpy()
+
+
+def check_in_loop_chunks(probe: EvalProbe, n: int, label: str) -> int:
+    """The first ``n`` in-loop chunks bitwise equal to the eager chunk on
+    the same batch and noise; every chunk finite and in the clip."""
+    if len(probe.replays) != len(probe.acts):
+        raise AssertionError(f"{label}: {len(probe.acts)} acts but {len(probe.replays)} graph replays")
+    for i, (act, replay) in enumerate(zip(probe.acts, probe.replays)):
+        chunk, clip = act["chunk"], act["agent"].model_cfg.final_action_clip_value
+        if not (np.isfinite(chunk).all() and np.abs(chunk).max() <= clip):
+            raise AssertionError(f"{label}: chunk {i} not finite or outside the clip {clip}")
+        if i < n and not np.array_equal(chunk, eager_chunk(act["agent"], replay)):
+            raise AssertionError(f"{label}: in-loop chunk {i} differs from the eager chunk on its batch and noise")
+    return min(n, len(probe.acts))
+
+
+def host_ms_per_chunk(probe: EvalProbe) -> dict:
+    """Each host part's ms summed over the run, per chunk (the first chunk
+    left out of the act's mean and median)."""
+    n = len(probe.acts)
+    out = {label: sum(ms) / n for label, ms in probe.ms.items() if label != "act"}
+    out["preprocess_rest"] = out["preprocess"] - out["resize"] - out["processor"]
+    acts = probe.ms["act"][1:]
+    out["act_mean"], out["act_median"] = statistics.mean(acts), statistics.median(acts)
+    return out
+
+
+def eval_overrides(tmp: str, ckpt: str) -> list:
+    """configs/eval/bridge.yaml on phase 8b's checkpoint: the SimplerLite
+    reach task, bf16, the trained model's keys, a statistics file written
+    from configs/statistics/bridge_statistics.json; no video (imageio is
+    not on the card's machine) and pretrained_model_path at no file (so the
+    adapter takes the warmed FakeTokenizer)."""
+    stats = os.path.join(tmp, "eval_statistics.json")
+    shutil.copyfile("configs/statistics/bridge_statistics.json", stats)
+    return [
+        "env.task=simpler_lite_reach", "use_bf16=true", f"n_eval_episode={EVAL_EPISODES}", f"checkpoint_path={ckpt}",
+        f"env.adapter.dataset_statistics_path={stats}", *TRAINED_MODEL_OVERRIDES, "record_video=false",
+        f"log_dir={tmp}/eval", f"env.adapter.pretrained_model_path={tmp}/no_tokenizer",
+    ]
+
+
+def check_eval(dev, info: str, tmp: str) -> dict:
+    """Phase 8d: the launcher (``scripts/run.main``) evaluates phase 8b's
+    ckpt_3 in closed loop on the SimplerLite reach task, at full width in
+    bf16, in the serving layout of its config; a refined run of one
+    episode on the same params; card vs CPU at bridge widths."""
+    ckpt = os.path.join(tmp, "checkpoint", "ckpt_3")
+    overrides = eval_overrides(tmp, ckpt)
+    cfg = cfg_lib.load_config(EVAL_CONFIG, overrides)
+    trained = cfg_lib.pizero_config_from_dict(cfg_lib.load_config(AGENT_CONFIG, AGENT_OVERRIDES))
+    model = cfg_lib.pizero_config_from_dict(cfg)
+    # remat is a training switch: the rest must be the trained model's
+    if dataclasses.replace(model, joint=dataclasses.replace(model.joint, remat=trained.joint.remat)) != trained:
+        raise AssertionError(f"the eval config's model {model} is not the one phase 8b trained: {trained}")
+    L = trained.joint.num_hidden_layers
+    per_chunk = L + L * trained.num_inference_steps
+    per_refined = L + L * round(trained.num_inference_steps * 0.5)
+    chunks_per_episode = math.ceil(make_env("simpler_lite_reach").max_steps / int(cfg.act_steps))
+
+    # the launcher's run: K1 launches only at the capture (the warm-up and
+    # the captured chunk); every act is one replay
+    with EvalProbe() as probe:
+        fa.launches = fa.bwd_launches = 0
+        t0 = time.time()
+        result = run.main(["--config", EVAL_CONFIG, "--device", str(dev), *overrides])
+        run_s = time.time() - t0
+        launches = fa.launches
+    agent = probe.acts[0]["agent"]
+    n = len(probe.acts)
+    if result["n_episodes"] != EVAL_EPISODES or n != EVAL_EPISODES * chunks_per_episode:
+        raise AssertionError(f"{result}, {n} chunks; want {EVAL_EPISODES} episodes of {chunks_per_episode}")
+    if launches != 2 * per_chunk or {r["t_start"] for r in probe.replays} != {0.0}:
+        raise AssertionError(f"{launches} K1 launches by the wrapper (want {2 * per_chunk}, the capture's), "
+                             f"replays of tiers {sorted({r['t_start'] for r in probe.replays})}")
+    checked = check_in_loop_chunks(probe, EVAL_CHECKED, "eval")
+    host = host_ms_per_chunk(probe)
+    layout = "production (int8 action expert, W8A8 VLM trunk)" if fuse.serving_layout_kwargs(cfg) else "fused bf16"
+    inputs = probe.acts[-1]["inputs"]
+    got, traced, wall = profiled_window(
+        lambda: agent.act(inputs), {None: None, KERNEL_SYMBOL: per_chunk, ROWS_SYMBOL: 0, KEYS_SYMBOL: 0},
+        counted=(0, 0))
+    busy = got[None][0]
+    log_profile("eval act", traced, wall, busy)
+    log(f"eval: {EVAL_CONFIG} on ckpt_3 via scripts/run.main, {layout} layout, bf16: {result['n_episodes']} episodes, "
+        f"success rate {result['success_rate']} (of a 3-update checkpoint: not a quality number), "
+        f"{result['success_by_instruction']}; {n} chunks, {n} graph replays, {launches} K1 launches counted (the "
+        f"capture); first {checked} in-loop chunks bitwise the eager chunk; all finite, in the clip")
+    log(f"eval: in-loop chunk (act: inputs to the card, one replay, chunk to the host) mean {host['act_mean']:.3f} ms, "
+        f"median {host['act_median']:.3f} ms (chunks 2-{n}); the loop's mean_inference_time_s "
+        f"{1e3 * result['mean_inference_time_s']:.3f} ms (act + postprocess); host ms per chunk: resize "
+        f"{host['resize']:.3f}, processor {host['processor']:.3f}, rest of preprocess {host['preprocess_rest']:.3f}, "
+        f"postprocess {host['postprocess']:.3f}, {cfg.act_steps} env steps {host['env_steps']:.3f}; a profiled act "
+        f"{wall:.3f} ms, device busy {busy:.3f} ms, K1 {got[KERNEL_SYMBOL][0]:.3f} ms over "
+        f"{got[KERNEL_SYMBOL][1]} launches; run {run_s:.1f} s, on {info}")
+
+    # the refined tier: one episode on the same served params; the first
+    # chunk is the full graph's, every later one the refined graph's
+    cfg2 = cfg_lib.load_config(EVAL_CONFIG, overrides + ["refine_from_prev=0.5", "n_eval_episode=1"])
+    fa.launches = 0
+    with EvalProbe() as probe2:
+        refined_agent = EvalAgent(cfg2, params=agent.params, device=dev)
+        if fa.launches != 2 * (per_chunk + per_refined):
+            raise AssertionError(f"the two captures launched K1 {fa.launches} times, want {2 * (per_chunk + per_refined)}")
+        refined_result = refined_agent.run()
+    tiers = [r["t_start"] for r in probe2.replays]
+    if refined_result["n_episodes"] != 1 or tiers != [0.0] + [0.5] * (chunks_per_episode - 1):
+        raise AssertionError(f"refined run: {refined_result}, tiers {tiers}")
+    checked_refined = check_in_loop_chunks(probe2, 4, "eval refined")
+    refined_host = host_ms_per_chunk(probe2)
+    k1 = {}
+    for name, want in (("full", per_chunk), ("refined", per_refined)):
+        def act():  # a retaken window acts again: the full act from an empty cache
+            if name == "full":
+                refined_agent.reset_policy_cache()
+            return refined_agent.act(inputs)
+
+        act()  # after it the cache holds a chunk: a refined act refines
+        got2, _, _ = profiled_window(act, {KERNEL_SYMBOL: want, ROWS_SYMBOL: 0, KEYS_SYMBOL: 0}, counted=(0, 0))
+        k1[name] = got2[KERNEL_SYMBOL]
+    log(f"eval refined (refine_from_prev=0.5): 1 episode, success rate {refined_result['success_rate']}; "
+        f"{len(tiers)} replays: the first of the full graph, {len(tiers) - 1} of the refined graph; first "
+        f"{checked_refined} in-loop chunks bitwise the eager chunk; profiled act: full {k1['full'][1]} K1 launches "
+        f"{k1['full'][0]:.3f} ms, refined {k1['refined'][1]} launches {k1['refined'][0]:.3f} ms; in-loop chunk "
+        f"mean {refined_host['act_mean']:.3f} ms (chunks 2-{len(tiers)})")
+    del refined_agent, agent, probe, probe2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    parity = check_eval_parity(dev, tmp)
+    return {
+        "result": result, "chunks": n, "replays": n, "capture_launches": launches, "bitwise_checked": checked,
+        "layout": layout, "host_ms_per_chunk": host, "profiled_act_ms": wall, "busy_ms": busy,
+        "k1_launches_per_chunk": got[KERNEL_SYMBOL][1], "k1_ms": got[KERNEL_SYMBOL][0],
+        "refined": {"result": refined_result, "tiers": tiers, "bitwise_checked": checked_refined,
+                    "k1_launches": {k: v[1] for k, v in k1.items()}, "k1_ms": {k: v[0] for k, v in k1.items()},
+                    "host_ms_per_chunk": refined_host},
+        "parity": parity, "run_s": run_s,
+    }
+
+
+def check_eval_parity(dev, tmp: str) -> dict:
+    """One SimplerLite reach episode at bridge widths, depth 2, fp32, through
+    an EvalAgent on the card (its graph) and one on the CPU (the eager
+    chunk, K1's plain version) from the same params; the CPU chunk takes
+    the noise each card replay drew. Actions within 1e-3, the same
+    instructions, success and episode count."""
+    stats = os.path.join(tmp, "eval_statistics.json")
+    overrides = ["env.task=simpler_lite_reach", "use_bf16=false", "n_eval_episode=1", "record_video=false",
+                 f"env.adapter.dataset_statistics_path={stats}", f"log_dir={tmp}/eval_parity",
+                 f"env.adapter.pretrained_model_path={tmp}/no_tokenizer", *BRIDGE_WIDTH_OVERRIDES]
+    cfg = cfg_lib.load_config(EVAL_CONFIG, overrides)
+    mcfg = cfg_lib.pizero_config_from_dict(cfg)
+    params_cpu = cpu_params(mcfg)
+    params_dev = tree_map(lambda x: x.to(dev), params_cpu)
+    with EvalProbe() as probe:
+        card_result = EvalAgent(cfg, params=params_dev, device=dev).run()
+    noises = [r["noise"].cpu() for r in probe.replays]
+    cpu_agent = EvalAgent(cfg, params=params_cpu, device="cpu")
+
+    def injected(inputs):
+        x = {k: torch.as_tensor(inputs[k]) for k in ("input_ids", "pixel_values", "attention_mask", "proprios")}
+        return pizero.infer_action(params_cpu, mcfg, None, x["input_ids"], x["pixel_values"], x["attention_mask"],
+                                   x["proprios"], action0=noises.pop(0))
+
+    cpu_agent._infer = injected
+    with EvalProbe() as cpu_probe:
+        cpu_result = cpu_agent.run()
+    card_chunks = [a["chunk"] for a in probe.acts]
+    cpu_chunks = [a["chunk"] for a in cpu_probe.acts]
+    # fp32 on both sides (TF32 off): as phase 3, the card sums in other
+    # orders, ~1e-6 relative per op; 1e-3 catches a wrong mask, cast or input
+    err = max(float(np.abs(a - b).max()) for a, b in zip(card_chunks, cpu_chunks))
+    same = {k: card_result[k] == cpu_result[k] for k in ("n_episodes", "success_rate", "success_by_instruction")}
+    if len(card_chunks) != len(cpu_chunks) or err > 1e-3 or not all(same.values()) or noises:
+        raise AssertionError(f"card vs CPU eval: {len(card_chunks)} / {len(cpu_chunks)} chunks, max|diff| {err}, "
+                             f"results {card_result} / {cpu_result}")
+    log(f"eval parity: bridge widths depth 2 fp32, one reach episode of {len(card_chunks)} chunks, card (graph) vs "
+        f"CPU (eager, the card's noise): actions max|diff| {err:.3e} (<= 1e-3), success {card_result['success_rate']} "
+        f"on both")
+    return {"chunks": len(card_chunks), "max_abs_diff": err, "success_rate": card_result["success_rate"]}
 
 
 def check_full_finetune_8bit(dev, info: str, updates: int = 2) -> dict:
@@ -2532,10 +2852,7 @@ def single_card_phases(dev, info: str) -> list:
     del train_calls
     torch.cuda.empty_cache()
 
-    t0 = time.time()
-    agent = check_train_agent(dev, info)
-    log("train-agent: " + json.dumps(agent))
-    log(f"phase train-agent ok in {time.time() - t0:.1f} s")
+    agent, evaluated = check_train_agent(dev, info)  # phases 8b and 8d
     torch.cuda.empty_cache()
 
     t0 = time.time()
@@ -2576,6 +2893,12 @@ def single_card_phases(dev, info: str) -> list:
         # one full-width QLoRA update of the TrainAgent (phase 8b), profiled
         "qlora_update_launches": agent["launches"] // 3,
         "qlora_update_ms": agent["profile"]["kernel_ms"],
+        # one in-loop act of the EvalAgent (phase 8d): a replay of the
+        # production chunk's graph, profiled; and the refined graph's
+        "eval_launches_per_chunk": evaluated["k1_launches_per_chunk"],
+        "eval_ms": evaluated["k1_ms"],
+        "eval_refined_launches_per_chunk": evaluated["refined"]["k1_launches"]["refined"],
+        "eval_refined_ms": evaluated["refined"]["k1_ms"]["refined"],
     }
     vjp_entry = {
         "name": "mot_attention_vjp",

@@ -17,8 +17,8 @@ Where it differs from the JAX agent, by design:
   - the data: the JAX agent builds ``tf.data`` RLDS pipelines from
     ``cfg.data``; the port has no TensorFlow, so ``dataset=`` is required
     (any object whose ``iterator(batch_size)`` yields frame batches in the
-    RLDS layout of ``preprocess_batch``), and ``cfg.data`` without one
-    raises (ROADMAP.md queue 1, item 10);
+    RLDS layout of ``preprocess_batch``): without one the agent raises
+    before it builds the params (ROADMAP.md queue 1, item 10);
   - the tokenizer: ``FakeTokenizer`` when ``pretrained_model_path`` does
     not exist, as in JAX; an existing path raises, since the PaliGemma
     tokenizer needs transformers (queue 1, item 9);
@@ -109,6 +109,11 @@ class TrainAgent:
         self.step_batch_size = pbs  # per microbatch
         log.info("device=%s accum=%d per-device=%d global=%d", self.device, self.grad_accum, pbs, gbs)
 
+        # ---- data: checked before the params are built ----
+        if dataset is None:
+            what = "cfg.data names an RLDS pipeline, which needs TensorFlow" if cfg.get("data") is not None else "no data"
+            raise NotImplementedError(f"{what}; pass dataset= ({DATA_PIPELINE_ITEM})")
+
         # ---- params, optimizer, state (zero1 is a no-op on one device) ----
         params = self._build_params()
         self.optimizer = opt_lib.build_optimizer(self.train_cfg, params)
@@ -126,12 +131,7 @@ class TrainAgent:
             self._wandb_id = extra.get("wandb_id")
             log.info("resumed from %s at update %d", resume, self.state.step)
 
-        # ---- data ----
         self.dataset, self.val_dataset = dataset, val_dataset
-        if self.dataset is None and cfg.get("data") is not None:
-            raise NotImplementedError(
-                f"cfg.data names an RLDS pipeline, which needs TensorFlow; pass dataset= ({DATA_PIPELINE_ITEM})"
-            )
 
         self.processor = VLAProcessor(
             _load_tokenizer(cfg),
@@ -256,8 +256,6 @@ class TrainAgent:
     # ------------------------------------------------------------------ #
     def run(self):
         """The training loop (reference train.py:249-495). Returns the state."""
-        if self.dataset is None:
-            raise ValueError("no dataset: pass dataset= to TrainAgent")
         it = self.dataset.iterator(self.step_batch_size)
         timer = Timer()
         losses = deque(maxlen=self.log_freq)  # device scalars, read at log boundaries only

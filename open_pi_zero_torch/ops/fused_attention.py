@@ -296,11 +296,13 @@ def _check(q, k, v, mask) -> None:
 def _launch(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
     global launches
     true_d = q.shape[-1]
-    if 0 < true_d < HEAD_DIMS[0]:
-        # below the kernel's smallest head dim (the reference fixtures' 8):
-        # zero columns add exact zeros to every q.k and give zero output
-        # columns, and the scale stays that of the true head dim
-        q, k, v = (F.pad(x, (0, HEAD_DIMS[0] - true_d)) for x in (q, k, v))
+    run_d = next((h for h in HEAD_DIMS if h >= true_d), true_d)
+    if 0 < true_d < run_d:
+        # between the kernel's head dims (the reference fixtures' 8,
+        # SimplerLite's 24): zero columns up to the next one add exact zeros
+        # to every q.k and give zero output columns, and the scale stays
+        # that of the true head dim
+        q, k, v = (F.pad(x, (0, run_d - true_d)) for x in (q, k, v))
     _check(q, k, v, mask)
     b, lq, hq, d = q.shape
     _, lkv, hkv, _ = k.shape

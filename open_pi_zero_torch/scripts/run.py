@@ -1,0 +1,77 @@
+"""Launcher (counterpart of the JAX package's ``scripts/run.py``; reference
+scripts/run.py, hydra): loads a YAML experiment config with ``${...}``
+interpolation and key=value overrides (``config.load_config``) and
+dispatches to the TrainAgent or the EvalAgent.
+
+  python -m open_pi_zero_torch.scripts.run --config configs/eval/simpler_lite.yaml \\
+      [--mode train|eval] [--device cuda|cpu] [key=value ...]
+
+The mode is ``--mode``, else the config's ``mode``, else eval if the
+config has an ``env`` block and train if not. The agents run on the card
+unless ``--device cpu``. ``train`` builds the port's TrainAgent, which
+needs a dataset object that a command line cannot give until the TF-free
+data pipeline lands (ROADMAP.md queue 1, item 10): it raises
+NotImplementedError naming that item. ``--distributed`` raises
+NotImplementedError: training under a mesh waits in item 8.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+from open_pi_zero_torch.config import load_config
+
+MESH_ITEM = "ROADMAP.md queue 1, item 8 (training under a mesh)"
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config", required=True, help="YAML experiment config")
+    parser.add_argument(
+        "--mode", choices=["train", "eval"], default=None,
+        help="override auto-detection (eval if the config has an env block, else train)",
+    )
+    parser.add_argument(
+        "--distributed", action="store_true",
+        help="multi-process launch (the JAX package's jax.distributed.initialize): not ported",
+    )
+    parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    parser.add_argument("overrides", nargs="*", help="key=value config overrides")
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    """Run the config's agent. Returns the eval result, or the trained
+    state."""
+    args = parse_args(argv)
+    if args.distributed:
+        raise NotImplementedError(f"--distributed: a multi-process launch waits in {MESH_ITEM}")
+
+    cfg = load_config(args.config, args.overrides)
+
+    logging.basicConfig(
+        level=logging.DEBUG if cfg.get("debug") else logging.INFO,
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+    )
+    log = logging.getLogger("run")
+
+    mode = args.mode or cfg.get("mode")
+    if mode is None:
+        mode = "eval" if cfg.get("env") is not None else "train"
+    log.info("mode=%s config=%s device=%s", mode, args.config, args.device)
+
+    if mode == "train":
+        from open_pi_zero_torch.agents.train import TrainAgent
+
+        return TrainAgent(cfg, device=args.device).run()
+
+    from open_pi_zero_torch.agents.eval import EvalAgent
+
+    result = EvalAgent(cfg, device=args.device).run()
+    log.info("result: %s", result)
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,8 @@
 """The port's boundaries: it imports neither jax, yaml, safetensors, optax,
-orbax, tensorflow, transformers nor the JAX package; its source names none
-of them; and its serving loop answers concurrent requests with a tiny
-model on the CPU."""
+orbax, tensorflow, transformers, cv2 nor the JAX package; its source names
+none of them (simpler_env and imageio only inside the functions that need
+them); and its serving loop answers concurrent requests with a tiny model
+on the CPU."""
 
 import json
 import os
@@ -43,12 +44,17 @@ def test_import_leaves_jax_and_yaml_out():
     for name in ("training.checkpoint", "training.quantized_adam", "agents.train", "processing", "utils.metric",
                  "utils.monitor"):
         assert f"open_pi_zero_torch.{name}" in modules
+    # and closed-loop evaluation's and the launcher's
+    for name in ("agents.eval", "agents.env_adapter", "envs.reach_env", "envs.pick_place_env", "envs.drawer_env",
+                 "utils.geometry", "utils.image", "data.normalization", "scripts.run",
+                 "scripts.try_checkpoint_in_simpler"):
+        assert f"open_pi_zero_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'yaml', 'safetensors', 'open_pi_zero_tpu', 'optax', 'orbax', 'tensorflow', "
-        "'transformers'))))\n"
+        "'transformers', 'cv2', 'simpler_env', 'imageio'))))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -62,19 +68,26 @@ def test_import_leaves_jax_and_yaml_out():
 def test_sources_import_no_jax_package():
     # the JAX package's name may appear in notes that say which TPU kernel
     # a kernel replaces; what is refused is any import of it, jax, yaml,
-    # safetensors, optax, orbax, tensorflow or transformers (the card's
+    # safetensors, optax, orbax, tensorflow, transformers or cv2 (the card's
     # machine has none of them)
-    names = "jax|jaxlib|yaml|safetensors|open_pi_zero_tpu|optax|orbax|tensorflow|transformers"
+    names = "jax|jaxlib|yaml|safetensors|open_pi_zero_tpu|optax|orbax|tensorflow|transformers|cv2"
     bad = re.compile(
         rf"^\s*(import|from)\s+({names})\b|import_module\(\s*['\"]({names})\b",
         re.M,
     )
+    # simpler_env and imageio only inside the functions that need them (real
+    # Simpler tasks, video), never at a module's top level
+    top_level = re.compile(r"^(import|from)\s+(simpler_env|imageio)\b", re.M)
     hits = [
         f"{p.relative_to(REPO)}: {m.group(0).strip()}"
         for p in _port_sources()
-        for m in bad.finditer(p.read_text())
+        for pattern in (bad, top_level)
+        for m in pattern.finditer(p.read_text())
     ]
     assert hits == []
+    lazy = [p.relative_to(REPO).as_posix() for p in _port_sources()
+            if re.search(r"^\s+(import|from)\s+(simpler_env|imageio)\b", p.read_text(), re.M)]
+    assert lazy == ["open_pi_zero_torch/agents/env_adapter.py", "open_pi_zero_torch/agents/eval.py"]
 
 
 def _tiny_request(cfg, rng):

@@ -34,6 +34,7 @@ GEOMETRIES = [
     (1, 1, 300, 8, 2, 32),
     (2, 7, 9, 4, 4, 16),
     (2, 7, 9, 4, 1, 8),  # the reference fixtures' head dim: zero-padded to 16 by the wrapper
+    (1, 4, 25, 4, 1, 24),  # SimplerLite's (configs/eval/simpler_lite.yaml): zero-padded to 32
     (16, 281, 281, 8, 1, 256),  # training: 576 blocks of 64 rows, no split
     (1, 4, 281, 4, 1, 256),  # K1-shard's Euler step: one cell over 16 blocks
     (1, 4, fa.max_lkv(256), 8, 1, 256),  # the longest K/V the kernel takes
@@ -134,9 +135,10 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         fa.mot_attention_fused(q, k, v, mask.half())
     with pytest.raises(ValueError, match="contiguous"):
         fa.mot_attention_fused(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, mask)
+    # above the largest head dim (between two, the wrapper zero-pads up)
+    wide_q, wide_kv = torch.zeros(1, 4, 8, 320, device=cuda), torch.zeros(1, 33, 1, 320, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
-        fa.mot_attention_fused(q[..., :48].contiguous(), k[..., :48].contiguous(),
-                               v[..., :48].contiguous(), mask)
+        fa.mot_attention_fused(wide_q, wide_kv, wide_kv, mask)
     long_kv = torch.zeros(1, fa.max_lkv(256) + 4, 1, 256, device=cuda)
     with pytest.raises(ValueError, match="limit"):
         fa.mot_attention_fused(q, long_kv, long_kv, torch.zeros(1, 1, 4, long_kv.shape[1], device=cuda))
