@@ -79,7 +79,10 @@ Phases, each of which raises on failure:
                beside the eager chunk's, device-busy ms, K1 ms, host ms per
                replay, the pool's bytes; the warm chunk of each graph and of
                its eager chunk in turns (median of 11); then the bf16 trees
-               are freed
+               are freed. Then a capture under the cyclic GC: a dropped
+               reference cycle holding a CompiledChunk, gc.set_threshold(1,
+               1, 1), another capture (tiny config): it succeeds, the cycle
+               is collected, the replay is bitwise the eager chunk
   4d. adaln  — full-width PiZeroConfig() with adaLN-Zero action and
                proprio experts, bf16, B = 1: the float and production trees
                as phase 4 drives the float tree (198 K1 launches per chunk,
@@ -121,16 +124,22 @@ Phases, each of which raises on failure:
                plain version, at the training shape (B=16, Lq=Lkv=281, the
                training mask) and with a fully masked row: the output and
                dq, dk, dv of a random cotangent, fp32 (1e-4) and bf16
-               (2e-2); two backward launches per VJP; two VJPs bitwise equal
+               (2e-2); two backward launches per VJP; two VJPs bitwise equal.
+               The same at head dims between the kernels' sizes, which K1
+               and its backward zero-pad: (B, Lq, Lkv, Hq, Hkv, D) = (2, 7,
+               9, 4, 1, 8) and (1, 4, 25, 4, 1, 24)
   7. train-parity — bridge widths at depth 2, fp32, remat on, B=2,
                grad_accum=2, injected flow times and noise, Adam eps 1e-3:
                one update on the card (kernel) against the same update on
                the CPU (plain version): loss and grad norm (relative 1e-3)
-               and the updated params (max|diff| <= 1e-6). Then the same
-               update in the QLoRA recipe (NF4 vlm and SigLIP bases, LoRA
-               adapters with B drawn off zero, int8 Adam moments): loss and
-               grad norm (1e-3), the adapters and the action expert
-               (1e-6), the moments' payloads at most one code apart but
+               and the updated params (max|diff| <= 1e-6). One TrainAgent
+               update at configs/eval/simpler_lite.yaml's geometry (head dim
+               24, zero-padded to 32), fp32, card vs CPU: loss and grad norm
+               (1e-3), the params (1e-6). Then the update in the QLoRA
+               recipe (NF4 vlm and SigLIP bases, LoRA adapters with B drawn
+               off zero, int8 Adam moments): loss and grad norm (1e-3), the
+               adapters and the action expert (1e-6), the moments' payloads
+               at most one code apart but
                where a grad is rounding noise on both sides and its sign
                differs (codes -1 and +1; both counts printed), their scales
                (1e-3 relative), the NF4 bases bitwise unchanged
@@ -150,27 +159,38 @@ Phases, each of which raises on failure:
                `backward_ms` (the backward kernels' device time by symbol),
                `recompute_ms`, `plain_ms`, `library_ms` and `bound_ms` of
                the mot_attention_vjp entry
-  8b. train-agent — configs/train/bridge.yaml loaded by the port's
-               load_config in its QLoRA recipe (quantize, lora, remat; B=16
-               x 2, 3 updates, validation at 3, a save at the end) through
-               the TrainAgent on seeded synthetic frames in the RLDS layout
-               (224² images, 7-dim proprio and actions, 4-step chunks):
-               exactly 3 * 2 * 2L K1 and 3 * 2 * 2L backward launches in the
+  8b. train-agent — a bridge-shaped RLDS dataset written by the port's
+               writer (8 episodes of 34-42 steps, 224² PNG image_0 of a
+               smooth moving scene, 7-dim state and action, an
+               instruction, is_first; 2 shards), then the launcher
+               (scripts/run.main --mode train) on configs/train/bridge.yaml
+               in its QLoRA recipe (quantize, lora, remat; B=16 x 2, 3
+               updates, validation at 3, a save at the end) with
+               data.train.data_path there: the TrainAgent builds its
+               datasets from cfg.data (the TF-free pipeline, augmentation
+               on). Cut from the recipe: the dataset's size; the shuffle
+               buffer 200000 -> 1000 frames; the frame-transform threads
+               100 -> 2, the trajectory threads 10 -> 1 (DATA_OVERRIDES).
+               Exactly 3 * 2 * 2L K1 and 3 * 2 * 2L backward launches in the
                updates, one chunk's in the validation; finite losses;
                every trained leaf changed, the NF4 bases and embed_tokens
                bitwise unchanged; the validation's l1 and accuracies; update
-               time, peak memory, the tree's, optimizer state's and
-               checkpoint's bytes, save and restore times. A second agent
-               with resume_checkpoint_path=auto takes ckpt_3 over a partial
+               time and each update's wait for its batch, peak memory, the
+               tree's, optimizer state's and checkpoint's bytes, save and
+               restore times; the pipeline alone (a fresh iterator's first
+               batch, then frames/s through decode, resize, augment and
+               batching). A second agent with resume_checkpoint_path=auto
+               (its datasets from cfg.data too) takes ckpt_3 over a partial
                ckpt_99, restores step 3 and cnt_batch, and its update 4
-               equals the first agent's on the same batch (bitwise, or
-               within 1e-6, said which). scripts/serve.load_params serves
-               ckpt_3 (merge, NF4 decode, production layout): one bf16
-               chunk, finite, in the clip, within the drift limit (mean L1
-               5e-3) of the merged float params' bf16 chunk. One more update
-               under torch.profiler: K1's and the backward kernels' ms, and
-               the ms of the kernels inside the NF4 dequant and 8-bit Adam
-               ranges
+               equals the first agent's on the same batch, the first of a
+               fresh iterator (bitwise, or within 1e-6, said which).
+               scripts/serve.load_params serves ckpt_3 (merge, NF4 decode,
+               production layout): one bf16 chunk, finite, in the clip,
+               within the drift limit (mean L1 5e-3) of the merged float
+               params' bf16 chunk. One more update under torch.profiler:
+               K1's and the backward kernels' ms, the ms of the kernels
+               inside the NF4 dequant and 8-bit Adam ranges, and the card's
+               busy share of the update
   8d. eval   — run right after 8b, in its temporary log_dir: the
                launcher (open_pi_zero_torch.scripts.run's main) evaluates
                8b's ckpt_3 with configs/eval/bridge.yaml, env.task=
@@ -241,6 +261,7 @@ import sys
 import tempfile
 import threading
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -251,6 +272,8 @@ from open_pi_zero_torch import serving
 from open_pi_zero_torch.agents import env_adapter
 from open_pi_zero_torch.agents.eval import EvalAgent
 from open_pi_zero_torch.agents.train import TrainAgent
+from open_pi_zero_torch.data import images
+from open_pi_zero_torch.data import rlds as data_rlds
 from open_pi_zero_torch.envs import make_env
 from open_pi_zero_torch.envs.reach_env import ReachEnv
 from open_pi_zero_torch.models import compiled, convert, fuse, pizero
@@ -1102,6 +1125,42 @@ def check_compiled(dev, cfg, trees: dict, eager_rows: dict, info: str, label: st
 
 
 
+def check_capture_under_gc(dev) -> dict:
+    """Phase 4c, the capture under the cyclic GC: a reference cycle that
+    holds a CompiledChunk is dropped, the GC set to collect at nearly every
+    allocation, and another chunk captured (tiny config, fp32, B = 1). The
+    capture succeeds, the dead cycle is gone, and a replay is bitwise the
+    eager chunk."""
+    cfg = cfg_lib.tiny_pizero_config()
+    params = pizero.init_params(cfg, seed=0, device=dev)
+
+    class Holder:
+        pass
+
+    dead = Holder()
+    dead.graph = compiled.compile_chunk(params, cfg, 1, generator=torch.Generator(dev).manual_seed(GRAPH_SEED),
+                                        device=dev)
+    dead.me = dead  # a cycle: only the GC frees it, and its graph's memory with it
+    ref = weakref.ref(dead)
+    del dead
+    thresholds, collections = gc.get_threshold(), sum(g["collections"] for g in gc.get_stats())
+    gc.set_threshold(1, 1, 1)
+    try:
+        t0 = time.perf_counter()
+        graph = compiled.compile_chunk(params, cfg, 1, generator=torch.Generator(dev).manual_seed(GRAPH_SEED),
+                                       device=dev)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+    finally:
+        gc.set_threshold(*thresholds)
+    collections = sum(g["collections"] for g in gc.get_stats()) - collections
+    eager = serving.make_infer_fn(params, cfg, device=dev, seed=GRAPH_SEED)
+    batch = example_batch(cfg, 1, np.random.default_rng(21))
+    if ref() is not None or not torch.equal(graph(batch), eager(batch)):
+        raise AssertionError(f"dead cycle collected: {ref() is None}; the replay differs from the eager chunk")
+    return {"capture_s": capture_s, "gc_collections": collections, "threshold": [1, 1, 1]}
+
+
 # --------------------------------------------------------------------------- #
 # phase 4d: the adaLN-Zero action expert
 # --------------------------------------------------------------------------- #
@@ -1634,11 +1693,47 @@ def out_and_grads(attention, q, k, v, mask, g, softcap=50.0) -> tuple:
     return (out.detach(), *torch.autograd.grad(out, (q, k, v), g))
 
 
+# (B, Lq, Lkv, Hq, Hkv, D) at head dims between the kernels' sizes: the
+# reference fixtures' 8 and SimplerLite's 24, zero-padded to 16 and 32
+PADDED_GEOMETRIES = ((2, 7, 9, 4, 1, 8), (1, 4, 25, 4, 1, 24))
+
+
+def check_vjp_padded(dev) -> dict:
+    """Phase 6 at PADDED_GEOMETRIES: K1-vjp (K1, then the two backward
+    kernels, each at the padded head dim, scaled by the true one) against
+    plain autograd; max|diff| of the output and of each grad."""
+    errs = {}
+    for b, lq, lkv, hq, hkv, d in PADDED_GEOMETRIES:
+        rng = np.random.default_rng(d)
+        shapes = ((b, lq, hq, d), (b, lkv, hkv, d), (b, lkv, hkv, d), (b, lq, hq, d))
+        arrays = [rng.normal(size=s).astype(np.float32) for s in shapes]
+        mask = np.where(rng.random((b, 1, lq, lkv)) > 0.3, 0.0, MASK_NEG).astype(np.float32)
+        mask[..., 0] = 0.0
+        mask = torch.from_numpy(mask).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, g = (torch.from_numpy(x).to(dev, dtype) for x in arrays)
+            before = (fa.launches, fa.bwd_launches)
+            got = out_and_grads(fa.mot_attention_fused, q, k, v, mask, g)
+            torch.cuda.synchronize()
+            if (fa.launches - before[0], fa.bwd_launches - before[1]) != (1, 2):
+                raise AssertionError(f"D={d}: {fa.launches - before[0]} K1 and {fa.bwd_launches - before[1]} "
+                                     "backward launches for one VJP, want 1 and 2")
+            want = out_and_grads(mot_attention_ref, q, k, v, mask, g)
+            for name, x, y in zip(("out", "dq", "dk", "dv"), got, want):
+                label = f"D={d} {str(dtype)[6:]} {name}"
+                if x.shape != y.shape or not torch.isfinite(x).all():
+                    raise AssertionError(f"{label}: shape {tuple(x.shape)}, want {tuple(y.shape)}, or not finite")
+                torch.testing.assert_close(x, y, rtol=TOL[dtype], atol=TOL[dtype], msg=lambda m, n=label: f"{n}: {m}")
+                errs[label] = float((x.float() - y.float()).abs().max())
+    return errs
+
+
 def check_vjp(dev) -> dict:
     """Phase 6: the kernel's autograd Function (K1, then the two backward
     kernels) against plain autograd through the plain version; max|diff|
     of the output and of each grad. Each VJP launches both backward
-    kernels once, and two VJPs agree bitwise."""
+    kernels once, and two VJPs agree bitwise. Then the head dims that the
+    kernels zero-pad (``check_vjp_padded``)."""
     errs = {}
     for case in ("train", "fully_masked"):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1658,6 +1753,7 @@ def check_vjp(dev) -> dict:
                     raise AssertionError(f"{label}: not finite")
                 torch.testing.assert_close(a, b, rtol=TOL[dtype], atol=TOL[dtype], msg=lambda m, n=label: f"{n}: {m}")
                 errs[label] = float((a.float() - b.float()).abs().max())
+    errs.update(check_vjp_padded(dev))
     return errs
 
 
@@ -1969,6 +2065,19 @@ AGENT_OVERRIDES = [
     "n_updates=3", "log_freq=1", "eval_freq=3", "eval_size=2", "save_model_freq=0",
 ]
 INSTRUCTIONS = (b"put the spoon in the pot", b"open the drawer", b"move the carrot to the left of the plate")
+# phase 8b's cuts of the config's data block (PERF.md section 4): the
+# dataset written here (DEMO_EPISODES episodes of DEMO_STEPS steps); a
+# shuffle buffer of 1000 frames, not 200000 (some 700 passes over ~300
+# frames to fill); 2 frame-transform threads, not 100 (the transforms hold
+# the GIL between numpy calls, so threads do not scale), and 1 trajectory
+# read and transform thread, not 10
+DATA_OVERRIDES = [
+    "data.train.shuffle_buffer_size=1000", "data.train.num_parallel_calls=2",
+    "data.train.traj_transform_threads=1", "data.train.traj_read_threads=1",
+]
+DEMO_EPISODES = 8
+DEMO_STEPS = (34, 43)  # steps per episode, drawn in [34, 43): bridge's typical 38
+PIPELINE_BATCHES = 8  # batches of 16 timed through the pipeline alone, after the first
 
 
 def qlora_config(cfg):
@@ -1982,9 +2091,10 @@ def qlora_config(cfg):
 
 class SyntheticFrames:
     """Seeded frame batches in the RLDS layout that the TrainAgent takes:
-    224² uint8 images, bridge's 7-dim proprio and action, 4-step chunks,
-    one of three instructions; ``iterator(batch_size)`` starts again from
-    the seed at each call."""
+    uint8 images of ``size``², bridge's 7-dim proprio and action, 4-step
+    chunks, one of three instructions; ``iterator(batch_size)`` starts
+    again from the seed at each call. Phase 7's SimplerLite update takes
+    them; phase 8b's agent reads the pipeline."""
 
     def __init__(self, seed: int, size: int = 224, horizon: int = 4, dim: int = 7):
         self.seed, self.size, self.horizon, self.dim = seed, size, horizon, dim
@@ -2001,6 +2111,94 @@ class SyntheticFrames:
                     [INSTRUCTIONS[i] for i in rng.integers(0, len(INSTRUCTIONS), batch_size)], dtype=object)},
                 "action": rng.uniform(-1, 1, size=(batch_size, 1, self.horizon, self.dim)).astype(np.float32),
             }
+
+
+def demo_frames(rng, steps: int, size: int = 224) -> list:
+    """One episode's camera frames: a fixed scene of slow colour gradients
+    and a blob (the arm's stand-in) moving across it, with a little sensor
+    noise: smooth, so that PNG compresses them as it does camera frames."""
+    y, x = np.mgrid[0:size, 0:size].astype(np.float32)
+    phase = rng.uniform(0, 6, 3)
+    scene = np.stack([110 + 60 * np.sin(x / (35 + 10 * c) + phase[c]) * np.cos(y / (45 + 5 * c) - phase[c])
+                      for c in range(3)], -1)
+    colour = rng.uniform(-90, 90, 3).astype(np.float32)
+    start, end = rng.uniform(30, size - 30, 2), rng.uniform(30, size - 30, 2)
+    frames = []
+    for t in range(steps):
+        cx, cy = start + (end - start) * t / (steps - 1)
+        blob = np.exp(-((x - cx) ** 2 + (y - cy) ** 2) / 600.0)[..., None]
+        noisy = scene + blob * colour + rng.normal(0, 1.5, scene.shape).astype(np.float32)
+        frames.append(np.clip(noisy, 0, 255).astype(np.uint8))
+    return frames
+
+
+def write_demo_dataset(root: str) -> dict:
+    """A bridge-shaped RLDS dataset written by the port's writer under
+    ``root/bridge_dataset``: DEMO_EPISODES episodes, 224² PNG ``image_0``,
+    7-dim ``state`` (a smooth path) and ``action`` (its deltas, then a
+    gripper of 0, 1 or in between), an instruction, ``is_first``; two
+    shards. Returns its sizes and the seconds it took."""
+    t0 = time.time()
+    rng = np.random.default_rng(11)
+    L = data_rlds.LeafSpec
+    leaves = [L("steps/observation/image_0", "uint8", (224, 224, 3), "image", True, "png"),
+              L("steps/observation/state", "float32", (7,), "tensor", True),
+              L("steps/action", "float32", (7,), "tensor", True),
+              L("steps/language_instruction", "string", (), "text", True),
+              L("steps/is_first", "bool", (), "tensor", True)]
+    episodes, frames = [], 0
+    with ThreadPoolExecutor(8) as pool:  # zlib deflates outside the GIL
+        for i in range(DEMO_EPISODES):
+            steps = int(rng.integers(*DEMO_STEPS))
+            state = np.cumsum(rng.normal(0, 0.02, size=(steps, 7)), axis=0).astype(np.float32)
+            gripper = rng.choice([0.0, 1.0, 0.5], size=(steps, 1), p=[0.45, 0.45, 0.1])
+            action = np.concatenate([np.diff(state[:, :6], axis=0, append=state[-1:, :6]), gripper], 1)
+            episodes.append({"steps": {
+                "observation": {"image_0": list(pool.map(images.encode_png, demo_frames(rng, steps))),
+                                "state": state},
+                "action": action.astype(np.float32),
+                "language_instruction": [INSTRUCTIONS[i % len(INSTRUCTIONS)]] * steps,
+                "is_first": np.asarray([1] + [0] * (steps - 1), bool),
+            }})
+            frames += steps
+    data_rlds.write_rlds_dataset(os.path.join(root, "bridge_dataset"), "bridge_dataset", episodes, leaves, shards=2)
+    png = [len(b) for ep in episodes for b in ep["steps"]["observation"]["image_0"]]
+    return {"episodes": DEMO_EPISODES, "frames": frames, "png_kb_mean": sum(png) / len(png) / 1e3,
+            "bytes": dir_bytes(os.path.join(root, "bridge_dataset")), "write_s": time.time() - t0}
+
+
+class TimedIterator:
+    """An iterator that sums the ms its ``next`` calls take."""
+
+    def __init__(self, it):
+        self.it, self.ms = it, 0.0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t = time.perf_counter()
+        try:
+            return next(self.it)
+        finally:
+            self.ms += (time.perf_counter() - t) * 1e3
+
+
+def pipeline_alone(dataset, batch_size: int) -> dict:
+    """The pipeline with no card in the loop: seconds to a fresh iterator's
+    first batch (its shuffle buffer filled), then frames per second over
+    PIPELINE_BATCHES more batches (decode, resize, augment, batching)."""
+    t0 = time.perf_counter()
+    it = dataset.iterator(batch_size)
+    try:
+        next(it)
+        t1 = time.perf_counter()
+        for _ in range(PIPELINE_BATCHES):
+            next(it)
+        t2 = time.perf_counter()
+    finally:
+        it.close()
+    return {"first_batch_s": t1 - t0, "frames_per_s": PIPELINE_BATCHES * batch_size / (t2 - t1)}
 
 
 def opt_tensors(state) -> list:
@@ -2092,6 +2290,58 @@ def check_qlora_parity(dev) -> dict:
             "moment_scale_max_rel_diff": scale_rel, "nf4_leaves_unchanged": len(nf4_before)}
 
 
+SIMPLER_LITE_CONFIG = "configs/eval/simpler_lite.yaml"
+# the geometry's training keys: B = 2 x 2, remat, the full lr at the first update
+SIMPLER_LITE_TRAIN = ["per_device_batch_size=2", "global_batch_size=4", "remat=true", "n_updates=1",
+                      "action_lr_scheduler={warmup_steps: 0}", "vlm_lr_scheduler={warmup_steps: 0}"]
+
+
+def check_simpler_lite_update(dev) -> dict:
+    """Phase 7 at configs/eval/simpler_lite.yaml's geometry (3 layers, 4 Q
+    heads and 1 KV head of 24, which K1 and its backward zero-pad to 32):
+    one TrainAgent update in fp32 on the card (the kernels) and on the CPU
+    (the plain version) from the CPU agent's params, on one batch of
+    SyntheticFrames with injected flow times and noise, Adam eps 1e-3 as
+    in the checks above: loss and grad norm within 1e-3 relative, the
+    params within 1e-6."""
+    tmp = tempfile.mkdtemp(prefix="opz_simpler_lite_")
+    try:
+        cfg = cfg_lib.load_config(SIMPLER_LITE_CONFIG, SIMPLER_LITE_TRAIN + [f"log_dir={tmp}"])
+        frames = SyntheticFrames(0, size=int(cfg.vision.config.image_size))
+        agents = {"card": TrainAgent(cfg, dataset=frames, device=dev), "cpu": TrainAgent(cfg, dataset=frames, device="cpu")}
+        mcfg = agents["card"].model_cfg
+        if mcfg.joint.head_dim != 24 or agents["card"].grad_accum != GRAD_ACCUM:
+            raise AssertionError(f"head dim {mcfg.joint.head_dim}, grad_accum {agents['card'].grad_accum}")
+        with torch.no_grad():
+            for a, b in zip(tree_leaves(agents["card"].state.params), tree_leaves(agents["cpu"].state.params)):
+                a.copy_(b)
+        rng = np.random.default_rng(12)
+        batch = agents["cpu"].next_update_batch(frames.iterator(agents["cpu"].step_batch_size))
+        shape = tuple(batch["actions"].shape)
+        batch["t"] = torch.from_numpy(rng.uniform(0.05, 0.95, size=shape[:2]).astype(np.float32))
+        batch["x0"] = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        metrics = {}
+        for name, agent in agents.items():
+            for group in agent.state.opt_state.param_groups:
+                group["eps"] = 1e-3
+            before = (fa.launches, fa.bwd_launches)
+            metrics[name] = {k: float(v) for k, v in agent.train_step(agent.state, on(agent.device, batch)).items()}
+            if name == "card":
+                launches = (fa.launches - before[0], fa.bwd_launches - before[1])
+        per_update = GRAD_ACCUM * 2 * mcfg.joint.num_hidden_layers
+        if launches != (per_update, per_update):
+            raise AssertionError(f"card update: {launches} K1 and backward launches, want {per_update} each")
+        rel = {k: abs(metrics["card"][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k]) for k in ("loss", "grad_norm")}
+        param_err = max(float((a.detach().cpu() - b.detach()).abs().max()) for a, b in
+                        zip(tree_leaves(agents["card"].state.params), tree_leaves(agents["cpu"].state.params)))
+        if not (max(rel.values()) <= 1e-3 and param_err <= 1e-6):
+            raise AssertionError(f"SimplerLite update card vs CPU: relative {rel}, params max|diff| {param_err}")
+        return {"head_dim": mcfg.joint.head_dim, "launches": launches[0], "bwd_launches": launches[1],
+                "metrics": metrics, "rel_diff": rel, "param_max_abs_diff": param_err}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def compare_states(a, b) -> tuple:
     """(bitwise, max|diff|) over two TrainStates' params, optimizer tensors
     and generator states. A dtype that differs raises: torch.equal promotes
@@ -2108,8 +2358,11 @@ def compare_states(a, b) -> tuple:
 def check_train_agent(dev, info: str) -> tuple:
     """Phase 8b: the QLoRA recipe through the TrainAgent at full width
     (``check_agent_run``), then phase 8d on its checkpoint (``check_eval``),
-    in a temporary log_dir removed afterwards. Returns both results."""
+    in a temporary log_dir removed afterwards, which also holds the
+    dataset and the statistics cache. Returns both results."""
     tmp = tempfile.mkdtemp(prefix="opz_train_agent_")
+    cache = os.environ.get("XDG_CACHE_HOME")
+    os.environ["XDG_CACHE_HOME"] = os.path.join(tmp, "cache")  # the pipeline's statistics cache
     try:
         t0 = time.time()
         agent = check_agent_run(dev, info, tmp)
@@ -2123,64 +2376,102 @@ def check_train_agent(dev, info: str) -> tuple:
         log(f"phase eval ok in {time.time() - t0:.1f} s")
         return agent, evaluated
     finally:
+        if cache is None:
+            os.environ.pop("XDG_CACHE_HOME", None)
+        else:
+            os.environ["XDG_CACHE_HOME"] = cache
         shutil.rmtree(tmp, ignore_errors=True)
 
 
 def check_agent_run(dev, info: str, tmp: str) -> dict:
-    """3 updates, the validation and the save of ``run``; a second agent
-    resuming from ``auto``; serving from the checkpoint; one profiled
-    update."""
-    overrides = AGENT_OVERRIDES + [f"log_dir={tmp}", f"pretrained_model_path={tmp}/no_tokenizer"]
+    """The dataset written (``write_demo_dataset``); the launcher
+    (``scripts/run.main --mode train``) builds the TrainAgent, whose
+    datasets come from cfg.data, and runs its 3 updates, the validation and
+    the save, each update's batch wait timed beside it; the pipeline alone;
+    a second agent resuming from ``auto``; serving from the checkpoint; one
+    profiled update."""
+    data = write_demo_dataset(os.path.join(tmp, "data"))
+    log(f"train-agent: wrote {data['episodes']} bridge-shaped episodes, {data['frames']} frames of 224² PNG "
+        f"({data['png_kb_mean']:.1f} kB each, {data['bytes'] / 1e6:.1f} MB in 2 shards) in {data['write_s']:.1f} s")
+    overrides = AGENT_OVERRIDES + DATA_OVERRIDES + [
+        f"log_dir={tmp}", f"pretrained_model_path={tmp}/no_tokenizer", f"data.train.data_path={os.path.join(tmp, 'data')}",
+    ]
     cfg = cfg_lib.load_config(AGENT_CONFIG, overrides=overrides)
-    t0 = time.time()
-    agent = TrainAgent(cfg, dataset=SyntheticFrames(0), val_dataset=SyntheticFrames(1), device=dev)
-    torch.cuda.synchronize()
-    build_s = time.time() - t0
-    state, mcfg = agent.state, agent.model_cfg
-    if agent.grad_accum != GRAD_ACCUM or not isinstance(state.opt_state, AdamW8bit):
+    timed = {"update_ms": [], "wait_ms": [], "fetch_ms": [], "losses": [], "grad_norms": [], "validate_launches": None,
+             "eval": None}
+    seen = {}
+    original_run = TrainAgent.run
+
+    def instrumented_run(agent):
+        """The launcher's agent: keep it, time its steps, batch waits,
+        validation and save, and note its leaves, then run."""
+        seen["agent"], seen["build_s"] = agent, time.time() - t0
+        seen["methods"] = methods = (agent.train_step, agent.validate, agent.save, agent.next_update_batch)
+        train_step_fn, validate_fn, save_fn, next_batch_fn = methods
+
+        def timed_step(st, batch):
+            t = time.perf_counter()
+            metrics = train_step_fn(st, batch)
+            torch.cuda.synchronize()
+            timed["update_ms"].append((time.perf_counter() - t) * 1e3)
+            timed["losses"].append(float(metrics["loss"]))
+            timed["grad_norms"].append(float(metrics["grad_norm"]))
+            return metrics
+
+        def timed_batch(it):
+            fetch = TimedIterator(it)
+            t = time.perf_counter()
+            batch = next_batch_fn(fetch)
+            torch.cuda.synchronize()
+            timed["wait_ms"].append((time.perf_counter() - t) * 1e3)
+            timed["fetch_ms"].append(fetch.ms)
+            return batch
+
+        def counted_validate(update):
+            before = fa.launches
+            timed["eval"] = validate_fn(update)
+            timed["validate_launches"] = fa.launches - before
+            return timed["eval"]
+
+        def timed_save(update):
+            t = time.perf_counter()
+            path = save_fn(update)
+            timed["save_s"] = time.perf_counter() - t
+            return path
+
+        agent.train_step, agent.validate, agent.save, agent.next_update_batch = (
+            timed_step, counted_validate, timed_save, timed_batch)
+        params = agent.state.params
+        seen["trained"] = [(p, x) for p, x in leaves_with_paths(params) if x.requires_grad]
+        seen["prints"] = {p: fingerprint(x) for p, x in seen["trained"]}
+        seen["frozen"] = {p: x.detach().clone()
+                          for p, x in nf4_leaves(params) + [("/embed_tokens", params["embed_tokens"])]}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fa.launches = fa.bwd_launches = 0
+        return original_run(agent)
+
+    TrainAgent.run = instrumented_run
+    try:
+        t0 = time.time()
+        state = run.main(["--config", AGENT_CONFIG, "--mode", "train", "--device", str(dev), *overrides])
+    finally:
+        TrainAgent.run = original_run
+    agent, build_s = seen["agent"], seen["build_s"]
+    agent.train_step, agent.validate, agent.save, agent.next_update_batch = seen["methods"]
+    trained, prints, frozen = seen["trained"], seen["prints"], seen["frozen"]
+    mcfg = agent.model_cfg
+    if state is not agent.state or agent.grad_accum != GRAD_ACCUM or not isinstance(state.opt_state, AdamW8bit):
         raise AssertionError(f"grad_accum {agent.grad_accum}, optimizer {type(state.opt_state).__name__}")
     L = mcfg.joint.num_hidden_layers
     per_update = GRAD_ACCUM * 2 * L
-    trained = [(p, x) for p, x in leaves_with_paths(state.params) if x.requires_grad]
-    prints = {p: fingerprint(x) for p, x in trained}
-    frozen = {p: x.detach().clone() for p, x in nf4_leaves(state.params) + [("/embed_tokens", state.params["embed_tokens"])]}
-    tree_gb = nbytes(tree_leaves(state.params)) / 1e9
-    log(f"train-agent: {AGENT_CONFIG} QLoRA at full width built in {build_s:.1f} s: tree {tree_gb:.3f} GB, "
-        f"{len(trained)} trained leaves ({sum(x.numel() for _, x in trained) / 1e9:.4f} B params), "
-        f"{len(frozen) - 1} NF4 leaves")
-
-    timed = {"update_ms": [], "losses": [], "grad_norms": [], "validate_launches": None, "eval": None}
-    train_step_fn, validate_fn, save_fn = agent.train_step, agent.validate, agent.save
-
-    def timed_step(st, batch):
-        t = time.perf_counter()
-        metrics = train_step_fn(st, batch)
-        torch.cuda.synchronize()
-        timed["update_ms"].append((time.perf_counter() - t) * 1e3)
-        timed["losses"].append(float(metrics["loss"]))
-        timed["grad_norms"].append(float(metrics["grad_norm"]))
-        return metrics
-
-    def counted_validate(update):
-        before = fa.launches
-        timed["eval"] = validate_fn(update)
-        timed["validate_launches"] = fa.launches - before
-        return timed["eval"]
-
-    def timed_save(update):
-        t = time.perf_counter()
-        path = save_fn(update)
-        timed["save_s"] = time.perf_counter() - t
-        return path
-
-    agent.train_step, agent.validate, agent.save = timed_step, counted_validate, timed_save
-    torch.cuda.reset_peak_memory_stats(dev)
-    fa.launches = fa.bwd_launches = 0
-    agent.run()
     launches, bwd_launches = fa.launches - (timed["validate_launches"] or 0), fa.bwd_launches
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     opt_gb = nbytes(opt_tensors(state)) / 1e9  # made at the first update
-    agent.train_step = train_step_fn
+    tree_gb = nbytes(tree_leaves(state.params)) / 1e9
+    log(f"train-agent: {AGENT_CONFIG} QLoRA at full width through scripts/run.py --mode train, the datasets from "
+        f"cfg.data, built in {build_s:.1f} s: tree {tree_gb:.3f} GB, {len(trained)} trained leaves "
+        f"({sum(x.numel() for _, x in trained) / 1e9:.4f} B params), {len(frozen) - 1} NF4 leaves")
     if launches != 3 * per_update or bwd_launches != 3 * per_update:
         raise AssertionError(f"{launches} K1 and {bwd_launches} backward launches over 3 updates, "
                              f"want {3 * per_update} and {3 * per_update}")
@@ -2189,6 +2480,8 @@ def check_agent_run(dev, info: str, tmp: str) -> dict:
         raise AssertionError(f"validate: {timed['validate_launches']} K1 launches (want {want_val}), {timed['eval']}")
     if state.step != 3 or not np.all(np.isfinite(timed["losses"] + timed["grad_norms"])):
         raise AssertionError(f"step {state.step}, losses {timed['losses']}, grad norms {timed['grad_norms']}")
+    if len(timed["wait_ms"]) != 3:
+        raise AssertionError(f"{len(timed['wait_ms'])} batch waits timed over 3 updates")
     unchanged = [p for p, x in trained if fingerprint(x) == prints[p]]
     now = dict(leaves_with_paths(state.params))
     moved = [p for p, x in frozen.items() if not torch.equal(x, now[p])]
@@ -2201,21 +2494,43 @@ def check_agent_run(dev, info: str, tmp: str) -> dict:
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t
     del frozen
-    log(f"train-agent: 3 updates, losses {timed['losses']}, grad norms {timed['grad_norms']}; validate at 3: "
-        f"l1 {timed['eval']['l1']:.4f}, accuracy {timed['eval']['accuracy']} ({timed['validate_launches']} K1 "
-        f"launches); update {statistics.median(timed['update_ms'][1:]):.1f} ms (median of updates 2-3), peak memory "
-        f"{peak_gb:.3f} GB, tree {tree_gb:.3f} GB, optimizer state {opt_gb:.3f} GB, checkpoint {ckpt_gb:.3f} GB "
-        f"saved in {timed['save_s']:.2f} s, restored in {restore_s:.2f} s, on {info}")
+    log(f"train-agent: 3 updates on pipeline frames, losses {timed['losses']}, grad norms {timed['grad_norms']}; "
+        f"validate at 3: l1 {timed['eval']['l1']:.4f}, accuracy {timed['eval']['accuracy']} "
+        f"({timed['validate_launches']} K1 launches); update {statistics.median(timed['update_ms'][1:]):.1f} ms "
+        f"(median of updates 2-3), peak memory {peak_gb:.3f} GB, tree {tree_gb:.3f} GB, optimizer state "
+        f"{opt_gb:.3f} GB, checkpoint {ckpt_gb:.3f} GB saved in {timed['save_s']:.2f} s, restored in "
+        f"{restore_s:.2f} s, on {info}")
+    log(f"train-agent: per update, the wait for its batch (B = {agent.step_batch_size} x {GRAD_ACCUM} frames "
+        f"through the pipeline, preprocess, to the card) {[round(w, 3) for w in timed['wait_ms']]} ms, of it the "
+        f"frames from the iterator {[round(f, 3) for f in timed['fetch_ms']]} ms, beside the update "
+        f"{[round(u, 3) for u in timed['update_ms']]} ms (the first wait fills the shuffle buffer)")
+    alone = pipeline_alone(agent.dataset, agent.step_batch_size)
+    log(f"train-agent: the pipeline alone on this host: first batch of a fresh iterator in "
+        f"{alone['first_batch_s']:.2f} s (1000 encoded frames read into the shuffle buffer), then "
+        f"{alone['frames_per_s']:.1f} frames/s through decode, resize, augment and batching "
+        f"({PIPELINE_BATCHES} batches of {agent.step_batch_size}), on {info}")
 
-    # the resume: a partial ckpt_99 beside ckpt_3 (a save cut short: no meta.json)
+    # the resume: a partial ckpt_99 beside ckpt_3 (a save cut short: no
+    # meta.json); the resumed agent's datasets come from cfg.data as well,
+    # and its iterator starts again from the seed
     os.makedirs(os.path.join(agent.ckpt_dir, "ckpt_99", ckpt_lib.STATE_DIR))
     cfg2 = cfg_lib.load_config(AGENT_CONFIG, overrides=overrides + ["resume_checkpoint_path=auto", "n_updates=4"])
-    resumed = TrainAgent(cfg2, dataset=SyntheticFrames(0), device=dev)
+    resumed = TrainAgent(cfg2, device=dev)
     if resumed.state.step != 3 or resumed.cnt_batch != agent.cnt_batch:
         raise AssertionError(f"resumed at step {resumed.state.step}, cnt_batch {resumed.cnt_batch}; want 3, {agent.cnt_batch}")
     resumed_opt_gb = nbytes(opt_tensors(resumed.state)) / 1e9  # as restored, before its update
     resumed.run()  # one update on the dataset's first batches, then ckpt_4
-    agent.train_step(state, agent.next_update_batch(SyntheticFrames(0).iterator(agent.step_batch_size)))
+    it = agent.dataset.iterator(agent.step_batch_size)
+    try:
+        batch = agent.next_update_batch(it)
+    finally:
+        it.close()  # the pipeline's threads stop: this update runs alone on the host
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    agent.train_step(state, batch)
+    torch.cuda.synchronize()
+    quiet_ms = (time.perf_counter() - t) * 1e3
+    del batch
     bitwise, resume_diff = compare_states(resumed.state, state)
     if not (bitwise or resume_diff <= 1e-6):
         raise AssertionError(f"the resumed agent's update 4 differs from the first agent's: max|diff| {resume_diff}")
@@ -2224,7 +2539,9 @@ def check_agent_run(dev, info: str, tmp: str) -> dict:
     log(f"train-agent: resumed from ckpt_3 (not the partial ckpt_99) at step 3, cnt_batch {resumed.cnt_batch}, "
         f"optimizer state {resumed_opt_gb:.3f} GB as restored ({opt_gb:.3f} GB saved); update 4 "
         f"{'bitwise' if bitwise else 'within 1e-6 of'} the first agent's (params, moments and their dtypes, "
-        f"generator): max|diff| {resume_diff:.3e}")
+        f"generator): max|diff| {resume_diff:.3e}; the first agent's update 4 with no pipeline thread running "
+        f"{quiet_ms:.1f} ms (updates 2-3 beside the prefetch thread: {timed['update_ms'][1]:.1f}, "
+        f"{timed['update_ms'][2]:.1f} ms)")
     del resumed
     torch.cuda.empty_cache()
 
@@ -2232,7 +2549,9 @@ def check_agent_run(dev, info: str, tmp: str) -> dict:
     prof = profile_agent_update(agent, per_update)
     return {
         "launches": launches, "bwd_launches": bwd_launches, "validate_launches": timed["validate_launches"],
-        "losses": timed["losses"], "grad_norms": timed["grad_norms"], "eval": timed["eval"],
+        "losses": timed["losses"], "grad_norms": timed["grad_norms"], "eval": timed["eval"], "data": data,
+        "wait_ms": timed["wait_ms"], "fetch_ms": timed["fetch_ms"], "pipeline_alone": alone,
+        "update_ms_without_pipeline_thread": quiet_ms,
         "update_ms": timed["update_ms"], "update_ms_median_after_first": statistics.median(timed["update_ms"][1:]),
         "peak_mem_gb": peak_gb, "tree_gb": tree_gb, "opt_state_gb": opt_gb, "resumed_opt_state_gb": resumed_opt_gb,
         "checkpoint_gb": ckpt_gb,
@@ -2281,7 +2600,11 @@ def profile_agent_update(agent, per_update: int) -> dict:
     total is asked for, so one complete window serves (a confirming
     second window would cost another profiled update): the busy ms is
     that window's, unconfirmed."""
-    batch = agent.next_update_batch(SyntheticFrames(2).iterator(agent.step_batch_size))
+    it = agent.dataset.iterator(agent.step_batch_size)
+    try:
+        batch = agent.next_update_batch(it)
+    finally:
+        it.close()
     got, traced, wall = profiled_window(
         lambda: agent.train_step(agent.state, batch),
         {KERNEL_SYMBOL: per_update, ROWS_SYMBOL: per_update // 2, KEYS_SYMBOL: per_update // 2},
@@ -2291,8 +2614,9 @@ def profile_agent_update(agent, per_update: int) -> dict:
     log_profile("train-agent-profile", traced, wall, busy)
     result = {"kernel_ms": got[KERNEL_SYMBOL][0], "backward_ms": got[ROWS_SYMBOL][0] + got[KEYS_SYMBOL][0],
               "nf4_dequant_ms": got[NF4_RANGE][0], "nf4_dequants": got[NF4_RANGE][1],
-              "adam8bit_ms": got[ADAM8_RANGE][0], "wall_ms": wall, "busy_ms": busy}
-    log(f"train-agent: profiled update {wall:.1f} ms (busy {busy:.1f}): K1 {result['kernel_ms']:.3f} ms over "
+              "adam8bit_ms": got[ADAM8_RANGE][0], "wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall}
+    log(f"train-agent: profiled update {wall:.1f} ms (busy {busy:.1f}: the card busy {100 * busy / wall:.1f}% of "
+        f"the update): K1 {result['kernel_ms']:.3f} ms over "
         f"{per_update} launches, backward kernels {result['backward_ms']:.3f} ms over {per_update} launches, NF4 "
         f"dequant {result['nf4_dequant_ms']:.3f} ms over {result['nf4_dequants']} decodes, 8-bit Adam step "
         f"{result['adam8bit_ms']:.3f} ms")
@@ -2792,6 +3116,10 @@ def single_card_phases(dev, info: str) -> list:
     t0 = time.time()
     compiled_rows = check_compiled(dev, cfg, {"float": params, **trees}, {"float": prof, **layout}, info)
     log("compiled: " + json.dumps(compiled_rows))
+    under_gc = check_capture_under_gc(dev)
+    log(f"compiled: a capture after a dead cycle holding a graph was dropped, with gc.set_threshold(1, 1, 1): "
+        f"captured in {under_gc['capture_s']:.2f} s over {under_gc['gc_collections']} collections, the cycle "
+        f"collected, the replay bitwise the eager chunk")
     log(f"phase compiled ok in {time.time() - t0:.1f} s")
     del params, calls, trees
     torch.cuda.empty_cache()
@@ -2824,6 +3152,12 @@ def single_card_phases(dev, info: str) -> list:
     t0 = time.time()
     parity = check_train_parity(dev)
     log(f"train-parity: bridge widths depth 2 fp32, one update card vs CPU: {json.dumps(parity)}, "
+        f"{time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    simpler_lite = check_simpler_lite_update(dev)
+    log(f"train-parity: {SIMPLER_LITE_CONFIG}'s geometry (head dim {simpler_lite['head_dim']}, zero-padded to 32 "
+        f"by K1 and its backward), one TrainAgent update card vs CPU: {json.dumps(simpler_lite)}, "
         f"{time.time() - t0:.1f} s")
 
     t0 = time.time()

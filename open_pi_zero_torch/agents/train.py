@@ -14,11 +14,12 @@ with gradient accumulation; resumes from a checkpoint (a path, or
 Where it differs from the JAX agent, by design:
   - one device: a world of more than one rank raises (ROADMAP.md queue 1,
     item 8); ``zero1`` is a no-op on one device, as in JAX;
-  - the data: the JAX agent builds ``tf.data`` RLDS pipelines from
-    ``cfg.data``; the port has no TensorFlow, so ``dataset=`` is required
-    (any object whose ``iterator(batch_size)`` yields frame batches in the
-    RLDS layout of ``preprocess_batch``): without one the agent raises
-    before it builds the params (ROADMAP.md queue 1, item 10);
+  - the data: without ``dataset=``, the datasets come from ``cfg.data``
+    as in JAX, through the port's TF-free pipeline
+    (``agents/dataset.RLDSInterleavedDataset``), and are built before the
+    params, so that a data fault stops the agent early; ``dataset=`` takes
+    any object whose ``iterator(batch_size)`` yields frame batches in the
+    RLDS layout of ``preprocess_batch``; with neither the agent raises;
   - the tokenizer: ``FakeTokenizer`` when ``pretrained_model_path`` does
     not exist, as in JAX; an existing path raises, since the PaliGemma
     tokenizer needs transformers (queue 1, item 9);
@@ -38,9 +39,11 @@ import numpy as np
 import torch
 
 from open_pi_zero_torch import resolve_device
+from open_pi_zero_torch.agents.dataset import RLDSInterleavedDataset
 from open_pi_zero_torch.config import ConfigDict, pizero_config_from_dict, training_config_from_dict
 from open_pi_zero_torch.models import convert, pizero
 from open_pi_zero_torch.ops import lora as lora_lib
+from open_pi_zero_torch.parallel.mesh import world_size
 from open_pi_zero_torch.processing import FakeTokenizer, VLAProcessor, load_paligemma_tokenizer
 from open_pi_zero_torch.training import averaging as avg_lib
 from open_pi_zero_torch.training import checkpoint as ckpt_lib
@@ -51,8 +54,6 @@ from open_pi_zero_torch.utils.metric import get_action_accuracy, l1_loss
 from open_pi_zero_torch.utils.monitor import Timer, log_execution_time
 
 log = logging.getLogger(__name__)
-
-DATA_PIPELINE_ITEM = "ROADMAP.md queue 1, item 10 (the TF-free OXE data pipeline)"
 
 
 def _strip_lora(tree):
@@ -69,13 +70,6 @@ def _graft(dst, src):
     if isinstance(src, dict) and isinstance(dst, dict):
         return {**dst, **{k: _graft(dst[k], v) for k, v in src.items()}}
     return src
-
-
-def _world_size() -> int:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", "1"))
 
 
 def _load_tokenizer(cfg: ConfigDict):
@@ -100,7 +94,7 @@ class TrainAgent:
         self.train_cfg = training_config_from_dict(cfg)
 
         # ---- batch math (reference train.py:134-139), one device ----
-        if _world_size() > 1:
+        if world_size() > 1:
             raise NotImplementedError("training on more than one device waits in ROADMAP.md queue 1, item 8")
         gbs, pbs = self.train_cfg.global_batch_size, self.train_cfg.per_device_batch_size
         if gbs % pbs:
@@ -109,10 +103,14 @@ class TrainAgent:
         self.step_batch_size = pbs  # per microbatch
         log.info("device=%s accum=%d per-device=%d global=%d", self.device, self.grad_accum, pbs, gbs)
 
-        # ---- data: checked before the params are built ----
+        # ---- data: built before the params (reference train.py:143-155) ----
         if dataset is None:
-            what = "cfg.data names an RLDS pipeline, which needs TensorFlow" if cfg.get("data") is not None else "no data"
-            raise NotImplementedError(f"{what}; pass dataset= ({DATA_PIPELINE_ITEM})")
+            if cfg.get("data") is None:
+                raise ValueError("no data: pass dataset= or give the config a data block")
+            dataset = RLDSInterleavedDataset(cfg.data.train, train=True, seed=self.seed)
+            if cfg.data.get("val") is not None and cfg.get("eval_freq"):
+                val_cfg = ConfigDict({**cfg.data.train, **cfg.data.val})
+                val_dataset = RLDSInterleavedDataset(val_cfg, train=False, seed=self.seed)
 
         # ---- params, optimizer, state (zero1 is a no-op on one device) ----
         params = self._build_params()

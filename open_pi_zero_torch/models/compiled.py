@@ -50,6 +50,8 @@ with a generator): only greedy decoding is captured.
 
 from __future__ import annotations
 
+import gc
+
 import numpy as np
 import torch
 
@@ -78,15 +80,25 @@ def _capture(fn, device: torch.device, pool):
     """(graph, its output, its stream): ``fn`` run once eagerly on a side
     stream (the warm-up: it builds and loads K1, sets its attributes and
     makes cuBLAS's handle and workspace for that stream), then captured
-    into one graph in ``pool`` on that stream."""
+    into one graph in ``pool`` on that stream. Python's cyclic GC is
+    collected before the capture and held off during it: a collection that
+    freed a dead cycle's device memory among the captured launches would
+    invalidate the capture."""
     stream = torch.cuda.Stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(stream):
         fn()
     torch.cuda.current_stream(device).wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool, stream=stream):
-        out = fn()
+    gc.collect()
+    gc_was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
+            out = fn()
+    finally:
+        if gc_was_enabled:
+            gc.enable()
     return graph, out, stream
 
 

@@ -293,16 +293,23 @@ def _check(q, k, v, mask) -> None:
         raise ValueError("the mask takes no grad")
 
 
-def _launch(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
-    global launches
-    true_d = q.shape[-1]
+def _pad_head_dim(*xs: torch.Tensor) -> tuple:
+    """``xs`` zero-padded on their last dim up to the kernels' next head dim,
+    and the true head dim. Between the kernels' head dims (the reference
+    fixtures' 8, SimplerLite's 24), zero columns add exact zeros to every
+    q.k, and give zero columns of the output, of dq, dk and dv; the scale
+    stays that of the true head dim. Past the largest, nothing is padded
+    and ``_check`` refuses the head dim."""
+    true_d = xs[0].shape[-1]
     run_d = next((h for h in HEAD_DIMS if h >= true_d), true_d)
     if 0 < true_d < run_d:
-        # between the kernel's head dims (the reference fixtures' 8,
-        # SimplerLite's 24): zero columns up to the next one add exact zeros
-        # to every q.k and give zero output columns, and the scale stays
-        # that of the true head dim
-        q, k, v = (F.pad(x, (0, run_d - true_d)) for x in (q, k, v))
+        xs = tuple(F.pad(x, (0, run_d - true_d)) for x in xs)
+    return xs, true_d
+
+
+def _launch(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
+    global launches
+    (q, k, v), true_d = _pad_head_dim(q, k, v)
     _check(q, k, v, mask)
     b, lq, hq, d = q.shape
     _, lkv, hkv, _ = k.shape
@@ -391,7 +398,7 @@ def bwd_launch_geometry(batch: int, lq: int, lkv: int, hq: int, hkv: int, head_d
 
 def mot_attention_bwd_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
-    softcap: Optional[float], g: torch.Tensor,
+    softcap: Optional[float], g: torch.Tensor, scale: Optional[float] = None,
 ) -> tuple:
     """dq, dk, dv of ``mot_attention_ref`` for the cotangent ``g``, by the
     backward kernels' arithmetic in plain PyTorch, for the tests. Row side,
@@ -401,10 +408,12 @@ def mot_attention_bwd_ref(
     dq = dS k. Key side: dv = p~^T g, p~ being p rounded to V's dtype, and
     dk = dS^T q, each one sum over the G Lq folded rows of its kv head.
     p, p~ and dS are materialised as the kernels' scratch is; the sums
-    inside a product run in the library's order, not the tensor cores'."""
+    inside a product run in the library's order, not the tensor cores'.
+    ``scale`` defaults to 1 / sqrt(D); inputs zero-padded past their true
+    head dim pass that dim's (``_launch_bwd``)."""
     b, lq, hq, d = q.shape
     _, lkv, hkv, _ = k.shape
-    scale = 1.0 / d**0.5
+    scale = 1.0 / d**0.5 if scale is None else scale
     qf = q.float().reshape(b, lq, hkv, hq // hkv, d)
     gf = g.float().reshape(b, lq, hkv, hq // hkv, d)
     kf, vf = k.float(), v.float()
@@ -432,9 +441,10 @@ def _launch_bwd(q, k, v, mask, softcap: Optional[float], grad: torch.Tensor) -> 
     ``grad`` (made contiguous and 16-byte aligned here if it is not: the
     one autograd hands over may be a strided or expanded view)."""
     global bwd_launches
-    _check(q, k, v, mask)
     if grad.shape != q.shape or grad.dtype != q.dtype or grad.device != q.device:
         raise ValueError(f"cotangent {tuple(grad.shape)} {grad.dtype} on {grad.device} does not match q")
+    (q, k, v, grad), true_d = _pad_head_dim(q, k, v, grad)
+    _check(q, k, v, mask)
     if not grad.is_contiguous() or grad.data_ptr() % 16:
         grad = grad.clone(memory_format=torch.contiguous_format)
     b, lq, hq, d = q.shape
@@ -452,7 +462,7 @@ def _launch_bwd(q, k, v, mask, softcap: Optional[float], grad: torch.Tensor) -> 
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), grad.data_ptr(),
         dq.data_ptr(), probs.data_ptr(), dscores.data_ptr(),
         b, lq, lkv, hq, hkv, d, mask.stride(0), mask.stride(2),
-        1.0 / (d**0.5), 0.0 if softcap is None else float(softcap), stream,
+        1.0 / (true_d**0.5), 0.0 if softcap is None else float(softcap), stream,
     )
     if err != 0:
         raise RuntimeError(f"mot_attention_bwd_rows launch failed: {lib.opz_bwd_error_string(err).decode()}")
@@ -464,7 +474,9 @@ def _launch_bwd(q, k, v, mask, softcap: Optional[float], grad: torch.Tensor) -> 
     if err != 0:
         raise RuntimeError(f"mot_attention_bwd_keys launch failed: {lib.opz_bwd_error_string(err).decode()}")
     bwd_launches += 1
-    return dq, dk, dv
+    if d == true_d:
+        return dq, dk, dv
+    return tuple(x[..., :true_d].contiguous() for x in (dq, dk, dv))
 
 
 def _recompute_grads(q, k, v, mask, softcap, grad):

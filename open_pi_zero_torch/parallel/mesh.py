@@ -86,6 +86,14 @@ def get_mesh() -> Optional[Mesh]:
     return _MESH
 
 
+def world_size() -> int:
+    """The processes of this run: the process group's size once one is
+    initialized, else the launcher's ``WORLD_SIZE`` (1 when unset)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
 def make_mesh(
     n_data: int, n_model: int, device, timeout: Optional[datetime.timedelta] = None
 ) -> Mesh:

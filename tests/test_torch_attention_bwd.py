@@ -144,3 +144,27 @@ def test_bwd_lkv_limit_fits_and_holds_the_training_length(d):
     assert fa.bwd_smem_bytes(4, d, limit + 1, d_tile)[0] > fa.MAX_SMEM_BYTES
     with pytest.raises(ValueError, match="backward kernel's limit"):
         fa.bwd_launch_geometry(1, 4, limit + 1, 8, 1, d)
+
+
+@pytest.mark.parametrize("d", [8, 24])
+def test_bwd_reference_on_zero_padded_inputs_is_exact(d):
+    """The arithmetic of the card's backward at a head dim between the
+    kernels' (the fixtures' 8, SimplerLite's 24): q, k, v and the cotangent
+    zero-padded up to the next head dim, scaled by the true head dim's
+    sqrt, give the unpadded grads in their first columns and zeros past
+    them. Zero columns add exact zeros, so only the sums' blocking can move
+    a last bit: 1e-6."""
+    b, lq, lkv, hq, hkv = 2, 7, 9, 4, 1
+    run_d = {8: 16, 24: 32}[d]
+    rng = np.random.default_rng(d)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                  for s in ((b, lq, hq, d), (b, lkv, hkv, d), (b, lkv, hkv, d), (b, lq, hq, d)))
+    mask = torch.from_numpy(np.where(rng.random((b, 1, lq, lkv)) > 0.3, 0.0, MASK_NEG).astype(np.float32))
+    mask[..., 0] = 0.0
+    want = fa.mot_attention_bwd_ref(q, k, v, mask, 50.0, g)
+    padded, true_d = fa._pad_head_dim(q, k, v, g)
+    assert true_d == d and all(x.shape[-1] == run_d for x in padded)
+    got = fa.mot_attention_bwd_ref(*padded[:3], mask, 50.0, padded[3], scale=1.0 / d**0.5)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a[..., :d], w, rtol=0, atol=1e-6, msg=lambda m, n=name: f"{n}: {m}")
+        assert torch.equal(a[..., d:], torch.zeros_like(a[..., d:])), name

@@ -2,10 +2,14 @@
 against the eager chunk on the card, at the tiny config: bitwise, for the
 full flow and the refined tier, two buckets sharing one memory pool,
 three consecutive calls each, from generators seeded alike. Then the
-serving layer's ``make_compiled_infer_fn`` behind a ``BatchingPolicy``.
+serving layer's ``make_compiled_infer_fn`` behind a ``BatchingPolicy``,
+and a capture while the cyclic GC collects often and a dead cycle holds
+another graph.
 
 Marked ``cuda``; imports no JAX, so that it runs on the card's machine:
 ``python -m pytest --noconftest tests/test_torch_compiled_card.py -q``."""
+
+import gc
 
 import numpy as np
 import pytest
@@ -110,3 +114,30 @@ def test_compiled_infer_fn_serves_both_tiers(cuda):
     assert policy.n_refined == 1
     with pytest.raises(ValueError, match="no graph for batch size 3"):
         infer_fn(example_batch(cfg, 3, 0, prev=False))
+
+
+def test_capture_survives_a_collection_of_a_dead_graph(cuda):
+    """A reference cycle holding a CompiledChunk is dropped, and the GC set
+    to collect at almost every allocation; the next capture must not see
+    the dead graph's memory freed among its launches. _capture collects
+    first and holds the GC off for the capture's length."""
+    cfg = cfg_lib.tiny_pizero_config()
+    params = pizero.init_params(cfg, seed=0, device=cuda)
+
+    class Holder:
+        pass
+
+    dead = Holder()
+    dead.graph = compiled.compile_chunk(params, cfg, 1, generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    dead.me = dead  # the cycle: only the GC frees it
+    del dead
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        graph = compiled.compile_chunk(params, cfg, 1, generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+        assert gc.isenabled()
+    finally:
+        gc.set_threshold(*thresholds)
+    eager = serving.make_infer_fn(params, cfg, device=cuda, seed=0)
+    batch = example_batch(cfg, 1, 0, prev=False)
+    assert torch.equal(graph(batch), eager(batch))

@@ -49,6 +49,11 @@ def test_import_leaves_jax_and_yaml_out():
                  "utils.geometry", "utils.image", "data.normalization", "scripts.run",
                  "scripts.try_checkpoint_in_simpler"):
         assert f"open_pi_zero_torch.{name}" in modules
+    # and the TF-free data pipeline's
+    for name in ("data.tfrecord", "data.tf_example", "data.images", "data.rlds", "data.oxe", "data.traj_transforms",
+                 "data.obs_transforms", "data.pipeline", "data.streams", "data.goal_relabeling",
+                 "data.task_augmentation", "agents.dataset"):
+        assert f"open_pi_zero_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -240,6 +240,8 @@ BWD_GEOMETRIES = [
     (2, 300, 300, 8, 1, 256),  # 10 key tiles, the last one 12 keys
     (1, 37, fa.bwd_max_lkv(256), 8, 2, 256),  # the longest K/V the backward takes
     (2, 7, 45, 4, 4, 16),  # G = 1, the smallest head dim
+    (2, 7, 9, 4, 1, 8),  # the reference fixtures' head dim: zero-padded to 16 by the wrapper
+    (1, 4, 25, 4, 1, 24),  # SimplerLite's: zero-padded to 32
 ]
 
 
@@ -266,6 +268,23 @@ def test_bwd_kernels_match_their_reference_and_plain_autograd(cuda, geom, dtype,
         assert a.dtype == dtype and a.shape == r.shape and torch.isfinite(a).all(), name
         torch.testing.assert_close(a, r, rtol=tol, atol=tol, msg=lambda m, n=name: f"{n} vs reference: {m}")
         torch.testing.assert_close(a, p, rtol=tol, atol=tol, msg=lambda m, n=name: f"{n} vs autograd: {m}")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("geom", [(2, 7, 9, 4, 1, 8), (1, 4, 25, 4, 1, 24)])
+def test_vjp_at_padded_head_dims_matches_plain_autograd(cuda, geom, dtype, tol):
+    """K1 zero-pads a head dim between its sizes; its backward pads q, k, v
+    and the cotangent alike, scales by the true head dim and slices dq, dk
+    and dv back."""
+    q, k, v, mask, g = _bwd_inputs(cuda, geom, dtype)
+    before, bwd_before = fa.launches, fa.bwd_launches
+    got = _out_and_grads(fa.mot_attention_fused, q, k, v, mask, g)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.bwd_launches) == (before + 1, bwd_before + 2)
+    want = _out_and_grads(mot_attention_ref, q, k, v, mask, g)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == dtype and torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol, msg=lambda m, n=name: f"{n}: {m}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

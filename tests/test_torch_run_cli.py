@@ -7,8 +7,10 @@ eval export a TrainAgent writes), with a statistics file written here: the
 launcher returns the eval result, and its per-chunk actions are bitwise
 those of an EvalAgent built in this process on the same params (both load
 through ``scripts/serve.load_params``; the noise comes from CPU
-generators seeded alike). ``train`` mode and ``--distributed`` raise the
-errors that name their ROADMAP items.
+generators seeded alike). ``train`` mode without data raises before any
+params are built (tests/test_torch_data_pipeline.py trains from
+``cfg.data``), and ``--distributed`` raises the error that names its
+ROADMAP item.
 """
 
 import os
@@ -87,13 +89,15 @@ def test_run_cli_evaluates_a_port_checkpoint(demo_dir, monkeypatch):
 
 
 def test_run_cli_mode_detection_and_refusals(demo_dir, monkeypatch):
-    # train mode: no dataset can come from a command line until the data
-    # pipeline lands; the agent raises before it builds any params
+    # train mode builds the datasets from cfg.data before any params: with
+    # no dataset under VLA_DATA_DIR, or no data block (simpler_lite.yaml is
+    # an eval config), the agent raises before it builds them
     built = []
     monkeypatch.setattr(pizero, "init_params", lambda *a, **k: built.append(1))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    monkeypatch.setenv("VLA_DATA_DIR", str(demo_dir / "no_data"))
+    with pytest.raises(FileNotFoundError, match="no_data"):
         run.main(["--config", TRAIN_BRIDGE, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="no data"):
         run.main(["--config", SIMPLER_LITE, "--mode", "train", "--device", "cpu"])
     assert built == []
     with pytest.raises(NotImplementedError, match="item 8"):

@@ -7,8 +7,8 @@ its EvalAgent's load arithmetic (to_dtype, merge_lora per mixture,
 dequantize, the serving layout) on the same tree.
 
 The data is an in-memory dataset of seeded frame batches in the RLDS
-layout (``Frames``): the port has no TensorFlow pipeline (ROADMAP.md
-queue 1, item 10). Tolerances: preprocessing and the accuracies exactly
+layout (``Frames``); the agent built from ``cfg.data`` is tested in
+tests/test_torch_data_pipeline.py. Tolerances: preprocessing and the accuracies exactly
 (the same numpy / fp32 arithmetic), the l1 mean 1e-6 relative (its sum
 taken in another order); the merged float trees 1e-6 (A @ B summed
 in another order); agent runs against hand-driven steps bitwise (the same
@@ -138,8 +138,13 @@ def test_auto_resume_skips_a_partial_checkpoint_and_keeps_wandb_id(tmp_path):
 
 
 def test_agent_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    cfg, _ = tiny_config(tmp_path, overrides=["data={train: {dataset_mix: bridge}}"])
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # the data comes from cfg.data now; a mix of the JAX package's extended
+    # OXE registry is not ported, and no data at all is refused
+    cfg, _ = tiny_config(tmp_path, overrides=[f"data={{train: {{dataset_mix: kuka, data_path: {tmp_path}}}}}"])
+    with pytest.raises(ValueError, match="extended OXE registry"):
+        t_agent.TrainAgent(cfg, device="cpu")
+    cfg, _ = tiny_config(tmp_path)
+    with pytest.raises(ValueError, match="no data"):
         t_agent.TrainAgent(cfg, device="cpu")
     cfg, _ = tiny_config(tmp_path, overrides=["global_batch_size=5"])
     with pytest.raises(ValueError, match="not divisible"):
