@@ -127,7 +127,9 @@ Phases, each of which raises on failure:
                (2e-2); two backward launches per VJP; two VJPs bitwise equal.
                The same at head dims between the kernels' sizes, which K1
                and its backward zero-pad: (B, Lq, Lkv, Hq, Hkv, D) = (2, 7,
-               9, 4, 1, 8) and (1, 4, 25, 4, 1, 24)
+               9, 4, 1, 8), (1, 4, 25, 4, 1, 24), and phase 8e's reach
+               update (32, 29, 29, 4, 1, 24) and eval chunk (1, 4, 29, 4,
+               1, 24)
   7. train-parity — bridge widths at depth 2, fp32, remat on, B=2,
                grad_accum=2, injected flow times and noise, Adam eps 1e-3:
                one update on the card (kernel) against the same update on
@@ -213,6 +215,22 @@ Phases, each of which raises on failure:
                (configs/train/bridge_v5e.yaml's recipe on one card), 2
                updates: finite losses, the launches, update time, peak memory
                and the optimizer state's bytes beside phase 8's
+  8e. learn  — the closed-loop learning chain of
+               open_pi_zero_torch/scripts/demo_closed_loop.py at its reach
+               recipe's geometry (hidden 96, 3 layers, 4 Q / 1 KV heads of
+               24, 56² frames, B = 32, lr 1e-3, EMA from half-way) with a
+               cut run length: 24 expert demos through the port's RLDS
+               writer (expert rate 1.0), 400 updates from cfg.data (every
+               loss finite, the mean loss of updates 351-400 below half
+               that of updates 1-50, K1 and its backward launched exactly
+               L and 2 L times per update), the final checkpoint with its
+               params/ export, 4 trained and 4 random-init episodes (rates
+               printed, not asserted: 400 updates is before the loss
+               breaks), then e2e_tier_sweep on the checkpoint with the
+               fp32_fused and w8a8_default tiers, 2 episodes each; the
+               update time and batch wait printed. Phase 6 holds K1-vjp
+               against plain autograd at this phase's update and eval
+               chunk geometries
   9. shard-kernel — K1-shard (the kernel on one rank's shard under a
                mesh) in 2 spawned ranks, mesh (data=1, model=2): each rank's
                shard against the plain version on the whole inputs sliced
@@ -287,7 +305,7 @@ from open_pi_zero_torch.ops.attention import mot_attention_ref
 from open_pi_zero_torch.ops.masks import MASK_NEG
 from open_pi_zero_torch.parallel import ranks, run_ranks
 from open_pi_zero_torch.processing import VLAProcessor
-from open_pi_zero_torch.scripts import run, serve
+from open_pi_zero_torch.scripts import demo_closed_loop, e2e_tier_sweep, run, serve
 from open_pi_zero_torch.training import checkpoint as ckpt_lib
 from open_pi_zero_torch.training import optimizer as opt_lib
 from open_pi_zero_torch.training import train_step
@@ -1694,8 +1712,10 @@ def out_and_grads(attention, q, k, v, mask, g, softcap=50.0) -> tuple:
 
 
 # (B, Lq, Lkv, Hq, Hkv, D) at head dims between the kernels' sizes: the
-# reference fixtures' 8 and SimplerLite's 24, zero-padded to 16 and 32
-PADDED_GEOMETRIES = ((2, 7, 9, 4, 1, 8), (1, 4, 25, 4, 1, 24))
+# reference fixtures' 8 and SimplerLite's 24, zero-padded to 16 and 32; the
+# last two are phase 8e's: the reach recipe's update (B = 32, the 29-token
+# sequence) and its eval chunk (4 action tokens over the 29)
+PADDED_GEOMETRIES = ((2, 7, 9, 4, 1, 8), (1, 4, 25, 4, 1, 24), (32, 29, 29, 4, 1, 24), (1, 4, 29, 4, 1, 24))
 
 
 def check_vjp_padded(dev) -> dict:
@@ -1705,6 +1725,7 @@ def check_vjp_padded(dev) -> dict:
     errs = {}
     for b, lq, lkv, hq, hkv, d in PADDED_GEOMETRIES:
         rng = np.random.default_rng(d)
+        geometry = f"B={b} Lq={lq} Lkv={lkv} D={d}"
         shapes = ((b, lq, hq, d), (b, lkv, hkv, d), (b, lkv, hkv, d), (b, lq, hq, d))
         arrays = [rng.normal(size=s).astype(np.float32) for s in shapes]
         mask = np.where(rng.random((b, 1, lq, lkv)) > 0.3, 0.0, MASK_NEG).astype(np.float32)
@@ -1716,11 +1737,11 @@ def check_vjp_padded(dev) -> dict:
             got = out_and_grads(fa.mot_attention_fused, q, k, v, mask, g)
             torch.cuda.synchronize()
             if (fa.launches - before[0], fa.bwd_launches - before[1]) != (1, 2):
-                raise AssertionError(f"D={d}: {fa.launches - before[0]} K1 and {fa.bwd_launches - before[1]} "
+                raise AssertionError(f"{geometry}: {fa.launches - before[0]} K1 and {fa.bwd_launches - before[1]} "
                                      "backward launches for one VJP, want 1 and 2")
             want = out_and_grads(mot_attention_ref, q, k, v, mask, g)
             for name, x, y in zip(("out", "dq", "dk", "dv"), got, want):
-                label = f"D={d} {str(dtype)[6:]} {name}"
+                label = f"{geometry} {str(dtype)[6:]} {name}"
                 if x.shape != y.shape or not torch.isfinite(x).all():
                     raise AssertionError(f"{label}: shape {tuple(x.shape)}, want {tuple(y.shape)}, or not finite")
                 torch.testing.assert_close(x, y, rtol=TOL[dtype], atol=TOL[dtype], msg=lambda m, n=label: f"{n}: {m}")
@@ -2938,6 +2959,84 @@ def check_full_finetune_8bit(dev, info: str, updates: int = 2) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phase 8e: the closed-loop learning chain, at a cut run length
+# --------------------------------------------------------------------------- #
+
+
+LEARN_DEMOS = 24
+LEARN_UPDATES = 400
+LEARN_EPISODES = 4  # trained and random-init episodes each
+LEARN_WINDOW = 50  # updates per entry of demo_closed_loop's loss curve
+LEARN_TIERS = "fp32_fused,w8a8_default"
+LEARN_TIER_EPISODES = 2
+
+
+def check_learn(dev, info: str) -> dict:
+    """Phase 8e: ``demo_closed_loop.main`` on the reach task at its recipe's
+    geometry, cut to LEARN_DEMOS demos and LEARN_UPDATES updates, in a
+    temporary workdir (with the statistics cache) removed afterwards; then
+    ``e2e_tier_sweep.main`` on its final checkpoint. The launch counts are
+    set to 0 just before the run and read just after it."""
+    tmp = tempfile.mkdtemp(prefix="opz_learn_")
+    cache = os.environ.get("XDG_CACHE_HOME")
+    os.environ["XDG_CACHE_HOME"] = os.path.join(tmp, "cache")
+    try:
+        fa.launches = fa.bwd_launches = 0
+        result = demo_closed_loop.main([
+            "--task", "reach", "--workdir", tmp, "--n-demos", str(LEARN_DEMOS), "--n-updates", str(LEARN_UPDATES),
+            "--n-eval-episodes", str(LEARN_EPISODES), "--device", str(dev),
+        ])
+        launches = (fa.launches, fa.bwd_launches)
+        layers = result["model"]["layers"]
+        curve = result["loss_per_50_updates"]
+        if result["expert_success_rate"] != 1.0:
+            raise AssertionError(f"expert success rate {result['expert_success_rate']}, want 1.0")
+        if len(curve) != LEARN_UPDATES // LEARN_WINDOW or not np.all(np.isfinite(curve)):
+            raise AssertionError(f"the loss per {LEARN_WINDOW} updates: {curve}")
+        if not curve[-1] < curve[0] / 2:
+            raise AssertionError(f"mean loss of the last {LEARN_WINDOW} updates {curve[-1]} is not below half of the "
+                                 f"first {LEARN_WINDOW}'s {curve[0]}")
+        # no remat, no accumulation: one K1 per layer forward, its two
+        # backward kernels per layer backward
+        per_update = (result["k1_launches_per_update"], result["bwd_launches_per_update"])
+        if per_update != (layers, 2 * layers) or launches[1] != 2 * layers * LEARN_UPDATES:
+            raise AssertionError(f"launches per update {per_update}, want {(layers, 2 * layers)}; over the run "
+                                 f"{launches}")
+        ckpt = os.path.join(tmp, "train", "checkpoint", f"ckpt_{LEARN_UPDATES}")
+        if not (ckpt_lib.is_checkpoint(ckpt) and os.path.exists(os.path.join(ckpt, ckpt_lib.PARAMS_DIR,
+                                                                                   ckpt_lib.PARAMS_FILE))):
+            raise AssertionError(f"no checkpoint with its params/ export at {ckpt}")
+        log(f"learn: {LEARN_DEMOS} reach demos (expert rate {result['expert_success_rate']}), {LEARN_UPDATES} "
+            f"updates of B = 32: update {result['update_ms']:.3f} ms (median, the first left out), batch wait "
+            f"{result['batch_wait_ms']['median_after_first']:.3f} ms (median; mean "
+            f"{result['batch_wait_ms']['mean_after_first']:.3f}, first {result['batch_wait_ms']['first']:.1f}), "
+            f"timings {json.dumps(result['timings_s'])} s, on {info}")
+        log(f"learn: loss per {LEARN_WINDOW} updates {[round(x, 4) for x in curve]}; K1 {per_update[0]:g} and backward "
+            f"{per_update[1]:g} launches per update at head dim 24; the run's counts {launches}")
+        log(f"learn: after {LEARN_UPDATES} updates, {LEARN_EPISODES} trained episodes "
+            f"{result['trained_success_rate']}, random-init control {result['random_init_success_rate']} "
+            "(printed, not asserted)")
+        t0 = time.time()
+        sweep = e2e_tier_sweep.main([
+            "--checkpoint", ckpt, "--stats", os.path.join(tmp, "statistics.json"), "--tiers", LEARN_TIERS,
+            "--n-episodes", str(LEARN_TIER_EPISODES), "--device", str(dev),
+        ])
+        rates = {name: tier["success_rate"] for name, tier in sweep["tiers"].items()}
+        if list(rates) != LEARN_TIERS.split(",") or any(
+                tier["n_episodes"] != LEARN_TIER_EPISODES for tier in sweep["tiers"].values()):
+            raise AssertionError(f"tier sweep: {sweep['tiers']}")
+        log(f"learn: e2e_tier_sweep on ckpt_{LEARN_UPDATES}, {LEARN_TIER_EPISODES} episodes per tier: {rates}, "
+            f"{time.time() - t0:.1f} s")
+        return {**result, "launches": launches, "tiers": rates}
+    finally:
+        if cache is None:
+            os.environ.pop("XDG_CACHE_HOME", None)
+        else:
+            os.environ["XDG_CACHE_HOME"] = cache
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------- #
 # phases 9-11: inference under a mesh of processes
 # --------------------------------------------------------------------------- #
 
@@ -3195,6 +3294,11 @@ def single_card_phases(dev, info: str) -> list:
     log(f"train-8bit: peak memory {full8['peak_mem_gb']:.3f} GB and update {full8['update_ms'][-1]:.1f} ms against "
         f"fp32 Adam's {trained['peak_mem_gb']:.3f} GB and {trained['update_ms_median_after_first']:.1f} ms (phase 8)")
     log(f"phase train-8bit ok in {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    check_learn(dev, info)
+    log(f"phase learn ok in {time.time() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     entry = {

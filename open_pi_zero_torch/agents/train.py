@@ -13,7 +13,7 @@ with gradient accumulation; resumes from a checkpoint (a path, or
 
 Where it differs from the JAX agent, by design:
   - one device: a world of more than one rank raises (ROADMAP.md queue 1,
-    item 8); ``zero1`` is a no-op on one device, as in JAX;
+    "Training under a mesh"); ``zero1`` is a no-op on one device, as in JAX;
   - the data: without ``dataset=``, the datasets come from ``cfg.data``
     as in JAX, through the port's TF-free pipeline
     (``agents/dataset.RLDSInterleavedDataset``), and are built before the
@@ -22,7 +22,7 @@ Where it differs from the JAX agent, by design:
     RLDS layout of ``preprocess_batch``; with neither the agent raises;
   - the tokenizer: ``FakeTokenizer`` when ``pretrained_model_path`` does
     not exist, as in JAX; an existing path raises, since the PaliGemma
-    tokenizer needs transformers (queue 1, item 9);
+    tokenizer needs transformers (ROADMAP.md, "Not queued");
   - checkpoints are ``training/checkpoint.py``'s, not orbax directories.
 """
 
@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from open_pi_zero_torch import resolve_device
-from open_pi_zero_torch.agents.dataset import RLDSInterleavedDataset
+from open_pi_zero_torch.agents.dataset import MESH_ITEM, RLDSInterleavedDataset
 from open_pi_zero_torch.config import ConfigDict, pizero_config_from_dict, training_config_from_dict
 from open_pi_zero_torch.models import convert, pizero
 from open_pi_zero_torch.ops import lora as lora_lib
@@ -95,7 +95,7 @@ class TrainAgent:
 
         # ---- batch math (reference train.py:134-139), one device ----
         if world_size() > 1:
-            raise NotImplementedError("training on more than one device waits in ROADMAP.md queue 1, item 8")
+            raise NotImplementedError(f"training on more than one device waits in {MESH_ITEM}")
         gbs, pbs = self.train_cfg.global_batch_size, self.train_cfg.per_device_batch_size
         if gbs % pbs:
             raise ValueError(f"global_batch_size {gbs} not divisible by per_device {pbs} x devices 1")

@@ -10,8 +10,11 @@ rate, the reference's acceptance metric (reference README.md:90-114).
 
 from open_pi_zero_torch.envs.drawer_env import (  # noqa: F401
     DrawerEnv,
+    collect_fractal_demos,
     drawer_expert,
     fractal_proprio_parts,
+    register_drawer_lever_mix,
+    write_fractal_demo_dataset,
 )
 from open_pi_zero_torch.envs.pick_place_env import (  # noqa: F401
     PickPlaceEnv,
@@ -21,8 +24,13 @@ from open_pi_zero_torch.envs.reach_env import (  # noqa: F401
     INSTRUCTIONS,
     ReachEnv,
     bridge_proprio,
+    collect_demos,
+    register_simpler_lite_mix,
+    register_simpler_lite_tri_lever_mix,
+    register_simpler_lite_tri_mix,
     scripted_expert,
     warm_tokenizer,
+    write_demo_dataset,
 )
 
 # demo-collection registry: task -> env class, scripted expert, horizon

@@ -22,15 +22,15 @@ gripper), and pull along +x past the success extension. Success requires
 vision (cabinet position only in pixels) AND language (instruction picks
 the drawer) AND gripper control (no grasp, no pull).
 
-The demo writers (``collect_fractal_demos``, ``write_fractal_demo_dataset``,
-``register_drawer_lever_mix``) and ``DrawerEnv.randomize_start``, which
-only they call, write RLDS through TensorFlow: they wait with the data
-pipeline (ROADMAP.md queue 1, item 10).
+The demo writers (``collect_fractal_demos``, ``write_fractal_demo_dataset``)
+write the raw fractal schema through the port's RLDS writer, frames in
+PNG as ``reach_env.write_demo_dataset`` writes them;
+``register_drawer_lever_mix`` adds the lever mix to ``data/oxe.py``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -124,6 +124,38 @@ class DrawerEnv:
 
     def get_language_instruction(self) -> str:
         return self.instruction
+
+    def randomize_start(self, rng: np.random.Generator) -> dict:
+        """Redraw the eef start uniformly over the FULL workspace (demo
+        collection only — eval keeps the episode-keyed start). The default
+        start band (y in [-0.12, 0.12]) lies mostly BELOW the bottom
+        handle (y in [0.07, 0.14]), so bottom-target demos almost never
+        contain corrective -y approaches; a policy that open-loop replays
+        the mean demo (race +y, close on schedule) fits that data nearly
+        as well as a servoing one and fails closed-loop. Full-workspace
+        starts put states above/beside every handle into the demos, which
+        decorrelates approach duration from close timing and forces
+        state-conditioned behavior. Starts are rejection-sampled outside
+        the cabinet body rectangle and outside every handle's grasp radius
+        so coverage demos stay physically plausible (the kinematic env
+        would otherwise allow pass-through starts a real sim forbids).
+        Returns the refreshed obs."""
+        lo, hi = WORKSPACE
+        x0 = self.cab[0] - CABINET_HALF_W
+        x1 = self.cab[0] + CABINET_HALF_W + PANEL_THICK
+        y0 = self.cab[1] - CABINET_HALF_H
+        y1 = self.cab[1] + CABINET_HALF_H
+        for _ in range(100):
+            eef = rng.uniform(lo + 0.01, hi - 0.01, size=2)
+            in_cabinet = (x0 <= eef[0] <= x1) and (y0 <= eef[1] <= y1)
+            near_handle = any(
+                np.linalg.norm(self.handle_pos(i) - eef) < GRASP_RADIUS
+                for i in range(3)
+            )
+            if not in_cabinet and not near_handle:
+                break
+        self.eef = eef
+        return self._obs()
 
     def handle_pos(self, i: int) -> np.ndarray:
         """World xy of drawer i's handle center."""
@@ -292,7 +324,7 @@ def drawer_expert(
 
 
 # --------------------------------------------------------------------------- #
-# the fractal proprio of an observation
+# demo collection in the raw fractal20220817_data RLDS schema
 # --------------------------------------------------------------------------- #
 
 
@@ -305,3 +337,162 @@ def fractal_proprio_parts(obs: dict) -> Tuple[np.ndarray, np.ndarray]:
     quat_xyzw = np.roll(p[3:7], -1)  # env stores wxyz; fractal uses xyzw
     base = np.concatenate([p[:3], quat_xyzw]).astype(np.float32)
     return base, np.array([1.0 - p[7]], np.float32)
+
+
+def collect_fractal_demos(
+    n_episodes: int,
+    seed: int = 0,
+    render_size: int = 112,
+    hold_steps: int = 4,
+    max_steps: Optional[int] = None,
+    target: Optional[str] = None,
+    start_coverage: bool = False,
+    balance_targets: bool = False,
+) -> Tuple[List[dict], float]:
+    """Roll the drawer expert; returns (episodes in the raw
+    fractal20220817_data step schema, frames PNG-encoded; expert success
+    rate). Unlike the bridge tasks there is no action relabel from proprio
+    (rt1_transform keeps world_vector as-is), so no closing frame is
+    appended."""
+    from open_pi_zero_torch.data.images import encode_png
+
+    env = DrawerEnv(seed=seed, render_size=render_size,
+                    max_steps=int(max_steps or 112), target=target)
+    episodes, successes = [], []
+    for ep_id in range(n_episodes):
+        if balance_targets and target is None:
+            # EXACT per-language-target balance (ep_id mod 3) instead of
+            # the episode-keyed random draw: the language-grounding lever
+            # needs each "open the {top,middle,bottom} drawer" instruction
+            # equally represented in the no-coverage primary dataset.
+            # Layouts and starts stay episode-keyed (reset() below), only
+            # the target assignment is overridden.
+            env._fixed_target = ep_id % 3
+        obs, _ = env.reset(options={"obj_init_options": {"episode_id": ep_id}})
+        rng = np.random.default_rng((seed, ep_id, 23))
+        if start_coverage:
+            obs = env.randomize_start(rng)
+        # DETERMINISTIC early close (see drawer_expert's docstring for the
+        # two measured failure modes this replaces): the gripper command
+        # is a consistent function of handle distance, and the slow
+        # squeeze-while-approaching inside 2x grasp radius puts
+        # closed-at/near-handle states in the demos — the trajectory
+        # shape the eval-side sticky machine produces
+        close_dist = 2.0 * GRASP_RADIUS
+        images, bases, grips, wv, rot, gca = [], [], [], [], [], []
+        success_at = None
+        while True:
+            act = drawer_expert(env, rng, close_dist=close_dist)
+            images.append(encode_png(obs["image"]))
+            base, gc = fractal_proprio_parts(obs)
+            bases.append(base)
+            grips.append(gc)
+            wv.append(act[:3])
+            rot.append(act[3:6])
+            gca.append(act[6:7])
+            obs, _, success, truncated, _ = env.step(act)
+            if success and success_at is None:
+                success_at = env.t
+            if truncated or (success_at is not None and env.t >= success_at + hold_steps):
+                break
+        successes.append(bool(success))
+        if not success:
+            continue  # demos are demonstrations: drop the (rare) failures
+        n = len(images)
+        episodes.append(
+            {
+                "steps": {
+                    "observation": {
+                        "image": images,
+                        "base_pose_tool_reached": np.stack(bases),
+                        "gripper_closed": np.stack(grips),
+                        "natural_language_instruction": [
+                            env.get_language_instruction().encode()
+                        ] * n,
+                    },
+                    "action": {
+                        "world_vector": np.stack(wv),
+                        "rotation_delta": np.stack(rot),
+                        "gripper_closedness_action": np.stack(gca),
+                    },
+                },
+                "episode_metadata": {"file_path": f"/sim/drawer_ep{ep_id}".encode()},
+            }
+        )
+    return episodes, float(np.mean(successes))
+
+
+def write_fractal_demo_dataset(
+    data_dir: str,
+    n_episodes: int,
+    seed: int = 0,
+    render_size: int = 112,
+    shards: int = 4,
+    max_steps: Optional[int] = None,
+    dataset_name: str = "fractal20220817_data",
+    target: Optional[str] = None,
+    start_coverage: bool = False,
+    balance_targets: bool = False,
+) -> float:
+    """Collect drawer demos and write them as a raw fractal20220817_data
+    RLDS dir in the layout the fractal pipeline (registry entry +
+    rt1_transform, data/oxe.py) reads. Returns the expert success rate."""
+    from open_pi_zero_torch.data import rlds
+
+    episodes, expert_rate = collect_fractal_demos(
+        n_episodes, seed=seed, render_size=render_size, max_steps=max_steps,
+        target=target, start_coverage=start_coverage,
+        balance_targets=balance_targets,
+    )
+    leaves = [
+        rlds.LeafSpec(
+            "steps/observation/image", "uint8",
+            (render_size, render_size, 3), "image", True, "png",
+        ),
+        rlds.LeafSpec(
+            "steps/observation/base_pose_tool_reached", "float32", (7,),
+            "tensor", True,
+        ),
+        rlds.LeafSpec(
+            "steps/observation/gripper_closed", "float32", (1,), "tensor", True
+        ),
+        rlds.LeafSpec(
+            "steps/observation/natural_language_instruction", "string", (),
+            "text", True,
+        ),
+        rlds.LeafSpec("steps/action/world_vector", "float32", (3,), "tensor", True),
+        rlds.LeafSpec("steps/action/rotation_delta", "float32", (3,), "tensor", True),
+        rlds.LeafSpec(
+            "steps/action/gripper_closedness_action", "float32", (1,),
+            "tensor", True,
+        ),
+        rlds.LeafSpec("episode_metadata/file_path", "string", (), "text", False),
+    ]
+    rlds.write_rlds_dataset(
+        data_dir, dataset_name, episodes, leaves, shards=min(shards, n_episodes)
+    )
+    return expert_rate
+
+
+def register_drawer_lever_mix(cov_weight: float = 0.5) -> str:
+    """The drawer language-grounding lever mix: PRIMARY = no-coverage
+    per-target-balanced demos (episode-keyed default starts ground the
+    language instruction — the expert goes to the COMMANDED handle, and
+    with balanced targets no nearest-handle shortcut fits all three),
+    SECONDARY = full-workspace coverage starts at a lower weight (state
+    diversity for the servo field without letting the nearest-handle
+    local fit dominate). Mirrors how the reference's OXE mixes pair
+    narrow teleop data with play data at unequal weights
+    (reference src/data/oxe/mixes.py). Returns the mix name."""
+    from open_pi_zero_torch.data import oxe
+
+    if "fractal_drawer_cov" not in oxe.REGISTRY:
+        oxe.REGISTRY["fractal_drawer_cov"] = dict(
+            oxe.REGISTRY["fractal20220817_data"]
+        )
+        oxe.STANDARDIZE_FNS["fractal_drawer_cov"] = oxe.rt1_transform
+    oxe.MIXES["fractal_drawer_lever"] = [
+        ("fractal20220817_data", 1.0),
+        ("fractal_drawer_cov", float(cov_weight)),
+    ]
+    return "fractal_drawer_lever"

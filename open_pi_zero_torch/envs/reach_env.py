@@ -16,14 +16,17 @@ and language (color selects which block). The policy command is the
 simpler/WidowX format the bridge adapter emits: [dx, dy, dz,
 axis-angle rotation (3), gripper] — the env integrates the xyz delta.
 
-The demo writers (``collect_demos``, ``write_demo_dataset`` and the
-``register_*`` training mixes) write RLDS through TensorFlow: they wait
-with the data pipeline (ROADMAP.md queue 1, item 10).
+The demo writers (``collect_demos``, ``write_demo_dataset``) roll the
+scripted expert and write its episodes as RLDS through the port's own
+writer (``data/rlds.py``). Frames are PNG, where the JAX package writes
+JPEG: the port has no JPEG codec, so it trains on lossless frames
+(ROADMAP.md queue 3, deliberate differences). The ``register_*``
+functions add the SimplerLite training mixes to ``data/oxe.py``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -165,7 +168,7 @@ class ReachEnv:
 
 
 # --------------------------------------------------------------------------- #
-# scripted expert
+# scripted expert + demo collection
 # --------------------------------------------------------------------------- #
 
 
@@ -176,6 +179,176 @@ def scripted_expert(env: ReachEnv, rng: np.random.Generator, noise: float = 0.00
     delta = np.clip(env.target_xy - env.eef, -MAX_STEP, MAX_STEP)
     delta = delta + rng.normal(0.0, noise, size=2)
     return np.concatenate([delta, [0.0, 0.0, 0.0, 0.0], [1.0]]).astype(np.float32)
+
+
+def collect_demos(
+    n_episodes: int,
+    seed: int = 0,
+    render_size: int = 112,
+    hold_steps: int = 4,
+    max_steps: Optional[int] = None,
+    task: str = "reach",
+) -> Tuple[List[dict], float]:
+    """Roll the task's expert; returns (episodes in the bridge_dataset RLDS
+    step schema, frames PNG-encoded; expert success rate). Each episode
+    keeps `hold_steps` stay-put frames after first success so the policy
+    also learns to hold position (keeps success latched under closed-loop
+    chunked control).
+
+    Expert actions are recorded in the RAW bridge dataset convention
+    (gripper 1.0 open / 0.0 closed); the env is stepped with the SAME
+    conversion the adapter applies at eval time (gripper binarize ->
+    +1/-1, env_adapter.py:200-203), so demo dynamics match eval dynamics."""
+    from open_pi_zero_torch.data.images import encode_png
+    from open_pi_zero_torch.envs import TASKS
+
+    spec = TASKS[task]
+    env = spec["env"](
+        seed=seed,
+        render_size=render_size,
+        max_steps=int(max_steps or spec["max_steps"]),
+    )
+    expert = spec["expert"]
+    episodes, successes = [], []
+    for ep_id in range(n_episodes):
+        obs, _ = env.reset(options={"obj_init_options": {"episode_id": ep_id}})
+        rng = np.random.default_rng((seed, ep_id, 7))
+        images, states, actions = [], [], []
+        reached_at = None
+        while True:
+            act = expert(env, rng)
+            images.append(encode_png(obs["image"]))
+            states.append(bridge_proprio(obs))
+            actions.append(act)
+            cmd = np.concatenate([act[:6], [2.0 * (act[6] > 0.5) - 1.0]])
+            obs, _, success, truncated, _ = env.step(cmd)
+            if success and reached_at is None:
+                reached_at = env.t
+            done = truncated or (reached_at is not None and env.t >= reached_at + hold_steps)
+            if done:
+                # closing frame so relabel_actions_from_proprio (which drops
+                # the last step, data/oxe.py) keeps every real action
+                images.append(encode_png(obs["image"]))
+                states.append(bridge_proprio(obs))
+                actions.append(act)
+                break
+        successes.append(bool(success))
+        episodes.append(
+            {
+                "steps": {
+                    "observation": {
+                        "image_0": images,
+                        "state": np.stack(states),
+                    },
+                    "action": np.stack(actions),
+                    "language_instruction": [env.get_language_instruction().encode()]
+                    * len(images),
+                },
+                "episode_metadata": {"file_path": f"/sim/ep{ep_id}".encode()},
+            }
+        )
+    return episodes, float(np.mean(successes))
+
+
+def write_demo_dataset(
+    data_dir: str,
+    n_episodes: int,
+    seed: int = 0,
+    render_size: int = 112,
+    shards: int = 4,
+    max_steps: Optional[int] = None,
+    task: str = "reach",
+    dataset_name: str = "bridge_dataset",
+) -> float:
+    """Collect expert demos and write them as a `bridge_dataset` RLDS dir
+    (TFRecord shards + features.json + dataset_info.json) in the layout the
+    bridge pipeline reads, so training uses the UNMODIFIED registry entry
+    and standardization transform. Returns the expert success rate."""
+    from open_pi_zero_torch.data import rlds
+
+    episodes, expert_rate = collect_demos(
+        n_episodes, seed=seed, render_size=render_size, max_steps=max_steps,
+        task=task,
+    )
+    leaves = [
+        rlds.LeafSpec(
+            "steps/observation/image_0", "uint8",
+            (render_size, render_size, 3), "image", True, "png",
+        ),
+        rlds.LeafSpec("steps/observation/state", "float32", (7,), "tensor", True),
+        rlds.LeafSpec("steps/action", "float32", (7,), "tensor", True),
+        rlds.LeafSpec("steps/language_instruction", "string", (), "text", True),
+        rlds.LeafSpec("episode_metadata/file_path", "string", (), "text", False),
+    ]
+    rlds.write_rlds_dataset(
+        data_dir, dataset_name, episodes, leaves, shards=min(shards, n_episodes)
+    )
+    return expert_rate
+
+
+def register_simpler_lite_mix() -> str:
+    """Register a two-dataset mix for multi-task training: reach demos
+    under the stock `bridge_dataset` entry plus pick-place demos under a
+    runtime `simpler_lite_pp` entry (same schema/transform as bridge).
+    Exercises the interleaved multi-dataset path — weighted sampling with
+    transition-count weight balancing, per-dataset statistics — the way
+    the reference trains on OXE mixes (reference
+    src/data/dataset.py:583-640). Returns the mix name."""
+    from open_pi_zero_torch.data import oxe
+
+    if "simpler_lite_pp" not in oxe.REGISTRY:
+        oxe.REGISTRY["simpler_lite_pp"] = {
+            "image_obs_keys": {"primary": "image_0", "secondary": None, "wrist": None},
+            "depth_obs_keys": {"primary": None, "secondary": None, "wrist": None},
+            "proprio_encoding": oxe.ProprioEncoding.POS_EULER,
+            "action_encoding": oxe.ActionEncoding.EEF_POS,
+        }
+        oxe.STANDARDIZE_FNS["simpler_lite_pp"] = oxe.bridge_transform
+        oxe.MIXES["simpler_lite_multi"] = [
+            ("bridge_dataset", 1.0),
+            ("simpler_lite_pp", 1.0),
+        ]
+    return "simpler_lite_multi"
+
+
+def register_simpler_lite_tri_mix() -> str:
+    """Three-task CROSS-FAMILY mix: bridge reach + bridge pick-place (both
+    7-dim POS_EULER) + fractal drawer (8-dim POS_QUAT, raw RT-1 schema
+    through the stock rt1_transform). One policy over heterogeneous
+    proprio widths and both env-adapter families — the shape of the
+    reference's real OXE mixes, where bridge and fractal coexist in one
+    training stream. Returns the mix name."""
+    from open_pi_zero_torch.data import oxe
+
+    register_simpler_lite_mix()  # ensures simpler_lite_pp exists
+    if "simpler_lite_tri" not in oxe.MIXES:
+        oxe.MIXES["simpler_lite_tri"] = [
+            ("bridge_dataset", 1.0),
+            ("simpler_lite_pp", 1.0),
+            ("fractal20220817_data", 1.0),
+        ]
+    return "simpler_lite_tri"
+
+
+def register_simpler_lite_tri_lever_mix(cov_weight: float = 0.5) -> str:
+    """Tri-family mix with the drawer language-grounding lever: the three
+    cross-family datasets of register_simpler_lite_tri_mix plus the
+    coverage-start drawer secondary at reduced weight (the drawer primary
+    is collected no-coverage + per-target balanced by the caller — see
+    drawer_env.register_drawer_lever_mix)."""
+    from open_pi_zero_torch.data import oxe
+    from open_pi_zero_torch.envs.drawer_env import register_drawer_lever_mix
+
+    register_simpler_lite_mix()
+    register_drawer_lever_mix(cov_weight)
+    if "simpler_lite_tri_lever" not in oxe.MIXES:
+        oxe.MIXES["simpler_lite_tri_lever"] = [
+            ("bridge_dataset", 1.0),
+            ("simpler_lite_pp", 1.0),
+            ("fractal20220817_data", 1.0),
+            ("fractal_drawer_cov", float(cov_weight)),
+        ]
+    return "simpler_lite_tri_lever"
 
 
 def warm_tokenizer(tokenizer) -> None:

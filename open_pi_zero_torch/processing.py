@@ -8,7 +8,7 @@ NHWC, the model's layout.
 
 The tokenizer is injected. The PaliGemma tokenizer itself needs
 ``transformers``, which the card's machine does not have, so
-``load_paligemma_tokenizer`` raises (ROADMAP.md queue 1, item 9) and
+``load_paligemma_tokenizer`` raises (ROADMAP.md, "Not queued") and
 ``FakeTokenizer`` (a word-level stand-in with the protocol
 ``VLAProcessor`` needs) serves tests and smoke runs. The single-image
 ``PaliGemmaProcessor`` (PIL) waits with the text-generation CLI.
@@ -103,11 +103,11 @@ class VLAProcessor:
 
 def load_paligemma_tokenizer(path_or_repo: str):
     """The PaliGemma tokenizer needs the ``transformers`` package, which the
-    card's machine does not have: not ported (ROADMAP.md queue 1, item 9).
+    card's machine does not have: not ported (ROADMAP.md, "Not queued").
     Tests and smoke runs take ``FakeTokenizer``."""
     raise NotImplementedError(
         f"{path_or_repo}: loading the PaliGemma tokenizer needs transformers, which the port does not "
-        "use; a tokenizer of the port's own waits in ROADMAP.md queue 1, item 9 (FakeTokenizer stands in)"
+        "use; the PaliGemma tokenizer is not queued in ROADMAP.md, since it needs a download (FakeTokenizer stands in)"
     )
 
 

@@ -9,10 +9,9 @@ dispatches to the TrainAgent or the EvalAgent.
 The mode is ``--mode``, else the config's ``mode``, else eval if the
 config has an ``env`` block and train if not. The agents run on the card
 unless ``--device cpu``. ``train`` builds the port's TrainAgent, which
-needs a dataset object that a command line cannot give until the TF-free
-data pipeline lands (ROADMAP.md queue 1, item 10): it raises
-NotImplementedError naming that item. ``--distributed`` raises
-NotImplementedError: training under a mesh waits in item 8.
+reads its datasets from the config's ``data`` block. ``--distributed``
+raises NotImplementedError: training under a mesh waits in ROADMAP.md
+queue 1.
 """
 
 from __future__ import annotations
@@ -20,9 +19,8 @@ from __future__ import annotations
 import argparse
 import logging
 
+from open_pi_zero_torch.agents.dataset import MESH_ITEM
 from open_pi_zero_torch.config import load_config
-
-MESH_ITEM = "ROADMAP.md queue 1, item 8 (training under a mesh)"
 
 
 def parse_args(argv=None) -> argparse.Namespace:

@@ -23,7 +23,8 @@ reference ``.pt`` (through ``models/convert.py``) or a checkpoint
 directory of the port's trainer (``training/checkpoint.py``: its eval
 export); LoRA adapters are merged and NF4 bases decoded before the serving
 layout, as the JAX package's EvalAgent does. An orbax directory of the JAX
-package raises NotImplementedError (ROADMAP.md queue 1, item 12).
+package raises NotImplementedError (ROADMAP.md queue 1, reading the JAX
+package's orbax checkpoints).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from open_pi_zero_torch.training import checkpoint as ckpt_lib
 
 log = logging.getLogger("serve")
 
-ORBAX_ITEM = "ROADMAP.md queue 1, item 12"
+ORBAX_ITEM = "ROADMAP.md queue 1 (reading the JAX package's orbax checkpoints)"
 
 
 def parse_args(argv=None) -> argparse.Namespace:

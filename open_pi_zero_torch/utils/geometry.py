@@ -91,6 +91,10 @@ def euler2quat(ai: float, aj: float, ak: float) -> np.ndarray:
     return mat2quat(euler2mat(ai, aj, ak))
 
 
+def quat2euler(q: np.ndarray) -> Tuple[float, float, float]:
+    return mat2euler(quat2mat(q))
+
+
 def quat2axangle(q: np.ndarray) -> Tuple[np.ndarray, float]:
     """quaternion [w, x, y, z] -> (unit axis, angle in [0, 2pi))."""
     q = np.asarray(q, dtype=np.float64)
@@ -107,3 +111,27 @@ def euler2axangle(ai: float, aj: float, ak: float) -> Tuple[np.ndarray, float]:
     """sxyz euler -> (unit axis, angle) (reference adapters' rotation
     post-processing, simpler.py:132)."""
     return quat2axangle(euler2quat(ai, aj, ak))
+
+
+def axangle2mat(axis: np.ndarray, angle: float) -> np.ndarray:
+    axis = np.asarray(axis, dtype=np.float64)
+    axis = axis / np.linalg.norm(axis)
+    x, y, z = axis
+    c, s = math.cos(angle), math.sin(angle)
+    C = 1 - c
+    return np.array(
+        [
+            [x * x * C + c, x * y * C - z * s, x * z * C + y * s],
+            [y * x * C + z * s, y * y * C + c, y * z * C - x * s],
+            [z * x * C - y * s, z * y * C + x * s, z * z * C + c],
+        ]
+    )
+
+
+def isrotation(m: np.ndarray, atol: float = 1e-6) -> bool:
+    m = np.asarray(m, dtype=np.float64)
+    return (
+        m.shape == (3, 3)
+        and np.allclose(m @ m.T, np.eye(3), atol=atol)
+        and abs(np.linalg.det(m) - 1.0) < atol
+    )

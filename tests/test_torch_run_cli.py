@@ -100,12 +100,12 @@ def test_run_cli_mode_detection_and_refusals(demo_dir, monkeypatch):
     with pytest.raises(ValueError, match="no data"):
         run.main(["--config", SIMPLER_LITE, "--mode", "train", "--device", "cpu"])
     assert built == []
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="training under a mesh"):
         run.main(["--config", SIMPLER_LITE, "--distributed", "--device", "cpu"])
-    # an orbax directory (neither .pt nor the port's format) names item 12
+    # an orbax directory (neither .pt nor the port's format) names its queue item
     orbax = demo_dir / "orbax_ckpt"
     orbax.mkdir()
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="orbax checkpoints"):
         run.main(["--config", SIMPLER_LITE, "--device", "cpu", f"checkpoint_path={orbax}"])
     with pytest.raises(ValueError, match="checkpoint_path"):
         run.main(["--config", SIMPLER_LITE, "--device", "cpu", "checkpoint_path="])

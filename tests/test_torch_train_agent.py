@@ -70,11 +70,11 @@ def test_processing_copies_and_refuses_the_real_tokenizer(tmp_path):
     assert t_proc.add_image_tokens_to_prompt("hi", "<bos>", 3) == j_proc.add_image_tokens_to_prompt("hi", "<bos>", 3)
     with pytest.raises(ValueError, match="uint8"):
         t_proc.process_images(images.astype(np.float32))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="PaliGemma tokenizer is not queued"):
         t_proc.load_paligemma_tokenizer(str(tmp_path))
     (tmp_path / "weights").mkdir()
     cfg, _ = tiny_config(tmp_path, overrides=[f"pretrained_model_path={tmp_path / 'weights'}"])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="PaliGemma tokenizer is not queued"):
         t_agent.TrainAgent(cfg, dataset=Frames(0), device="cpu")
 
 
@@ -151,7 +151,7 @@ def test_agent_refuses_what_is_not_ported(tmp_path, monkeypatch):
         t_agent.TrainAgent(cfg, dataset=Frames(0), device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")
     cfg, _ = tiny_config(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="training under a mesh"):
         t_agent.TrainAgent(cfg, dataset=Frames(0), device="cpu")
 
 
