@@ -228,9 +228,20 @@ Phases, each of which raises on failure:
                printed, not asserted: 400 updates is before the loss
                breaks), then e2e_tier_sweep on the checkpoint with the
                fp32_fused and w8a8_default tiers, 2 episodes each; the
-               update time and batch wait printed. Phase 6 holds K1-vjp
-               against plain autograd at this phase's update and eval
-               chunk geometries
+               update time and batch wait printed; one more update of the
+               run's agent profiled (K1's and the backward kernels' device
+               ms per reach-recipe update). Phase 6 holds K1-vjp against
+               plain autograd at this phase's update and eval chunk
+               geometries
+  8f. qlora  — open_pi_zero_torch/scripts/demo_qlora_finetune.py on 8e's
+               checkpoint as the base, cut short: 24 pick_place demos and
+               the reach replay set at weight 0.5, 200 updates of B = 32
+               with the VLM trunk and SigLIP as NF4 bases with LoRA r 16:
+               the 26 NF4 payload leaves bitwise unchanged, the loss per 50
+               updates falling, K1 and its backward launched exactly L and
+               2 L times per update; 4 episodes per eval (new task, old
+               task, the base on both; rates printed, not asserted); the
+               update time printed and one more update profiled
   9. shard-kernel — K1-shard (the kernel on one rank's shard under a
                mesh) in 2 spawned ranks, mesh (data=1, model=2): each rank's
                shard against the plain version on the whole inputs sliced
@@ -265,6 +276,7 @@ Without a card, or outside a checkout, it exits non-zero before any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -305,9 +317,10 @@ from open_pi_zero_torch.ops.attention import mot_attention_ref
 from open_pi_zero_torch.ops.masks import MASK_NEG
 from open_pi_zero_torch.parallel import ranks, run_ranks
 from open_pi_zero_torch.processing import VLAProcessor
-from open_pi_zero_torch.scripts import demo_closed_loop, e2e_tier_sweep, run, serve
+from open_pi_zero_torch.scripts import demo_closed_loop, demo_qlora_finetune, e2e_tier_sweep, run, serve
 from open_pi_zero_torch.training import checkpoint as ckpt_lib
 from open_pi_zero_torch.training import optimizer as opt_lib
+from open_pi_zero_torch.training import seeds
 from open_pi_zero_torch.training import train_step
 from open_pi_zero_torch.training.quantized_adam import AdamW8bit
 
@@ -1801,9 +1814,10 @@ def with_remat(cfg):
 
 
 def new_trainer(cfg, train_cfg, params, device):
-    """(state, step) over ``params``, the generator seeded on ``device``."""
+    """(state, step) over ``params``, with the train stream's generator of
+    seed 0 on ``device`` (``training/seeds.py``: not the init's numbers)."""
     optimizer = opt_lib.build_optimizer(train_cfg, params)
-    generator = torch.Generator(device).manual_seed(0)
+    generator = seeds.stream_generator(0, seeds.TRAIN, device=device)
     state = train_step.init_train_state(params, optimizer, generator, train_cfg)
     return state, train_step.make_train_step(cfg, train_cfg, optimizer, GRAD_ACCUM)
 
@@ -2969,71 +2983,170 @@ LEARN_EPISODES = 4  # trained and random-init episodes each
 LEARN_WINDOW = 50  # updates per entry of demo_closed_loop's loss curve
 LEARN_TIERS = "fp32_fused,w8a8_default"
 LEARN_TIER_EPISODES = 2
+QLORA_UPDATES = 200  # phase 8f, on 8e's checkpoint
+QLORA_RETENTION = 0.5
+QLORA_PAYLOADS = 26  # NF4 q4 / absmax leaves at the reach geometry (JAX: 26)
 
 
-def check_learn(dev, info: str) -> dict:
-    """Phase 8e: ``demo_closed_loop.main`` on the reach task at its recipe's
-    geometry, cut to LEARN_DEMOS demos and LEARN_UPDATES updates, in a
-    temporary workdir (with the statistics cache) removed afterwards; then
-    ``e2e_tier_sweep.main`` on its final checkpoint. The launch counts are
-    set to 0 just before the run and read just after it."""
+@contextlib.contextmanager
+def learn_workdir():
+    """A temporary workdir for phases 8e and 8f, with the pipeline's
+    statistics cache inside it; removed on exit."""
     tmp = tempfile.mkdtemp(prefix="opz_learn_")
     cache = os.environ.get("XDG_CACHE_HOME")
     os.environ["XDG_CACHE_HOME"] = os.path.join(tmp, "cache")
     try:
-        fa.launches = fa.bwd_launches = 0
-        result = demo_closed_loop.main([
-            "--task", "reach", "--workdir", tmp, "--n-demos", str(LEARN_DEMOS), "--n-updates", str(LEARN_UPDATES),
-            "--n-eval-episodes", str(LEARN_EPISODES), "--device", str(dev),
-        ])
-        launches = (fa.launches, fa.bwd_launches)
-        layers = result["model"]["layers"]
-        curve = result["loss_per_50_updates"]
-        if result["expert_success_rate"] != 1.0:
-            raise AssertionError(f"expert success rate {result['expert_success_rate']}, want 1.0")
-        if len(curve) != LEARN_UPDATES // LEARN_WINDOW or not np.all(np.isfinite(curve)):
-            raise AssertionError(f"the loss per {LEARN_WINDOW} updates: {curve}")
-        if not curve[-1] < curve[0] / 2:
-            raise AssertionError(f"mean loss of the last {LEARN_WINDOW} updates {curve[-1]} is not below half of the "
-                                 f"first {LEARN_WINDOW}'s {curve[0]}")
-        # no remat, no accumulation: one K1 per layer forward, its two
-        # backward kernels per layer backward
-        per_update = (result["k1_launches_per_update"], result["bwd_launches_per_update"])
-        if per_update != (layers, 2 * layers) or launches[1] != 2 * layers * LEARN_UPDATES:
-            raise AssertionError(f"launches per update {per_update}, want {(layers, 2 * layers)}; over the run "
-                                 f"{launches}")
-        ckpt = os.path.join(tmp, "train", "checkpoint", f"ckpt_{LEARN_UPDATES}")
-        if not (ckpt_lib.is_checkpoint(ckpt) and os.path.exists(os.path.join(ckpt, ckpt_lib.PARAMS_DIR,
-                                                                                   ckpt_lib.PARAMS_FILE))):
-            raise AssertionError(f"no checkpoint with its params/ export at {ckpt}")
-        log(f"learn: {LEARN_DEMOS} reach demos (expert rate {result['expert_success_rate']}), {LEARN_UPDATES} "
-            f"updates of B = 32: update {result['update_ms']:.3f} ms (median, the first left out), batch wait "
-            f"{result['batch_wait_ms']['median_after_first']:.3f} ms (median; mean "
-            f"{result['batch_wait_ms']['mean_after_first']:.3f}, first {result['batch_wait_ms']['first']:.1f}), "
-            f"timings {json.dumps(result['timings_s'])} s, on {info}")
-        log(f"learn: loss per {LEARN_WINDOW} updates {[round(x, 4) for x in curve]}; K1 {per_update[0]:g} and backward "
-            f"{per_update[1]:g} launches per update at head dim 24; the run's counts {launches}")
-        log(f"learn: after {LEARN_UPDATES} updates, {LEARN_EPISODES} trained episodes "
-            f"{result['trained_success_rate']}, random-init control {result['random_init_success_rate']} "
-            "(printed, not asserted)")
-        t0 = time.time()
-        sweep = e2e_tier_sweep.main([
-            "--checkpoint", ckpt, "--stats", os.path.join(tmp, "statistics.json"), "--tiers", LEARN_TIERS,
-            "--n-episodes", str(LEARN_TIER_EPISODES), "--device", str(dev),
-        ])
-        rates = {name: tier["success_rate"] for name, tier in sweep["tiers"].items()}
-        if list(rates) != LEARN_TIERS.split(",") or any(
-                tier["n_episodes"] != LEARN_TIER_EPISODES for tier in sweep["tiers"].values()):
-            raise AssertionError(f"tier sweep: {sweep['tiers']}")
-        log(f"learn: e2e_tier_sweep on ckpt_{LEARN_UPDATES}, {LEARN_TIER_EPISODES} episodes per tier: {rates}, "
-            f"{time.time() - t0:.1f} s")
-        return {**result, "launches": launches, "tiers": rates}
+        yield tmp
     finally:
         if cache is None:
             os.environ.pop("XDG_CACHE_HOME", None)
         else:
             os.environ["XDG_CACHE_HOME"] = cache
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def caught_agent():
+    """{"agent", "batch"}: the TrainAgent that runs inside the block and
+    its last update's batch, caught by wrapping the class's ``run`` and
+    ``next_update_batch`` for the block."""
+    caught, run_, next_ = {}, TrainAgent.run, TrainAgent.next_update_batch
+
+    def run_kept(self):
+        caught["agent"] = self
+        return run_(self)
+
+    def next_kept(self, it):
+        caught["batch"] = next_(self, it)
+        return caught["batch"]
+
+    TrainAgent.run, TrainAgent.next_update_batch = run_kept, next_kept
+    try:
+        yield caught
+    finally:
+        TrainAgent.run, TrainAgent.next_update_batch = run_, next_
+
+
+def profile_learn_update(caught: dict, layers: int, label: str) -> dict:
+    """One more update of a caught agent on its last batch, profiled: K1's
+    ``layers`` launches and the backward kernels' 2 ``layers`` (no remat, no
+    accumulation), their device ms, the update's busy and wall ms."""
+    agent = caught["agent"]
+    got, traced, wall = profiled_window(
+        lambda: agent.train_step(agent.state, caught["batch"]),
+        {None: None, KERNEL_SYMBOL: layers, ROWS_SYMBOL: layers, KEYS_SYMBOL: layers},
+        counted=(layers, 2 * layers),
+    )
+    busy = got[None][0]
+    log_profile(label, traced, wall, busy)
+    return {"kernel_ms": got[KERNEL_SYMBOL][0], "backward_ms": got[ROWS_SYMBOL][0] + got[KEYS_SYMBOL][0],
+            "busy_ms": busy, "wall_ms": wall}
+
+
+def check_learn(dev, info: str, tmp: str) -> dict:
+    """Phase 8e: ``demo_closed_loop.main`` on the reach task at its recipe's
+    geometry, cut to LEARN_DEMOS demos and LEARN_UPDATES updates, in ``tmp``
+    (a ``learn_workdir``); then ``e2e_tier_sweep.main`` on its final
+    checkpoint, and one more update of the run's agent profiled. The launch
+    counts are set to 0 just before the run and read just after it."""
+    with caught_agent() as caught:
+        fa.launches = fa.bwd_launches = 0
+        result = demo_closed_loop.main([
+            "--task", "reach", "--workdir", tmp, "--n-demos", str(LEARN_DEMOS), "--n-updates", str(LEARN_UPDATES),
+            "--n-eval-episodes", str(LEARN_EPISODES), "--device", str(dev),
+        ])
+        launches = (fa.launches, fa.bwd_launches)
+    layers = result["model"]["layers"]
+    curve = result["loss_per_50_updates"]
+    if result["expert_success_rate"] != 1.0:
+        raise AssertionError(f"expert success rate {result['expert_success_rate']}, want 1.0")
+    if len(curve) != LEARN_UPDATES // LEARN_WINDOW or not np.all(np.isfinite(curve)):
+        raise AssertionError(f"the loss per {LEARN_WINDOW} updates: {curve}")
+    if not curve[-1] < curve[0] / 2:
+        raise AssertionError(f"mean loss of the last {LEARN_WINDOW} updates {curve[-1]} is not below half of the "
+                             f"first {LEARN_WINDOW}'s {curve[0]}")
+    # no remat, no accumulation: one K1 per layer forward, its two
+    # backward kernels per layer backward
+    per_update = (result["k1_launches_per_update"], result["bwd_launches_per_update"])
+    if per_update != (layers, 2 * layers) or launches[1] != 2 * layers * LEARN_UPDATES:
+        raise AssertionError(f"launches per update {per_update}, want {(layers, 2 * layers)}; over the run "
+                             f"{launches}")
+    ckpt = os.path.join(tmp, "train", "checkpoint", f"ckpt_{LEARN_UPDATES}")
+    if not (ckpt_lib.is_checkpoint(ckpt) and os.path.exists(os.path.join(ckpt, ckpt_lib.PARAMS_DIR,
+                                                                               ckpt_lib.PARAMS_FILE))):
+        raise AssertionError(f"no checkpoint with its params/ export at {ckpt}")
+    log(f"learn: {LEARN_DEMOS} reach demos (expert rate {result['expert_success_rate']}), {LEARN_UPDATES} "
+        f"updates of B = 32: update {result['update_ms']:.3f} ms (median, the first left out), batch wait "
+        f"{result['batch_wait_ms']['median_after_first']:.3f} ms (median; mean "
+        f"{result['batch_wait_ms']['mean_after_first']:.3f}, first {result['batch_wait_ms']['first']:.1f}), "
+        f"timings {json.dumps(result['timings_s'])} s, on {info}")
+    log(f"learn: loss per {LEARN_WINDOW} updates {[round(x, 4) for x in curve]}; K1 {per_update[0]:g} and backward "
+        f"{per_update[1]:g} launches per update at head dim 24; the run's counts {launches}")
+    log(f"learn: after {LEARN_UPDATES} updates, {LEARN_EPISODES} trained episodes "
+        f"{result['trained_success_rate']}, random-init control {result['random_init_success_rate']} "
+        "(printed, not asserted)")
+    prof = profile_learn_update(caught, layers, "learn-profile")
+    del caught
+    log(f"learn: one more reach-recipe update profiled: K1 {prof['kernel_ms']:.5f} ms over {layers} launches, "
+        f"backward kernels {prof['backward_ms']:.5f} ms over {2 * layers}, busy {prof['busy_ms']:.3f} ms of "
+        f"{prof['wall_ms']:.3f} ms wall, on {info}")
+    t0 = time.time()
+    sweep = e2e_tier_sweep.main([
+        "--checkpoint", ckpt, "--stats", os.path.join(tmp, "statistics.json"), "--tiers", LEARN_TIERS,
+        "--n-episodes", str(LEARN_TIER_EPISODES), "--device", str(dev),
+    ])
+    rates = {name: tier["success_rate"] for name, tier in sweep["tiers"].items()}
+    if list(rates) != LEARN_TIERS.split(",") or any(
+            tier["n_episodes"] != LEARN_TIER_EPISODES for tier in sweep["tiers"].values()):
+        raise AssertionError(f"tier sweep: {sweep['tiers']}")
+    log(f"learn: e2e_tier_sweep on ckpt_{LEARN_UPDATES}, {LEARN_TIER_EPISODES} episodes per tier: {rates}, "
+        f"{time.time() - t0:.1f} s")
+    return {**result, "launches": launches, "tiers": rates, "profile": prof}
+
+
+def check_qlora_demo(dev, info: str, tmp: str) -> dict:
+    """Phase 8f: ``demo_qlora_finetune.main`` on phase 8e's checkpoint in
+    ``tmp`` (the base), cut to LEARN_DEMOS pick_place demos and
+    QLORA_UPDATES updates with the old task's replay at QLORA_RETENTION and
+    LEARN_EPISODES episodes per eval; then one more update of its agent
+    profiled. The launch counts are set to 0 just before the run and read
+    just after it."""
+    with caught_agent() as caught:
+        fa.launches = fa.bwd_launches = 0
+        result = demo_qlora_finetune.main([
+            "--base-workdir", tmp, "--workdir", os.path.join(tmp, "qlora"), "--n-demos", str(LEARN_DEMOS),
+            "--n-updates", str(QLORA_UPDATES), "--retention-weight", str(QLORA_RETENTION),
+            "--n-eval-episodes", str(LEARN_EPISODES), "--device", str(dev),
+        ])
+        launches = (fa.launches, fa.bwd_launches)
+    layers = demo_qlora_finetune.parse_args([]).layers
+    curve = result["loss_per_50_updates"]
+    if not (result["frozen_nf4_payloads_bitwise_unchanged"] and result["n_frozen_payload_leaves"] == QLORA_PAYLOADS):
+        raise AssertionError(f"NF4 payloads: {result['n_frozen_payload_leaves']} leaves, unchanged "
+                             f"{result['frozen_nf4_payloads_bitwise_unchanged']}; want {QLORA_PAYLOADS} unchanged")
+    if result["expert_success_rate"] != 1.0:
+        raise AssertionError(f"expert success rate {result['expert_success_rate']}, want 1.0")
+    if len(curve) != QLORA_UPDATES // LEARN_WINDOW or not np.all(np.isfinite(curve)) or not curve[-1] < curve[0]:
+        raise AssertionError(f"the loss per {LEARN_WINDOW} updates does not fall: {curve}")
+    per_update = (result["k1_launches_per_update"], result["bwd_launches_per_update"])
+    if per_update != (layers, 2 * layers) or launches[1] != 2 * layers * QLORA_UPDATES:
+        raise AssertionError(f"launches per update {per_update}, want {(layers, 2 * layers)}; over the run "
+                             f"{launches}")
+    log(f"qlora: {LEARN_DEMOS} pick_place demos + the reach replay at weight {QLORA_RETENTION}, {QLORA_UPDATES} "
+        f"updates of B = 32 on ckpt_{LEARN_UPDATES}: update {result['update_ms']:.3f} ms (median, the first left "
+        f"out), batch wait {result['batch_wait_ms']['median_after_first']:.3f} ms (median; first "
+        f"{result['batch_wait_ms']['first']:.1f}), timings {json.dumps(result['timings_s'])} s, on {info}")
+    log(f"qlora: loss per {LEARN_WINDOW} updates {[round(x, 4) for x in curve]}; {result['n_frozen_payload_leaves']} "
+        f"NF4 payload leaves bitwise unchanged; param groups {result['param_groups_B']} (1e9); K1 {per_update[0]:g} "
+        f"and backward {per_update[1]:g} launches per update; the run's counts {launches}")
+    log(f"qlora: {LEARN_EPISODES} episodes each (printed, not asserted): new task {result['new_task_success']}, "
+        f"old task {result['old_task_success']['finetuned']} (base {result['old_task_success']['base_policy']})")
+    prof = profile_learn_update(caught, layers, "qlora-profile")
+    del caught
+    log(f"qlora: one more QLoRA update profiled: K1 {prof['kernel_ms']:.5f} ms over {layers} launches, backward "
+        f"kernels {prof['backward_ms']:.5f} ms over {2 * layers}, busy {prof['busy_ms']:.3f} ms of "
+        f"{prof['wall_ms']:.3f} ms wall, on {info}")
+    return {**result, "launches": launches, "profile": prof}
 
 
 # --------------------------------------------------------------------------- #
@@ -3297,8 +3410,12 @@ def single_card_phases(dev, info: str) -> list:
     torch.cuda.empty_cache()
 
     t0 = time.time()
-    check_learn(dev, info)
-    log(f"phase learn ok in {time.time() - t0:.1f} s")
+    with learn_workdir() as tmp:
+        check_learn(dev, info, tmp)
+        log(f"phase learn ok in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        check_qlora_demo(dev, info, tmp)
+        log(f"phase qlora ok in {time.time() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     entry = {

@@ -48,7 +48,7 @@ from open_pi_zero_torch.processing import FakeTokenizer, VLAProcessor, load_pali
 from open_pi_zero_torch.training import averaging as avg_lib
 from open_pi_zero_torch.training import checkpoint as ckpt_lib
 from open_pi_zero_torch.training import optimizer as opt_lib
-from open_pi_zero_torch.training import schedules
+from open_pi_zero_torch.training import schedules, seeds
 from open_pi_zero_torch.training.train_step import init_train_state, make_train_step
 from open_pi_zero_torch.utils.metric import get_action_accuracy, l1_loss
 from open_pi_zero_torch.utils.monitor import Timer, log_execution_time
@@ -115,7 +115,8 @@ class TrainAgent:
         # ---- params, optimizer, state (zero1 is a no-op on one device) ----
         params = self._build_params()
         self.optimizer = opt_lib.build_optimizer(self.train_cfg, params)
-        generator = torch.Generator(self.device).manual_seed(self.seed)
+        # flow times and noise: a stream of its own, not the init's (seeds.py)
+        generator = seeds.stream_generator(self.seed, seeds.TRAIN, device=self.device)
         self.state = init_train_state(params, self.optimizer, generator, self.train_cfg)
 
         self.cnt_batch = 0
@@ -293,7 +294,7 @@ class TrainAgent:
         it = self.val_dataset.iterator(self.step_batch_size)
         n_batches = max(1, self.eval_size // max(1, self.step_batch_size))
         eval_params = avg_lib.eval_params(self.state.avg, self.state.params)
-        generator = torch.Generator(self.device).manual_seed(self.seed + update)
+        generator = seeds.stream_generator(self.seed, seeds.VALIDATION, update, device=self.device)
         accs, l1s = [], []
         for _ in range(n_batches):
             try:

@@ -228,8 +228,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "intermediate checkpoints let the learning curve be "
                          "scored without retraining")
     ap.add_argument("--seed", type=int, default=0,
-                    help="the TrainAgent's seed: its init, data order, flow "
-                         "times and noise (the JAX script's is 0)")
+                    help="the TrainAgent's seed: its init and data order, and "
+                         "(through training/seeds.py) its flow times and noise "
+                         "(the JAX script's is 0)")
     ap.add_argument("--init-params", default=None,
                     help="start training from this checkpoint's params/ export "
                          "instead of the seeded init (base_params_checkpoint)")

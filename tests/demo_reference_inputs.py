@@ -13,7 +13,7 @@ and back: ``jax_closed_loop`` scores a ``params/`` export of the port's
 trainer in the JAX package's closed loop (its ``run_eval``), which tells
 a weak policy from a fault in the port's eval.
 
-  python -m tests.demo_reference_inputs --init build/jax_init
+  python -m tests.demo_reference_inputs --init build/jax_init [--seed 0]
   python -m tests.demo_reference_inputs --jax-eval path/to/ckpt_8000 \\
       --stats path/to/statistics.json
 """
@@ -85,8 +85,9 @@ if __name__ == "__main__":
     ap.add_argument("--init", default=None, help="write the JAX init's params export here")
     ap.add_argument("--jax-eval", default=None, help="score this params export in the JAX package's closed loop")
     ap.add_argument("--stats", default=None, help="the statistics.json of --jax-eval's run")
+    ap.add_argument("--seed", type=int, default=0, help="--init's key: jax.random.key(seed)")
     args = ap.parse_args()
     if args.init:
-        jax_init_export(args.init)
+        jax_init_export(args.init, seed=args.seed)
     if args.jax_eval:
         print("JAX closed loop:", jax_closed_loop(args.jax_eval, args.stats))

@@ -33,6 +33,7 @@ from open_pi_zero_torch.ops import lora as t_lora
 from open_pi_zero_torch.scripts import serve
 from open_pi_zero_torch.training import checkpoint as t_ckpt
 from open_pi_zero_torch.training import optimizer as t_opt
+from open_pi_zero_torch.training import seeds as t_seeds
 from open_pi_zero_torch.training import train_step as t_train
 from open_pi_zero_torch.utils import metric as t_metric
 from open_pi_zero_tpu import config as j_config
@@ -158,8 +159,9 @@ def test_agent_refuses_what_is_not_ported(tmp_path, monkeypatch):
 @pytest.mark.parametrize("recipe", ["qlora", "float"])
 def test_first_update_equals_the_hand_driven_step(tmp_path, recipe):
     """The agent's update from its seed equals init_params + the config's
-    quantization + build_optimizer + make_train_step driven by hand with a
-    generator seeded alike, on the same preprocessed batch."""
+    quantization + build_optimizer + make_train_step driven by hand with the
+    train stream's generator (``training/seeds.py``), on the same
+    preprocessed batch."""
     qlora = recipe == "qlora"
     cfg, _ = tiny_config(tmp_path, quantize=qlora, lora=qlora, overrides=["n_updates=1"])
     agent = t_agent.TrainAgent(cfg, dataset=Frames(0), device="cpu")
@@ -171,7 +173,7 @@ def test_first_update_equals_the_hand_driven_step(tmp_path, recipe):
     model_cfg = pizero_config_from_dict(cfg)
     params = t_lora.quantize_per_model_config(pizero.init_params(model_cfg, seed=0, device="cpu"), model_cfg)
     optimizer = t_opt.build_optimizer(agent.train_cfg, params)
-    state = t_train.init_train_state(params, optimizer, torch.Generator().manual_seed(0), agent.train_cfg)
+    state = t_train.init_train_state(params, optimizer, t_seeds.stream_generator(0, t_seeds.TRAIN), agent.train_cfg)
     step = t_train.make_train_step(model_cfg, agent.train_cfg, optimizer, grad_accum=2)
     it = Frames(0).iterator(2)
     micro = [agent.preprocess_batch(next(it)) for _ in range(2)]
