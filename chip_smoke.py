@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (open_pi_zero_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--dp-layers N]
 
 Phases, each of which raises on failure:
   1. build   — nvcc builds csrc/mot_attention.cu (K1) and
@@ -44,9 +44,11 @@ Phases, each of which raises on failure:
                `ms` of the kernels line. The kernel's inputs of one more
                chunk are kept and replayed, in the main path's order,
                through the kernel (held against the plain version), the
-               plain version and one library attention call, in a
-               process of its own (the profiler loses device events in a
-               process that has profiled much before): their summed
+               plain version and one library attention call, in the
+               replay worker, a process of its own started before the
+               build that profiles only the replays of phases 4, 8 and 11
+               (the profiler loses device events in a process that has
+               profiled much before): their summed
                device times are `plain_ms` and `library_ms`, the
                kernel's counted by its symbol with every launch traced,
                and the inputs' sizes give `bound_ms`
@@ -78,7 +80,7 @@ Phases, each of which raises on failure:
                none counted by the wrapper; kernels and copies per replay
                beside the eager chunk's, device-busy ms, K1 ms, host ms per
                replay, the pool's bytes; the warm chunk of each graph and of
-               its eager chunk in turns (median of 11); then the bf16 trees
+               its eager chunk in turns (median of TURNS, 5); then the bf16 trees
                are freed. Then a capture under the cyclic GC: a dropped
                reference cycle holding a CompiledChunk, gc.set_threshold(1,
                1, 1), another capture (tiny config): it succeeds, the cycle
@@ -104,7 +106,7 @@ Phases, each of which raises on failure:
                K1 and device-busy ms per token (a profiled compiled generate
                less its prefill), host ms per replay; then logits, prefill,
                eager and compiled generate of the three trees in turns
-               (median of 11): ms per decode token beside the byte bound
+               (median of TURNS, 5): ms per decode token beside the byte bound
                (the trunk's and the table's bytes at 3.35 TB/s). Card vs
                CPU at bridge widths in fp32 (logits <= 1e-3, greedy tokens
                equal, eager and graph); the reference's golden text logits
@@ -220,12 +222,12 @@ Phases, each of which raises on failure:
                recipe's geometry (hidden 96, 3 layers, 4 Q / 1 KV heads of
                24, 56² frames, B = 32, lr 1e-3, EMA from half-way) with a
                cut run length: 24 expert demos through the port's RLDS
-               writer (expert rate 1.0), 400 updates from cfg.data (every
-               loss finite, the mean loss of updates 351-400 below half
+               writer (expert rate 1.0), 100 updates from cfg.data (every
+               loss finite, the mean loss of updates 51-100 below half
                that of updates 1-50, K1 and its backward launched exactly
                L and 2 L times per update), the final checkpoint with its
                params/ export, 4 trained and 4 random-init episodes (rates
-               printed, not asserted: 400 updates is before the loss
+               printed, not asserted: 100 updates is before the loss
                breaks), then e2e_tier_sweep on the checkpoint with the
                fp32_fused and w8a8_default tiers, 2 episodes each; the
                update time and batch wait printed; one more update of the
@@ -235,7 +237,7 @@ Phases, each of which raises on failure:
                geometries
   8f. qlora  — open_pi_zero_torch/scripts/demo_qlora_finetune.py on 8e's
                checkpoint as the base, cut short: 24 pick_place demos and
-               the reach replay set at weight 0.5, 200 updates of B = 32
+               the reach replay set at weight 0.5, 100 updates of B = 32
                with the VLM trunk and SigLIP as NF4 bases with LoRA r 16:
                the 26 NF4 payload leaves bitwise unchanged, the loss per 50
                updates falling, K1 and its backward launched exactly L and
@@ -267,15 +269,38 @@ Phases, each of which raises on failure:
                forward K1-shard launches), the plain version and one
                library call, timed as in phase 4: `ms`, `plain_ms`,
                `library_ms` and `bound_ms` of the mot_attention_shard entry
+ 12. dp-main — data-parallel training and ZeRO-1: configs/train/
+               bridge.yaml's QLoRA recipe at full width, both towers cut to
+               4 layers (DP_LAYERS; --dp-layers 0 keeps the recipe's 18 and
+               27), on 2 ranks, B = 16 per rank x accumulation 2 (a global
+               batch of 64), phase 8b's dataset written again. First one
+               process alone takes the update of one injected global batch
+               (B = 32 x 2, the recipe's first update at the full lr, Adam
+               eps 1e-3 as phase 7); then each rank takes the same update
+               on its rows with replicated moments and, from the same
+               params, with ZeRO-1: the two bitwise equal on every rank
+               (trained leaves, int8 moments and scales gathered), ZeRO-1's
+               moment bytes per rank beside the replicated ones, rank 0's
+               against the one process (loss and grad norm 1e-3 relative,
+               params 1e-6), every rank's K1 and backward launches per
+               update those of one card's update (2 x 2 L each: 16 at
+               depth 4). Then the TrainAgent on the 2 ranks (zero1, data
+               from cfg.data, each rank its shard): 2 updates and a
+               collective save of ckpt_2, a third update on a fresh
+               iterator's first batch; a fresh agent resumes from ckpt_2
+               (world_size 2 in its meta.json) and takes the same update:
+               bitwise on every rank. Update ms per rank, the gradient
+               all-reduce's ms, peak memory per rank, the save's seconds
 The ranks share the one card over gloo (CUDA tensors staged through host
 memory: NCCL refuses two ranks on one card); with a card per rank they
-would take NCCL, a path no run has exercised yet. The run prints which.
+take NCCL. The run prints which.
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Without a card, or outside a checkout, it exits non-zero before any result.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import gc
@@ -344,6 +369,8 @@ ROWS_SYMBOL = "mot_attention_bwd_rows_kernel"  # K1-vjp's backward kernels
 KEYS_SYMBOL = "mot_attention_bwd_keys_kernel"
 MARKERS = 128  # empty kernels before the work of a profiled window
 WINDOW_TRIES = 6  # windows that profiled_window takes at most
+# rounds of the phases that time chunks and generates in turns (4c, 4d, 4e)
+TURNS = 5
 
 
 START = time.time()
@@ -420,15 +447,18 @@ def profiled_window(fn, expected: dict, counted=None, ranges=()) -> tuple:
       window that passed the other checks: a window that lost events falls
       short of the other.
     One that does not count is taken again, WINDOW_TRIES times at most;
-    then it raises."""
+    then it raises. Host ops are traced only where ``ranges`` asks for
+    them: turning every host op of a full-width update into an event took
+    some 40 s of the host per window, the device events about a tenth."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda", torch.cuda.current_device())
     totals = [m for m, n in expected.items() if n is None]
     passed = []  # the totals of the windows that passed the other checks
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else [])
     for _ in range(WINDOW_TRIES):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             for _ in range(MARKERS):
                 fa.empty_launch(dev)
             torch.cuda.synchronize()
@@ -1121,7 +1151,7 @@ def check_compiled(dev, cfg, trees: dict, eager_rows: dict, info: str, label: st
     production tree's refined chunk from t = 0.5 as CUDA graphs in one
     pool (as one server holds them), each held bitwise against the eager
     chunk; then the warm chunk of each graph and of each eager chunk, all
-    eight in turns within each round (median of 11, host clock around the
+    eight in turns within each round (median of TURNS, host clock around the
     call and a synchronize, inputs from the host as a server gets them):
     the host's pace drifts within a run, so chunks timed one after another
     in blocks are not comparable."""
@@ -1139,7 +1169,7 @@ def check_compiled(dev, cfg, trees: dict, eager_rows: dict, info: str, label: st
             f"{row['k1_ms']:.3f} ms, host {row['host_ms_per_replay']:.4f} ms per replay, pool +{row['pool_bytes']} "
             f"bytes, captured in {row['capture_s']:.2f} s; three replays bitwise equal to three eager chunks")
     times = {name: {"graph": [], "eager": []} for name in timed}
-    for _ in range(11):
+    for _ in range(TURNS):
         for name, (graph, eager, batch) in timed.items():
             for kind, fn in (("graph", graph), ("eager", eager)):
                 t0 = time.perf_counter()
@@ -1149,7 +1179,7 @@ def check_compiled(dev, cfg, trees: dict, eager_rows: dict, info: str, label: st
     for name, t in times.items():
         results[name]["graph_chunk_ms"] = statistics.median(t["graph"])
         results[name]["eager_chunk_ms"] = statistics.median(t["eager"])
-        log(f"{label} {name}: warm chunk in turns (median of 11) graph {results[name]['graph_chunk_ms']:.3f} ms, "
+        log(f"{label} {name}: warm chunk in turns (median of {TURNS}) graph {results[name]['graph_chunk_ms']:.3f} ms, "
             f"eager {results[name]['eager_chunk_ms']:.3f} ms, on {info}")
     results["pool_bytes"] = sum(r["pool_bytes"] for r in results.values() if isinstance(r, dict))
     return results
@@ -1407,7 +1437,7 @@ def check_text(dev, info: str) -> dict:
     production tree (W8A8 VLM trunk), each through ``check_text_tree``; then
     the logits, the prefill, the eager greedy, the eager top-p (0.9, a
     seeded generator) and the compiled generate of the three in turns
-    (median of 11); card vs CPU at bridge widths; the golden text logits."""
+    (median of TURNS); card vs CPU at bridge widths; the golden text logits."""
     t0 = time.time()
     cfg = paligemma_config(cfg_lib.PiZeroConfig())
     params = pizero.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
@@ -1432,7 +1462,7 @@ def check_text(dev, info: str) -> dict:
             f"on {info}")
     timed = {name: {"logits": [], "prefill": [], "eager": [], "sampled": [], "graph": []} for name in trees}
     gen = torch.Generator(device=dev).manual_seed(0)
-    for _ in range(11):
+    for _ in range(TURNS):
         for name, tree in trees.items():
             runs = {
                 "logits": lambda: pizero.infer_text_logits(tree, cfg, ids, pix),
@@ -1454,7 +1484,7 @@ def check_text(dev, info: str) -> dict:
         row.update({f"{kind}_ms": v for kind, v in med.items()})
         for kind in ("eager", "sampled", "graph"):
             row[f"{kind}_ms_per_token"] = (med[kind] - med["prefill"]) / TEXT_MAX_NEW
-        log(f"text {name}: in turns (median of 11) logits {med['logits']:.3f} ms, prefill {med['prefill']:.3f} ms, "
+        log(f"text {name}: in turns (median of {TURNS}) logits {med['logits']:.3f} ms, prefill {med['prefill']:.3f} ms, "
             f"generate eager {med['eager']:.3f} / top-p 0.9 eager {med['sampled']:.3f} / graph {med['graph']:.3f} "
             f"ms: per decode token eager {row['eager_ms_per_token']:.3f}, top-p eager "
             f"{row['sampled_ms_per_token']:.3f}, graph {row['graph_ms_per_token']:.3f} ms (byte bound "
@@ -1629,7 +1659,7 @@ def replay(calls, attention=fa.mot_attention_fused) -> dict:
     device time of the wrapper, of the plain version and of one library
     attention call (without the softcap) summed over all of them (the
     kernel's by its symbol, every launch traced), and the bound of their
-    sizes. Run it in a fresh process (``replay_in_fresh_process``)."""
+    sizes. Run it in the replay worker (``replay_in_worker``)."""
     err = 0.0
     for q, k, v, mask, softcap in calls:
         got, want = attention(q, k, v, mask, softcap), mot_attention_ref(q, k, v, mask, softcap)
@@ -1666,26 +1696,59 @@ def replay(calls, attention=fa.mot_attention_fused) -> dict:
     return out
 
 
-def replay_process(_index: int, kind: str, path: str, result: str) -> None:
+_REPLAYER = []  # the replay worker (one ProcessPoolExecutor), started by start_replayer
+
+
+def _replayer_init() -> None:
+    """The replay worker's start: its CUDA context and the profiler's
+    one-time set-up (some 15 s of its first window on an H100 host),
+    taken while the main process builds the kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.set_device(0)
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+
+
+def start_replayer() -> None:
+    """Start the replay worker, a spawned process that profiles nothing but
+    the replays: late in a process that has profiled much, the profiler
+    lost the first events of every window (15 of 128 openers in each of
+    K1-shard's), so that taking a window again did not help."""
+    if not _REPLAYER:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        _REPLAYER.append(ProcessPoolExecutor(1, multiprocessing.get_context("spawn"), _replayer_init))
+        _REPLAYER[0].submit(int)  # the worker starts now, not at the first replay
+
+
+def stop_replayer() -> None:
+    while _REPLAYER:
+        _REPLAYER.pop().shutdown()
+
+
+def replay_job(kind: str, path: str) -> dict:
     """``replay`` (kind "forward") or ``replay_vjp`` (kind "vjp") of the
-    calls saved at ``path``, in a spawned process; the result goes to
-    ``result``."""
+    calls saved at ``path``, in the replay worker; its cached blocks are
+    freed after."""
     dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
     calls = [tuple(x.to(dev) if torch.is_tensor(x) else x for x in c) for c in torch.load(path)]
-    torch.save(replay(calls) if kind == "forward" else replay_vjp(calls), result)
+    try:
+        return replay(calls) if kind == "forward" else replay_vjp(calls)
+    finally:
+        del calls
+        torch.cuda.empty_cache()
 
 
-def replay_in_fresh_process(calls, kind: str) -> dict:
-    """The replay of ``calls`` in a process of its own, whose profiler has
-    traced nothing before: late in a process that has profiled much, the
-    profiler lost the first events of every window (15 of 128 openers in
-    each of K1-shard's), so that taking a window again did not help."""
+def replay_in_worker(calls, kind: str) -> dict:
+    """The replay of ``calls`` in the replay worker (``start_replayer``)."""
+    start_replayer()
     with tempfile.TemporaryDirectory(prefix="opz_replay_") as tmp:
-        path, result = os.path.join(tmp, "calls.pt"), os.path.join(tmp, "result.pt")
+        path = os.path.join(tmp, "calls.pt")
         torch.save([tuple(x.cpu() if torch.is_tensor(x) else x for x in c) for c in calls], path)
-        torch.multiprocessing.spawn(replay_process, args=(kind, path, result), nprocs=1, join=True)
-        return torch.load(result, weights_only=False)
+        return _REPLAYER[0].submit(replay_job, kind, path).result()
 
 
 # --------------------------------------------------------------------------- #
@@ -2028,8 +2091,8 @@ def replay_vjp(calls) -> dict:
     with the recompute backward (``RecomputeVjp``), through the plain
     version and through one library attention call (without the softcap,
     K/V expanded to the query heads outside the timed calls), and the
-    bound of the calls' sizes. Run it in a fresh process
-    (``replay_in_fresh_process``)."""
+    bound of the calls' sizes. Run it in the replay worker
+    (``replay_in_worker``)."""
     gen = torch.Generator(calls[0][0].device).manual_seed(9)
     cots = [torch.randn(c[0].shape, generator=gen, device=c[0].device, dtype=c[0].dtype) for c in calls]
     err = 0.0
@@ -2978,12 +3041,12 @@ def check_full_finetune_8bit(dev, info: str, updates: int = 2) -> dict:
 
 
 LEARN_DEMOS = 24
-LEARN_UPDATES = 400
+LEARN_UPDATES = 100
 LEARN_EPISODES = 4  # trained and random-init episodes each
 LEARN_WINDOW = 50  # updates per entry of demo_closed_loop's loss curve
 LEARN_TIERS = "fp32_fused,w8a8_default"
 LEARN_TIER_EPISODES = 2
-QLORA_UPDATES = 200  # phase 8f, on 8e's checkpoint
+QLORA_UPDATES = 100  # phase 8f, on 8e's checkpoint
 QLORA_RETENTION = 0.5
 QLORA_PAYLOADS = 26  # NF4 q4 / absmax leaves at the reach geometry (JAX: 26)
 
@@ -3251,13 +3314,152 @@ def check_shard_main(dev) -> dict:
     calls = got.pop("calls")
     if len(calls) != expected:
         raise AssertionError(f"{len(calls)} K1-shard calls recorded, want {expected}")
-    replayed = replay_in_fresh_process(calls, "forward")  # K1-shard's forward is K1 on the shard
+    replayed = replay_in_worker(calls, "forward")  # K1-shard's forward is K1 on the shard
     return {
         "backend": got["backend"], "card": got["card"], "ranks": got["ranks"],
         "chunk_ms": got["chunk_ms"], "unsharded_chunk_ms": got["unsharded_ms"],
         "profile": got["profile"], "max_abs_diff_vs_unsharded": err,
         "chunk": chunk.round(4).tolist(), "replayed": replayed,
     }
+
+
+# --------------------------------------------------------------------------- #
+# phase 12 (dp-main): data-parallel training and ZeRO-1 on a mesh of ranks
+# --------------------------------------------------------------------------- #
+
+DP_RANKS = 2  # sharing the one card over gloo
+# phase 8b's QLoRA recipe on 2 ranks: B = 16 per rank x accumulation 2 (a
+# global batch of 64), ZeRO-1, a save at update 2, no validation
+DP_OVERRIDES = ["global_batch_size=64", "zero1=true", "n_updates=2", "save_model_freq=2", "eval_freq=0"]
+# the raw update against one process: the first update at the full lr and
+# Adam's eps 1e-3 (phase 7's reason: a grad that is rounding noise on both
+# sides then moves its param by far less than lr)
+DP_RAW_OVERRIDES = ["action_lr_scheduler.warmup_steps=0", "vlm_lr_scheduler.warmup_steps=0"]
+DP_ADAM_EPS = 1e-3
+DP_TOL = {"relative": 1e-3, "params": 1e-6}  # phase 7's limits: fp32 on both sides, sums in other orders
+# the recipe's depth, cut for the run's time limit: DP_LAYERS of the trunk's
+# 18 layers and of SigLIP's 27, every width the recipe's (--dp-layers 0
+# keeps the recipe's depths)
+DP_LAYERS = 4
+
+
+def dp_depth_overrides(layers: int) -> list:
+    """The config keys that cut both towers to ``layers`` (none for 0)."""
+    if not layers:
+        return []
+    return [f"joint.config.num_hidden_layers={layers}", f"vision.config.num_hidden_layers={layers}"]
+
+
+def dp_launches_per_update(mcfg) -> int:
+    """K1's (and the backward kernels') launches in one update of the
+    recipe on one card: two forwards (remat) and one VJP per layer and
+    microbatch."""
+    return GRAD_ACCUM * 2 * mcfg.joint.num_hidden_layers
+
+
+def check_dp_main(dev, info: str, device_type: str = "cuda", layers: int = DP_LAYERS) -> dict:
+    """Phase 12: configs/train/bridge.yaml's QLoRA recipe, cut to ``layers``
+    (``dp_depth_overrides``), on DP_RANKS ranks sharing the card (``parallel/ranks.dp_main_rank``), after one process
+    alone has taken the raw update on the whole global batch
+    (``dp_reference_rank``), in a temporary directory that holds phase 8b's
+    dataset, the checkpoints and the statistics cache."""
+    tmp = tempfile.mkdtemp(prefix="opz_dp_main_")
+    cache = os.environ.get("XDG_CACHE_HOME")
+    os.environ["XDG_CACHE_HOME"] = os.path.join(tmp, "cache")
+    try:
+        data = write_demo_dataset(os.path.join(tmp, "data"))
+        overrides = AGENT_OVERRIDES + DATA_OVERRIDES + DP_OVERRIDES + dp_depth_overrides(layers) + [
+            f"log_dir={tmp}/train", f"pretrained_model_path={tmp}/no_tokenizer",
+            f"data.train.data_path={os.path.join(tmp, 'data')}",
+        ]
+        agent_cfg = cfg_lib.load_config(AGENT_CONFIG, overrides=overrides)
+        resume_cfg = cfg_lib.load_config(AGENT_CONFIG, overrides=overrides + ["resume_checkpoint_path=auto", "n_updates=3"])
+        raw_cfg = cfg_lib.load_config(AGENT_CONFIG, overrides=overrides + DP_RAW_OVERRIDES)
+        one_cfg = cfg_lib.load_config(  # one process: the global microbatch of 32 rows, accumulation 2 again
+            AGENT_CONFIG, overrides=overrides + DP_RAW_OVERRIDES + [f"per_device_batch_size={TRAIN_B * DP_RANKS}"])
+        mcfg = cfg_lib.pizero_config_from_dict(raw_cfg)
+        batch = train_batch(mcfg, TRAIN_B * DP_RANKS, np.random.default_rng(12), inject=True)
+        t0 = time.time()
+        reference = run_ranks(ranks.dp_reference_rank, 1, 1, one_cfg, [batch], os.path.join(tmp, "reference.pt"),
+                              DP_ADAM_EPS, device=device_type, timeout_s=RANK_TIMEOUT_S)
+        reference_s = time.time() - t0
+        t0 = time.time()
+        got = run_ranks(ranks.dp_main_rank, DP_RANKS, 1, raw_cfg, [batch], DP_ADAM_EPS,
+                        os.path.join(tmp, "reference.pt"), agent_cfg, resume_cfg, device=device_type,
+                        timeout_s=RANK_TIMEOUT_S)
+        ranks_s = time.time() - t0
+        ckpt_gb = dir_bytes(os.path.join(tmp, "train", "checkpoint", "ckpt_2")) / 1e9
+        with open(os.path.join(tmp, "train", "checkpoint", "ckpt_2", ckpt_lib.META_FILE)) as f:
+            meta = json.load(f)
+    finally:
+        if cache is None:
+            os.environ.pop("XDG_CACHE_HOME", None)
+        else:
+            os.environ["XDG_CACHE_HOME"] = cache
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    per_update = dp_launches_per_update(mcfg)
+    rows = got["ranks"]
+    if reference["launches"] != [per_update] or reference["bwd_launches"] != [per_update]:
+        raise AssertionError(f"one process: {reference['launches']} K1 and {reference['bwd_launches']} backward "
+                             f"launches in its update, want {per_update}")
+    for r, row in enumerate(rows):
+        for name, run in (*row["raw"].items(), ("agent", row["agent"])):
+            if set(run["launches"]) != {per_update} or set(run["bwd_launches"]) != {per_update}:
+                raise AssertionError(f"rank {r} {name}: {run['launches']} K1 and {run['bwd_launches']} backward "
+                                     f"launches per update, want {per_update} each, as one card's update")
+        if not row["zero1_bitwise"]:
+            raise AssertionError(f"rank {r}: the ZeRO-1 update differs from the replicated one")
+        agent = row["agent"]
+        if not (agent["zero1"] and agent["resumed_at"] == 2 and agent["resume_bitwise"]
+                and agent["resumed_cnt_batch"] == agent["saved_cnt_batch"]):
+            raise AssertionError(f"rank {r}: the resume from ckpt_2: {agent}")
+        replicated, zero1 = row["raw"]["replicated"], row["raw"]["zero1"]
+        if not zero1["moment_bytes"] < 0.6 * replicated["moment_bytes"]:
+            raise AssertionError(f"rank {r}: ZeRO-1 holds {zero1['moment_bytes']} moment bytes of "
+                                 f"{replicated['moment_bytes']}")
+    losses = [row["raw"]["replicated"]["losses"][0] for row in rows]
+    norms = [row["raw"]["replicated"]["grad_norms"][0] for row in rows]
+    if len(set(losses)) != 1 or len(set(norms)) != 1:
+        raise AssertionError(f"the ranks' all-reduced losses {losses} or grad norms {norms} differ")
+    rel = {"loss": abs(losses[0] - reference["losses"][0]) / abs(reference["losses"][0]),
+           "grad_norm": abs(norms[0] - reference["grad_norms"][0]) / abs(reference["grad_norms"][0])}
+    param_err = rows[0]["vs_reference_max_abs_diff"]
+    if not (max(rel.values()) <= DP_TOL["relative"] and param_err <= DP_TOL["params"]):
+        raise AssertionError(f"the DP update vs one process's update of the global batch: relative {rel}, "
+                             f"params max|diff| {param_err} (limits {DP_TOL})")
+    if not all(np.isfinite(row["agent"]["losses"]).all() for row in rows):
+        raise AssertionError(f"agent losses {[row['agent']['losses'] for row in rows]}")
+    if meta.get("world_size") != DP_RANKS:
+        raise AssertionError(f"ckpt_2's meta.json: {meta}")
+    result = {
+        "backend": got["backend"], "card": got["card"], "data": data, "reference": reference,
+        "reference_s": reference_s, "ranks_s": ranks_s, "checkpoint_gb": ckpt_gb,
+        "vs_one_process": {"relative": rel, "params_max_abs_diff": param_err, "trained_leaves": rows[0]["trained_leaves"]},
+        "ranks": rows, "launches_per_update": per_update,
+        "depth": {"joint": mcfg.joint.num_hidden_layers, "siglip": mcfg.siglip.num_hidden_layers},
+    }
+    log("dp-main: " + json.dumps(result))
+    agent_rows = [row["agent"] for row in rows]
+    cards = "sharing one card" if got["backend"] == "gloo" else "a card each"
+    log(f"dp-main: {AGENT_CONFIG} QLoRA at full width, depth {result['depth']['joint']} (SigLIP "
+        f"{result['depth']['siglip']}), ZeRO-1, on {DP_RANKS} ranks over {got['backend']} ({cards}, {got['card']}), "
+        f"B = {TRAIN_B} x {GRAD_ACCUM} per rank (global {TRAIN_B * GRAD_ACCUM * DP_RANKS}): update ms per rank "
+        f"{[[round(u, 1) for u in a['update_ms']] for a in agent_rows]} (the gradient all-reduce "
+        f"{[[round(u, 1) for u in a['allreduce_ms']] for a in agent_rows]} ms of it), peak memory per rank "
+        f"{[round(a['peak_gb'], 3) for a in agent_rows]} GB; K1 and backward launches per update per rank "
+        f"{[a['launches'] for a in agent_rows]} / {[a['bwd_launches'] for a in agent_rows]} (one card's update: "
+        f"{per_update}); save of ckpt_2 ({ckpt_gb:.3f} GB) {[a['save_s'] for a in agent_rows]} s; the resumed update 3 "
+        f"bitwise the continued one on every rank, on {info}")
+    log(f"dp-main: one DP update on injected t/x0 vs one process's update of the global batch (B = "
+        f"{TRAIN_B * DP_RANKS} x {GRAD_ACCUM}, {reference['update_ms'][0]:.1f} ms, peak {reference['peak_gb']:.3f} GB): "
+        f"loss and grad norm relative {rel}, params max|diff| {param_err:.3e} over {rows[0]['trained_leaves']} "
+        f"trained leaves (limits {DP_TOL}); ZeRO-1 bitwise the replicated update on every rank, moment bytes per "
+        f"rank {[r['raw']['zero1']['moment_bytes'] for r in rows]} vs replicated "
+        f"{[r['raw']['replicated']['moment_bytes'] for r in rows]}; raw update ms per rank replicated "
+        f"{[r['raw']['replicated']['update_ms'] for r in rows]} / ZeRO-1 {[r['raw']['zero1']['update_ms'] for r in rows]}, "
+        f"on {info}")
+    return result
 
 
 def single_card_phases(dev, info: str) -> list:
@@ -3306,7 +3508,7 @@ def single_card_phases(dev, info: str) -> list:
         f"{main_path['peak_mem_gb']:.3f} GB, on {info}")
     prof = profile_chunk(dev, cfg, params, main_path["launches"])
     calls = record_main_path_calls(dev, cfg, params)
-    replayed = replay_in_fresh_process(calls, "forward")
+    replayed = replay_in_worker(calls, "forward")
     log(f"main: kernel on the main path {prof['ms']:.3f} ms over {prof['launches']} launches; "
         "replayed calls: " + json.dumps(replayed))
 
@@ -3392,7 +3594,7 @@ def single_card_phases(dev, info: str) -> list:
     train_calls = record_training_calls(dev, cfg, params, batch)
     del params, state, step, batch
     torch.cuda.empty_cache()
-    replayed_vjp = replay_in_fresh_process(train_calls, "vjp")
+    replayed_vjp = replay_in_worker(train_calls, "vjp")
     log("train-main: replayed calls of one update: " + json.dumps(replayed_vjp))
     log(f"phase train-main ok in {time.time() - t0:.1f} s")
     del train_calls
@@ -3484,7 +3686,7 @@ def single_card_phases(dev, info: str) -> list:
     return [entry, vjp_entry]
 
 
-def mesh_phases(dev, info: str) -> dict:
+def mesh_phases(dev, info: str, dp_layers: int = DP_LAYERS) -> dict:
     """Phases 9-11 in spawned ranks; returns the K1-shard entry of the
     kernels line."""
     t0 = time.time()
@@ -3508,6 +3710,11 @@ def mesh_phases(dev, info: str) -> dict:
         f"{[round(r['peak_mem_gb'], 3) for r in shard['ranks']]} GB, on {info}")
     log(f"phase shard-main ok in {time.time() - t0:.1f} s")
 
+    t0 = time.time()
+    dp = check_dp_main(dev, info, layers=dp_layers)
+    log(f"phase dp-main ok in {time.time() - t0:.1f} s")
+    dp_agent = dp["ranks"][0]["agent"]
+
     return {
         "name": "mot_attention_shard",
         "route": "cuda",
@@ -3521,29 +3728,46 @@ def mesh_phases(dev, info: str) -> dict:
         "bound_ms": shard["replayed"]["bound_ms"],
         "bound_by": shard["replayed"]["bound_by"],
         "library_ms": shard["replayed"]["library_ms"],
+        # phase 12: every attention call of a DP rank goes through K1-shard
+        # (a model group of one); rank 0's launches per update of the
+        # QLoRA recipe (K1's forwards, then the backward kernels'), one
+        # card's count
+        "dp_launches_per_update": dp_agent["launches"][0],
+        "dp_bwd_launches_per_update": dp_agent["bwd_launches"][0],
     }
 
 
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description="Smoke run of open_pi_zero_torch on one NVIDIA card.")
+    parser.add_argument("--dp-layers", type=int, default=DP_LAYERS,
+                        help="depth of both towers in phase 12 (dp-main); 0 runs the recipe's depths")
+    return parser.parse_args(argv)
+
+
 def main() -> None:
+    args = parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the card only")
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
+    start_replayer()
+    try:
+        t0 = time.time()
+        sources = (fa.SOURCE, fa.BWD_SOURCE)
+        with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
+            list(pool.map(_build.build, sources))
+        info = card()
+        log(f"build: {', '.join(sources)} in {time.time() - t0:.1f} s")
+        for source in sources:
+            log_build_instances(_build.build_log(source))
+        print(f"card: {info}", flush=True)  # as nvidia-smi prints it
 
-    t0 = time.time()
-    sources = (fa.SOURCE, fa.BWD_SOURCE)
-    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
-        list(pool.map(_build.build, sources))
-    info = card()
-    log(f"build: {', '.join(sources)} in {time.time() - t0:.1f} s")
-    for source in sources:
-        log_build_instances(_build.build_log(source))
-    print(f"card: {info}", flush=True)  # as nvidia-smi prints it
-
-    kernels = single_card_phases(dev, info)
-    kernels.append(mesh_phases(dev, info))
+        kernels = single_card_phases(dev, info)
+        kernels.append(mesh_phases(dev, info, args.dp_layers))
+    finally:
+        stop_replayer()
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

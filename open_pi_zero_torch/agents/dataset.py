@@ -6,7 +6,8 @@ TrainAgent, from the port's TF-free pipeline (``data/``).
 ``iterator(batch_size)`` starts again from the seed at each call and
 batches in a background thread (a prefetch of a few batches), so that the
 next batch is made while the card runs an update. Frames reach the card
-through the agent's ``to_device``.
+through the agent's ``to_device``. In a world of n processes, process i
+reads every n-th frame from i (JAX's ``ds.shard(n, i)`` before ``batch``).
 """
 
 from __future__ import annotations
@@ -16,13 +17,12 @@ import logging
 from open_pi_zero_torch.data.oxe import make_oxe_dataset_kwargs_and_weights
 from open_pi_zero_torch.data.pipeline import batch_frames, make_interleaved_dataset
 from open_pi_zero_torch.data.streams import prefetch
-from open_pi_zero_torch.parallel.mesh import world_size
+from open_pi_zero_torch.parallel.mesh import process_index, world_size
 from open_pi_zero_torch.utils.monitor import log_execution_time
 
 log = logging.getLogger(__name__)
 
 PREFETCH_BATCHES = 4
-MESH_ITEM = "ROADMAP.md queue 1 (training under a mesh)"
 
 # the π0 recipe's augmentation (reference agent/dataset.py:38-69)
 PRIMARY_AUGMENT_KWARGS = dict(
@@ -90,9 +90,9 @@ class RLDSInterleavedDataset:
         )
 
     def iterator(self, batch_size: int, shard_per_process: bool = True):
-        """Numpy frame batches from the start of the seeded stream. Sharding
-        the stream over processes waits with training under a mesh: more
-        than one process raises."""
-        if shard_per_process and world_size() > 1:
-            raise NotImplementedError(f"a dataset sharded over processes waits in {MESH_ITEM}")
-        return prefetch(batch_frames(iter(self.dataset), batch_size), PREFETCH_BATCHES)
+        """Numpy frame batches from the start of the seeded stream; with
+        ``shard_per_process``, of this process's shard of it (every n-th
+        frame from its rank, n the world's processes), so that the global
+        batch is disjoint across processes (reference train.py:142-156)."""
+        shard = (process_index(), world_size()) if shard_per_process else (0, 1)
+        return prefetch(batch_frames(self.dataset.frames(*shard), batch_size), PREFETCH_BATCHES)

@@ -13,13 +13,17 @@ episode shuffle and subsample from (seed, dataset index, ...), the
 sampling and the frame shuffle from (seed, ...), each frame's transforms
 from (seed, frame index). Threads only map in order (``streams``), so a
 dataset iterated twice from its seed yields the same frames in the same
-order. The JAX package's order is not fixed: its parallel reads and maps
+order. A shard (``FrameDataset.frames(index, count)``: every count-th
+frame from ``index``, JAX's ``ds.shard`` before the batch) is taken before
+the frame transforms, each frame drawing from its index in the whole
+stream, so a process transforms only its own frames. The JAX package's order is not fixed: its parallel reads and maps
 interleave by timing.
 """
 
 from __future__ import annotations
 
 import inspect
+import itertools
 import os
 from functools import partial
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
@@ -248,9 +252,11 @@ def apply_frame_transforms(
     image_dropout_prob: float = 0.0,
     num_parallel_calls: int = AUTOTUNE,
     seed: int = 0,
+    shard: Tuple[int, int] = (0, 1),
 ) -> Iterator[dict]:
     """Per-frame decode/resize/augment, frame i's draws from a generator
-    seeded with (seed, i) (reference dataset.py:178-254)."""
+    seeded with (seed, i) (reference dataset.py:178-254), of the frames of
+    the shard ``(index, count)``: frames index, index + count, ..."""
 
     def xform(indexed) -> dict:
         i, frame = indexed
@@ -263,7 +269,8 @@ def apply_frame_transforms(
             train=train,
         )
 
-    return ordered_map(xform, enumerate(frames), _threads(num_parallel_calls))
+    index, count = shard
+    return ordered_map(xform, itertools.islice(enumerate(frames), index, None, count), _threads(num_parallel_calls))
 
 
 def sample_from_datasets(streams: List[Iterator], weights: Sequence[float], rng: np.random.Generator) -> Iterator:
@@ -308,13 +315,20 @@ class FrameDataset:
     iteration starts again from the seed. ``sample_weights`` and
     ``dataset_statistics`` as the JAX package's dataset carries them."""
 
-    def __init__(self, make_frames: Callable[[], Iterator[dict]], batch_size: Optional[int],
+    def __init__(self, make_frames: Callable[[int, int], Iterator[dict]], batch_size: Optional[int],
                  sample_weights: List[float], dataset_statistics: List[dict]):
         self._make_frames, self.batch_size = make_frames, batch_size
         self.sample_weights, self.dataset_statistics = sample_weights, dataset_statistics
 
+    def frames(self, index: int = 0, count: int = 1) -> Iterator[dict]:
+        """The frames of shard ``index`` of ``count`` (every count-th frame
+        of the stream from ``index``), unbatched."""
+        if not 0 <= index < count:
+            raise ValueError(f"shard {index} of {count}")
+        return self._make_frames(index, count)
+
     def __iter__(self) -> Iterator[dict]:
-        frames = self._make_frames()
+        frames = self.frames()
         return batch_frames(frames, self.batch_size) if self.batch_size is not None else frames
 
 
@@ -370,7 +384,7 @@ def make_interleaved_dataset(
         )
         datasets.append((trajs.repeated() if train else trajs, int(n_xform), [seed, i, 1]))
 
-    def make_frames() -> Iterator[dict]:
+    def make_frames(index: int, count: int) -> Iterator[dict]:
         streams = [
             traj_transforms.flatten_to_frames(apply_trajectory_transforms(
                 trajs, train=train, num_parallel_calls=n_xform, rng=np.random.default_rng(sub_seed),
@@ -385,8 +399,9 @@ def make_interleaved_dataset(
         if train and shuffle_buffer_size > 1:
             frames = shuffle_buffer(frames, shuffle_buffer_size, np.random.default_rng([seed, _FRAME_SHUFFLE]))
         if frame_transform_kwargs:
-            frames = apply_frame_transforms(frames, train=train, seed=seed, **frame_transform_kwargs)
-        return frames
+            return apply_frame_transforms(frames, train=train, seed=seed, shard=(index, count),
+                                          **frame_transform_kwargs)
+        return itertools.islice(frames, index, None, count)
 
     return FrameDataset(make_frames, batch_size, sample_weights, all_stats)
 

@@ -16,6 +16,10 @@ the row-parallel projections all-reduce their partial sums over the model
 group, and ``infer_action`` draws the global batch's noise and keeps its
 rows.
 
+``init_distributed`` joins a world that ``torchrun`` started (the
+counterpart of ``jax.distributed.initialize``) and registers its data
+mesh, for training: ``scripts/run.py --distributed``.
+
 ``run_ranks`` launches a rank program on every position of a mesh: a
 ``spawn`` start (CUDA cannot be forked once initialised), a ``file://``
 rendezvous, a process-group timeout, and the collective backend decided up
@@ -94,6 +98,14 @@ def world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
+def process_index() -> int:
+    """This process's rank: the process group's once one is initialized,
+    else the launcher's ``RANK`` (0 when unset)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return int(os.environ.get("RANK", "0"))
+
+
 def make_mesh(
     n_data: int, n_model: int, device, timeout: Optional[datetime.timedelta] = None
 ) -> Mesh:
@@ -124,18 +136,64 @@ def make_mesh(
     return mesh
 
 
-def shard_batch(mesh: Mesh, batch: dict) -> dict:
-    """This data rank's rows of every leaf (leading batch axis split evenly
-    over ``data``); the model ranks of one data index get the same rows."""
+def shard_batch(mesh: Mesh, batch: dict, axis: int = 0) -> dict:
+    """This data rank's rows of every leaf: the batch axis ``axis`` split
+    evenly over ``data`` (1 for an accumulated batch, whose ``[accum]``
+    axis leads: JAX's ``P(None, "data")``); the model ranks of one data
+    index get the same rows."""
 
     def rows(x):
-        b = x.shape[0]
+        b = x.shape[axis]
         if b % mesh.n_data:
             raise ValueError(f"batch {b} does not split over {mesh.n_data} data ranks")
         n = b // mesh.n_data
-        return x[mesh.data_index * n : (mesh.data_index + 1) * n]
+        return x.narrow(axis, mesh.data_index * n, n)
 
     return {k: rows(v) for k, v in batch.items()}
+
+
+def broadcast_int(value: int) -> int:
+    """Rank 0's ``value`` on every rank (the checkpoint a resume takes);
+    ``value`` itself without a process group."""
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+        return int(value)
+    nccl = dist.get_backend() == "nccl"  # takes CUDA tensors only
+    device = torch.device("cuda", torch.cuda.current_device()) if nccl else torch.device("cpu")
+    x = torch.tensor([int(value)], dtype=torch.int64, device=device)
+    dist.broadcast(x, 0)
+    return int(x[0])
+
+
+TORCHRUN_VARIABLES = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def init_distributed(device_type: str = "cuda") -> Mesh:
+    """Join the world that ``torchrun`` started and register its data mesh,
+    ``make_mesh(n_data=world, n_model=1)``: the counterpart of
+    ``jax.distributed.initialize``. Reads ``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT`` (the ``env://``
+    rendezvous); rank r runs on ``cuda:{LOCAL_RANK % cards}`` or on the
+    CPU; the backend is ``collective_backend``'s over the ranks of this
+    host (``LOCAL_WORLD_SIZE``). Returns the mesh."""
+    missing = [k for k in TORCHRUN_VARIABLES if k not in os.environ]
+    if missing:
+        raise RuntimeError(f"init_distributed: {', '.join(missing)} unset; launch with torchrun "
+                           "(python -m torch.distributed.run --nproc_per_node N ...)")
+    world, rank, local = (int(os.environ[k]) for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK"))
+    device = rank_device(device_type, local)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    backend = collective_backend(device.type, int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+    dist.init_process_group(backend, init_method="env://", world_size=world, rank=rank)
+    return make_mesh(world, 1, device)
+
+
+def shutdown_distributed() -> None:
+    """Clear the registered mesh and leave the process group (a no-op
+    without one)."""
+    set_mesh(None)
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def rank_device(device_type: str, rank: int) -> torch.device:

@@ -1,7 +1,8 @@
 """Rank programs: what ``parallel.run_ranks`` runs on every position of a
 mesh, for the tests (on the CPU, over gloo) and for ``chip_smoke.py``
-phases 9-11 (on the card). Each takes this rank's ``Mesh`` first and
-returns, on rank 0, plain data on the CPU (numpy arrays, numbers).
+phases 9-11 and dp-main (on the card). Each takes this rank's ``Mesh``
+first and returns, on rank 0, plain data on the CPU (numpy arrays,
+numbers).
 
 They live in the package because a spawned process imports the function
 it runs: none of them may pull in JAX.
@@ -9,23 +10,29 @@ it runs: none of them may pull in JAX.
 
 from __future__ import annotations
 
+import importlib
 import statistics
 import sys
 import time
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from open_pi_zero_torch.config import PiZeroConfig
+from open_pi_zero_torch.config import PiZeroConfig, TrainingConfig
 from open_pi_zero_torch.models import pizero
 from open_pi_zero_torch.models.from_jax import params_from_jax
-from open_pi_zero_torch.models.tree import tree_map
+from open_pi_zero_torch.models.tree import tree_leaves, tree_map
 from open_pi_zero_torch.ops import fused_attention as fa
+from open_pi_zero_torch.ops import lora as lora_lib
 from open_pi_zero_torch.ops.attention import mot_attention_ref
 from open_pi_zero_torch.parallel import collectives
 from open_pi_zero_torch.parallel.mesh import Mesh, set_mesh, shard_batch
 from open_pi_zero_torch.parallel.sharding import shard_params_tp
+from open_pi_zero_torch.training import averaging as avg_lib
+from open_pi_zero_torch.training import optimizer as opt_lib
+from open_pi_zero_torch.training import seeds
+from open_pi_zero_torch.training.train_step import init_train_state, make_train_step, shard_state_zero1
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -164,9 +171,11 @@ def infer_rank(
     }
 
 
-def foreign_modules_rank(mesh: Mesh) -> list:
+def foreign_modules_rank(mesh: Mesh, modules: Sequence[str] = ()) -> list:
     """The modules of JAX or of the JAX package this rank has imported
-    (none may be)."""
+    after importing ``modules`` (none may be)."""
+    for name in modules:
+        importlib.import_module(name)
     return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "open_pi_zero_tpu"))
 
 
@@ -308,3 +317,411 @@ def _profile_chunk(mesh: Mesh, run, top: int = 12) -> Optional[dict]:
         "device_busy_ms": sum(e.self_device_time_total for e in device) / 1e3,
         "host_top": [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in host[:top]],
     }
+
+
+# --------------------------------------------------------------------------- #
+# training on a data mesh
+# --------------------------------------------------------------------------- #
+
+
+def _host(x: torch.Tensor) -> torch.Tensor:
+    """A copy on the CPU (``.cpu()`` of a CPU tensor is the tensor itself)."""
+    return x.detach().to("cpu", copy=True)
+
+
+def _numpy(x: torch.Tensor) -> np.ndarray:
+    """A copy: ``.numpy()`` of a CPU tensor shares its memory, which a later
+    update would change."""
+    return _host(x).numpy()
+
+
+def _numpy_tree(tree):
+    return tree_map(_numpy, tree)
+
+
+def opt_state_numpy(state_dict: dict) -> dict:
+    """An optimizer state dict in the one-device layout as numpy: the
+    per-param tensors and each group's hyperparameters and counts."""
+    return {
+        "state": {i: {k: _numpy(v) for k, v in st.items()} for i, st in state_dict["state"].items()},
+        "groups": [{k: v for k, v in g.items() if k != "params"} for g in state_dict["param_groups"]],
+    }
+
+
+def moment_bytes(opt_state) -> int:
+    """The bytes of the optimizer state that this rank holds."""
+    inner = getattr(opt_state, "inner", opt_state)
+    return sum(t.numel() * t.element_size() for st in inner.state.values() for t in st.values() if torch.is_tensor(t))
+
+
+class _Timed:
+    """Per update: the loss and grad norm, the device-synchronised ms of
+    the train step and of its gradient all-reduce
+    (``collectives.all_reduce_mean_``, wrapped while the block runs), and
+    the kernels' launches."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.losses, self.grad_norms, self.update_ms, self.allreduce_ms = [], [], [], []
+        self.launches, self.bwd_launches = [], []
+
+    def __enter__(self):
+        self._reduce = collectives.all_reduce_mean_
+
+        def timed(*args, **kwargs):
+            _sync(self.device)
+            t0 = time.perf_counter()
+            self._reduce(*args, **kwargs)
+            _sync(self.device)
+            self.allreduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+        collectives.all_reduce_mean_ = timed
+        return self
+
+    def __exit__(self, *exc):
+        collectives.all_reduce_mean_ = self._reduce
+        return False
+
+    def step(self, step_fn, state, batch) -> dict:
+        _sync(self.device)
+        k1, bwd = fa.launches, fa.bwd_launches
+        t0 = time.perf_counter()
+        metrics = step_fn(state, batch)
+        _sync(self.device)
+        self.update_ms.append((time.perf_counter() - t0) * 1e3)
+        self.launches.append(fa.launches - k1)
+        self.bwd_launches.append(fa.bwd_launches - bwd)
+        self.losses.append(float(metrics["loss"]))
+        self.grad_norms.append(float(metrics["grad_norm"]))
+        return metrics
+
+
+def _peak_gb(device: torch.device) -> float:
+    return torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else 0.0
+
+
+def _reset_peak(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _trained(params: dict) -> list:
+    return [x for x in tree_leaves(params) if x.requires_grad]
+
+
+def _opt_tensors(state_dict: dict) -> list:
+    return [v for _, st in sorted(state_dict["state"].items()) for _, v in sorted(st.items()) if torch.is_tensor(v)]
+
+
+def _updates(mesh: Mesh, cfg: PiZeroConfig, train_cfg: TrainingConfig, params: dict, batches: List[dict],
+             accum: int, zero1: bool, seed: int):
+    """The TrainState of ``params`` (the train stream of ``seed``; ZeRO-1
+    with ``zero1``) after an update on this rank's rows of each global
+    batch (numpy; a leading [accum] axis when ``accum`` > 1; optional ``t``
+    and ``x0`` inject the flow times and the noise). Returns the state and
+    the ``_Timed`` record."""
+    dev = mesh.device
+    optimizer = opt_lib.build_optimizer(train_cfg, params)
+    state = init_train_state(params, optimizer, seeds.stream_generator(seed, seeds.TRAIN, device=dev), train_cfg)
+    if zero1:
+        state = shard_state_zero1(state, optimizer, mesh)
+    step = make_train_step(cfg, train_cfg, optimizer, accum)
+    _reset_peak(dev)
+    with _Timed(dev) as timed:
+        for batch in batches:
+            timed.step(step, state, shard_batch(mesh, _on(batch, dev), axis=1 if accum > 1 else 0))
+    return state, timed
+
+
+def train_rank(
+    mesh: Mesh, cfg: PiZeroConfig, train_cfg: TrainingConfig, batches: List[dict], accum: int = 1,
+    zero1: bool = False, params_np: Optional[dict] = None, seed: int = 0,
+) -> dict:
+    """``_updates`` in fp32 from the params ``params_np`` (a JAX tree of
+    numpy leaves) or drawn on the CPU from ``seed``, quantized as ``cfg``
+    says. Returns each update's loss and grad norm, the params, the
+    optimizer state and the average in the one-device layout (gathered),
+    and each rank's optimizer-state bytes."""
+    dev = mesh.device
+    _exact_fp32()
+    if params_np is not None:
+        params = params_from_jax(params_np, device=dev)
+    else:
+        params = tree_map(lambda x: x.to(dev), pizero.init_params(cfg, seed=seed, device="cpu"))
+    params = lora_lib.quantize_per_model_config(params, cfg)
+    state, timed = _updates(mesh, cfg, train_cfg, params, batches, accum, zero1, seed)
+    opt = opt_state_numpy(state.opt_state.state_dict())
+    avg = None if state.avg is None else _numpy_tree(avg_lib.gathered(state.avg, state.params))
+    return {"losses": timed.losses, "grad_norms": timed.grad_norms, "params": _numpy_tree(state.params), "opt": opt,
+            "avg": avg, "n_averaged": None if state.avg is None else state.avg.n_averaged,
+            "moment_bytes": _gather_objects(mesh, moment_bytes(state.opt_state))}
+
+
+def state_numpy(state) -> dict:
+    """A TrainState in the one-device layout as numpy: the ZeRO-1 slices
+    gathered (a collective)."""
+    return {
+        "step": state.step, "params": _numpy_tree(state.params), "opt": opt_state_numpy(state.opt_state.state_dict()),
+        "avg": None if state.avg is None else _numpy_tree(avg_lib.gathered(state.avg, state.params)),
+        "n_averaged": None if state.avg is None else state.avg.n_averaged,
+        "generator": _numpy(state.generator.get_state()),
+    }
+
+
+def _gather_objects(mesh: Mesh, obj) -> list:
+    out = [None] * mesh.size
+    torch.distributed.all_gather_object(out, obj)
+    return out
+
+
+def _update_on_fresh_batch(agent) -> None:
+    """One update on the first batch of a fresh iterator of the agent's
+    dataset (its shard)."""
+    it = agent.dataset.iterator(agent.step_batch_size)
+    try:
+        batch = agent.next_update_batch(it)
+    finally:
+        it.close()
+    agent.train_step(agent.state, batch)
+
+
+def agent_rank(mesh: Mesh, cfg, resume_cfg, partial: str) -> dict:
+    """The TrainAgent on this rank: ``cfg``'s run (its frame batches
+    recorded, its validations kept), the state it saved at its last update
+    (gathered), one more update on a fresh iterator's first batch; then
+    rank 0 makes the partial checkpoint directory ``partial`` (no
+    meta.json) and a second agent from ``resume_cfg`` (``auto``) resumes and
+    takes the same update. Returns the ranks' frames, the validations
+    (results and the ranks' model inputs: the stand-in tokenizer numbers
+    words as a process first meets them), the states and the resumed
+    agent's step and cnt_batch."""
+    import os
+
+    from open_pi_zero_torch.agents.train import TrainAgent
+
+    frames = []
+    agent = TrainAgent(cfg, device=mesh.device)
+    iterator, validate = agent.dataset.iterator, agent.validate
+    validations = {}
+
+    def recording(batch_size):
+        for batch in iterator(batch_size):
+            images, actions = batch["observation"]["image_primary"], batch["action"]
+            frames.extend(images[i].tobytes() + actions[i].tobytes() for i in range(len(actions)))
+            yield batch
+
+    def validating(update):
+        inputs = []  # the model inputs of this rank's validation batches
+
+        def preprocess(batch):
+            inputs.append(TrainAgent.preprocess_batch(agent, batch))
+            return inputs[-1]
+
+        agent.preprocess_batch = preprocess
+        try:
+            result = validate(update)
+        finally:
+            del agent.preprocess_batch
+        validations[update] = {"result": result, "inputs": _gather_objects(mesh, inputs)}
+        return result
+
+    agent.dataset.iterator, agent.validate = recording, validating
+    agent.run()
+    del agent.dataset.iterator, agent.validate
+    saved = state_numpy(agent.state)
+    _update_on_fresh_batch(agent)
+    continued = state_numpy(agent.state)
+    if mesh.rank == 0:
+        os.makedirs(os.path.join(partial, "state"))
+    torch.distributed.barrier()
+    resumed = TrainAgent(resume_cfg, device=mesh.device)
+    resumed_at, cnt_batch = resumed.state.step, resumed.cnt_batch
+    _update_on_fresh_batch(resumed)
+    return {
+        "frames": _gather_objects(mesh, frames), "validations": validations, "saved": saved,
+        "continued": continued, "resumed": state_numpy(resumed.state), "resumed_at": resumed_at,
+        "cnt_batch": (agent.cnt_batch - agent.grad_accum, cnt_batch), "zero1": agent.zero1,
+        "moment_bytes": _gather_objects(mesh, moment_bytes(agent.state.opt_state)),
+    }
+
+
+def restore_rank(mesh: Mesh, cfg) -> dict:
+    """A TrainAgent that restores ``cfg``'s ``resume_checkpoint_path``:
+    its state in the one-device layout and each rank's moment bytes."""
+    from open_pi_zero_torch.agents.train import TrainAgent
+
+    agent = TrainAgent(cfg, device=mesh.device)
+    return {"state": state_numpy(agent.state), "zero1": agent.zero1,
+            "moment_bytes": _gather_objects(mesh, moment_bytes(agent.state.opt_state))}
+
+
+def latest_rank(mesh: Mesh, ckpt_dirs: List[str]) -> list:
+    """Each rank's ``TrainAgent._latest_checkpoint`` when rank r looks in
+    ``ckpt_dirs[r]``: rank 0's choice, broadcast."""
+    import types
+
+    from open_pi_zero_torch.agents.train import TrainAgent
+
+    return _gather_objects(mesh, TrainAgent._latest_checkpoint(types.SimpleNamespace(ckpt_dir=ckpt_dirs[mesh.rank])))
+
+
+# --------------------------------------------------------------------------- #
+# chip_smoke.py dp-main and scripts/dp_probe.py: full-width DP on the card
+# --------------------------------------------------------------------------- #
+
+
+def _full_width_params(cfg: PiZeroConfig, seed: int, device: torch.device) -> dict:
+    """A recipe's params from its seed on ``device``, fp32, with the
+    config's NF4 bases."""
+    return lora_lib.quantize_per_model_config(pizero.init_params(cfg, seed=seed, device=device), cfg)
+
+
+def dp_updates(mesh: Mesh, cfg, batches: List[dict], zero1: bool, keep: bool = False,
+               adam_eps: Optional[float] = None, params: Optional[dict] = None) -> dict:
+    """``_updates`` of the recipe ``cfg`` (a loaded train config; its
+    accumulation over this mesh) at full width, fp32, at Adam's
+    ``adam_eps`` if given (the configs' loader keeps optax's default), from
+    ``params`` or the recipe's seed: per update the loss, the grad norm, the
+    update's and the all-reduce's ms and the kernels' launches; the peak
+    memory and the optimizer-state bytes of this rank. With ``keep``, also
+    the trained leaves and the optimizer state in the one-device layout, on
+    the CPU."""
+    import dataclasses
+
+    from open_pi_zero_torch.config import pizero_config_from_dict, training_config_from_dict
+
+    dev = mesh.device
+    _exact_fp32()
+    model_cfg, train_cfg = pizero_config_from_dict(cfg), training_config_from_dict(cfg)
+    if adam_eps is not None:
+        train_cfg = dataclasses.replace(train_cfg, adam_eps=adam_eps)
+    seed = int(cfg.get("seed", 42))
+    params = _full_width_params(model_cfg, seed, dev) if params is None else params
+    accum = train_cfg.global_batch_size // (train_cfg.per_device_batch_size * mesh.n_data)
+    state, timed = _updates(mesh, model_cfg, train_cfg, params, batches, accum, zero1, seed)
+    out = {"losses": timed.losses, "grad_norms": timed.grad_norms, "update_ms": timed.update_ms,
+           "allreduce_ms": timed.allreduce_ms, "launches": timed.launches, "bwd_launches": timed.bwd_launches,
+           "peak_gb": _peak_gb(dev), "moment_bytes": moment_bytes(state.opt_state), "accum": accum}
+    if keep:
+        out["trained"] = [_host(x) for x in _trained(state.params)]
+        out["opt"] = {"state": {i: {k: _host(v) for k, v in st.items()}
+                                for i, st in state.opt_state.state_dict()["state"].items()}}
+    return out
+
+
+def dp_probe_rank(mesh: Mesh, cfg, batches: List[dict], zero1: bool) -> list:
+    """``dp_updates`` on every rank; returns each rank's numbers."""
+    got = dp_updates(mesh, cfg, batches, zero1)
+    return _gather_objects(mesh, {**got, "rank": mesh.rank, "backend": mesh.backend, "device": str(mesh.device)})
+
+
+def dp_reference_rank(mesh: Mesh, cfg, batches: List[dict], out_path: str, adam_eps: Optional[float] = None) -> dict:
+    """One process alone (a world of one): the updates of ``dp_updates``
+    on the whole global batches; the trained leaves saved to ``out_path``
+    for the ranks to compare with. Returns the numbers."""
+    got = dp_updates(mesh, cfg, batches, zero1=False, keep=True, adam_eps=adam_eps)
+    torch.save(got.pop("trained"), out_path)
+    got.pop("opt")
+    return got
+
+
+def _bitwise(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]) -> bool:
+    return len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def dp_main_rank(mesh: Mesh, raw_cfg, raw_batches: List[dict], adam_eps: float, reference: str, agent_cfg,
+                 resume_cfg) -> dict:
+    """``chip_smoke.py``'s dp-main on this rank, at full width:
+      1. the raw DP update of ``raw_cfg`` (at Adam's ``adam_eps``) on ``raw_batches`` with
+         replicated moments, then from the same params with ZeRO-1:
+         the two bitwise equal (trained leaves, moments in the one-device
+         layout); rank 0 holds the replicated update against the one
+         process's update in ``reference`` (``dp_reference_rank``);
+      2. the TrainAgent of ``agent_cfg`` (ZeRO-1, data from cfg.data): its
+         run (updates timed, a save at its last update), one more update
+         on a fresh iterator's first batch; then a fresh agent of
+         ``resume_cfg`` resumes from that save and takes the same update:
+         bitwise the continued one.
+    Returns every rank's numbers (rank order) and the comparisons."""
+    import gc
+
+    from open_pi_zero_torch.agents.train import TrainAgent
+    from open_pi_zero_torch.config import pizero_config_from_dict, training_config_from_dict
+
+    dev = mesh.device
+    _exact_fp32()
+    t0 = time.perf_counter()
+    params = _full_width_params(pizero_config_from_dict(raw_cfg), int(raw_cfg.get("seed", 42)), dev)
+    labels = opt_lib.build_optimizer(training_config_from_dict(raw_cfg), params).labels
+    trained = [x for lab, x in zip(tree_leaves(labels), tree_leaves(params)) if lab != "frozen"]
+    initial = [_host(x) for x in trained]
+    raw = {}
+    for zero1 in (False, True):
+        with torch.no_grad():  # both updates start from the same params
+            for x, x0 in zip(trained, initial):
+                x.copy_(x0)
+        raw[zero1] = dp_updates(mesh, raw_cfg, raw_batches, zero1, keep=True, adam_eps=adam_eps, params=params)
+        gc.collect()
+    del params, trained, initial
+    rep, z1 = raw[False], raw[True]
+    out = {
+        "raw": {name: {k: v for k, v in r.items() if k not in ("trained", "opt")} for name, r in
+                (("replicated", rep), ("zero1", z1))},
+        "zero1_bitwise": _bitwise(rep["trained"], z1["trained"]) and _bitwise(_opt_tensors(rep["opt"]),
+                                                                               _opt_tensors(z1["opt"])),
+        "raw_s": time.perf_counter() - t0,
+    }
+    if mesh.rank == 0:
+        want = torch.load(reference, weights_only=True)
+        out["vs_reference_max_abs_diff"] = max(float((a - b).abs().max()) for a, b in zip(rep["trained"], want))
+        out["trained_leaves"] = len(want)
+    del raw, rep, z1
+    gc.collect()
+
+    t0 = time.perf_counter()
+    _reset_peak(dev)
+    agent = TrainAgent(agent_cfg, device=dev)
+    build_s = time.perf_counter() - t0
+    train_step, save = agent.train_step, agent.save
+    timed, saves = _Timed(dev), []
+
+    def timed_save(update):
+        t = time.perf_counter()
+        path = save(update)
+        saves.append(time.perf_counter() - t)
+        return path
+
+    agent.train_step = lambda state, batch: timed.step(train_step, state, batch)
+    agent.save = timed_save
+    with timed:
+        agent.run()
+    agent.train_step, agent.save = train_step, save
+    run = {"losses": timed.losses, "update_ms": timed.update_ms, "allreduce_ms": timed.allreduce_ms,
+           "launches": timed.launches,
+           "bwd_launches": timed.bwd_launches, "peak_gb": _peak_gb(dev), "save_s": saves, "build_s": build_s,
+           "moment_bytes": moment_bytes(agent.state.opt_state), "zero1": agent.zero1, "accum": agent.grad_accum}
+    _update_on_fresh_batch(agent)
+    continued = ([_host(x) for x in _trained(agent.state.params)],
+                 [_host(t) for t in _opt_tensors(agent.state.opt_state.state_dict())], agent.state.generator.get_state())
+    saved_cnt = agent.cnt_batch - agent.grad_accum
+    del agent, train_step, save
+    gc.collect()
+    _reset_peak(dev)
+
+    t0 = time.perf_counter()
+    resumed = TrainAgent(resume_cfg, device=dev)
+    run["resume_s"] = time.perf_counter() - t0
+    run["resumed_at"], run["resumed_cnt_batch"], run["saved_cnt_batch"] = resumed.state.step, resumed.cnt_batch, saved_cnt
+    _update_on_fresh_batch(resumed)
+    after = ([_host(x) for x in _trained(resumed.state.params)],
+             [_host(t) for t in _opt_tensors(resumed.state.opt_state.state_dict())], resumed.state.generator.get_state())
+    run["resume_bitwise"] = _bitwise(continued[0], after[0]) and _bitwise(continued[1], after[1]) and torch.equal(
+        continued[2], after[2])
+    run["resume_max_abs_diff"] = max(float((a.float() - b.float()).abs().max()) for a, b in
+                                     zip(continued[0] + continued[1], after[0] + after[1]))
+    run["resume_peak_gb"] = _peak_gb(dev)
+    out["agent"] = run
+    return {"ranks": _gather_objects(mesh, out), "backend": mesh.backend,
+            "card": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"}

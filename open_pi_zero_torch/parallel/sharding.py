@@ -1,6 +1,8 @@
 """Tensor-parallel sharding rules for the PiZero param tree (counterpart of
 the JAX package's ``parallel/sharding.py``): Megatron-style TP over the
-``model`` axis of the mesh.
+``model`` axis of the mesh. At the end, ZeRO-1's layout over the ``data``
+axis (``Zero1Shards``; the JAX package's is ``training/train_step.py``'s
+``zero1_state_sharding``).
 
 Rules (kernels are stored ``[(L,) in, out]``), as in JAX:
   column-parallel (split the out dim): attn q/k/v, mlp gate/up, SigLIP fc1
@@ -36,12 +38,16 @@ each rank here runs its own program on whole heads:
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import copy
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from open_pi_zero_torch.config import PiZeroConfig
+from open_pi_zero_torch.models.tree import tree_leaves
 from open_pi_zero_torch.ops.lora import is_quantized_base
+from open_pi_zero_torch.ops.quantization import DEFAULT_BLOCK
+from open_pi_zero_torch.parallel import collectives
 from open_pi_zero_torch.parallel.mesh import MODEL_AXIS, Mesh
 
 COLUMN = frozenset({"q", "k", "v", "gate", "up", "fc1"})
@@ -127,3 +133,60 @@ def shard_params_tp(params: dict, cfg: PiZeroConfig, mesh: Mesh) -> dict:
         return part.clone(memory_format=torch.contiguous_format)
 
     return walk(params, specs)
+
+
+# --------------------------------------------------------------------------- #
+# ZeRO-1: a leaf's optimizer state and average split over the data ranks
+# --------------------------------------------------------------------------- #
+
+
+def zero1_ranges(numel: int, n: int, k: int = 0) -> List[Tuple[int, int]]:
+    """Rank r's (lo, hi) flat element range of a leaf of ``numel`` elements
+    under ZeRO-1 over ``n`` data ranks: whole blocks of ``DEFAULT_BLOCK``
+    (an int8 moment's scale block is never split), the leaf's blocks dealt
+    in order as evenly as n allows, the first part to rank ``k % n``, so
+    that leaves of a block or two (norms, biases, adapters) spread over the
+    ranks. JAX splits each leaf's first axis that divides by n instead:
+    the layout differs, not the numbers (ROADMAP.md §3)."""
+    n_blocks = -(-numel // DEFAULT_BLOCK)
+    out: List[Tuple[int, int]] = [(0, 0)] * n
+    for part in range(n):
+        b0, b1 = part * n_blocks // n, (part + 1) * n_blocks // n
+        out[(part + k) % n] = (min(b0 * DEFAULT_BLOCK, numel), min(b1 * DEFAULT_BLOCK, numel))
+    return out
+
+
+def _leaves(tensors) -> list:
+    return list(tensors) if isinstance(tensors, (list, tuple)) else tree_leaves(tensors)
+
+
+class Zero1Shards:
+    """ZeRO-1's layout of a list (or tree) of contiguous tensors over the
+    data group of ``mesh``: ``ranges[i][r]`` is rank r's range of tensor
+    i (``zero1_ranges``, the i-th tensor's parts starting at rank i).
+    ``local`` takes this rank's parts as flat views; ``gather`` puts full
+    tensors back together from every rank's parts (a collective: every
+    rank of the data group calls it); ``select`` is the layout of some of
+    the tensors, their ranges kept."""
+
+    def __init__(self, tensors, mesh: Mesh):
+        self.n, self.rank, self.group = mesh.n_data, mesh.data_index, mesh.data_group
+        self.ranges = [zero1_ranges(t.numel(), self.n, k) for k, t in enumerate(_leaves(tensors))]
+
+    def select(self, indices: Sequence[int]) -> "Zero1Shards":
+        out = copy.copy(self)
+        out.ranges = [self.ranges[i] for i in indices]
+        return out
+
+    def local(self, tensors) -> List[torch.Tensor]:
+        """This rank's part of each tensor: a flat view into it."""
+        return [t.detach().view(-1)[slice(*r[self.rank])] for t, r in zip(_leaves(tensors), self.ranges)]
+
+    def gather(self, parts: Sequence[torch.Tensor], like) -> List[torch.Tensor]:
+        """Full tensors shaped as ``like``'s leaves from every rank's
+        ``parts`` (this rank's, as ``local`` lays them out)."""
+        full = [torch.empty(t.shape, dtype=p.dtype, device=p.device) for t, p in zip(_leaves(like), parts)]
+        for f, p, r in zip(full, parts, self.ranges):
+            f.view(-1)[slice(*r[self.rank])] = p
+        collectives.all_gather_ranges_(full, self.ranges, self.group)
+        return full

@@ -9,9 +9,16 @@ dispatches to the TrainAgent or the EvalAgent.
 The mode is ``--mode``, else the config's ``mode``, else eval if the
 config has an ``env`` block and train if not. The agents run on the card
 unless ``--device cpu``. ``train`` builds the port's TrainAgent, which
-reads its datasets from the config's ``data`` block. ``--distributed``
-raises NotImplementedError: training under a mesh waits in ROADMAP.md
-queue 1.
+reads its datasets from the config's ``data`` block.
+
+``--distributed`` trains on a data mesh of the processes that torchrun
+started (``parallel.init_distributed``, the counterpart of
+``jax.distributed.initialize``): one rank per process, a card each
+(NCCL) or ranks sharing cards (gloo), or CPU ranks with ``--device cpu``;
+rank 0 logs. For example, two ranks:
+
+  python -m torch.distributed.run --nproc_per_node 2 -m open_pi_zero_torch.scripts.run \\
+      --config configs/train/bridge.yaml --distributed [key=value ...]
 """
 
 from __future__ import annotations
@@ -19,8 +26,11 @@ from __future__ import annotations
 import argparse
 import logging
 
-from open_pi_zero_torch.agents.dataset import MESH_ITEM
+import torch
+
 from open_pi_zero_torch.config import load_config
+from open_pi_zero_torch.parallel.mesh import init_distributed, shutdown_distributed
+from open_pi_zero_torch.utils.monitor import MainRankFilter
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -32,7 +42,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     parser.add_argument(
         "--distributed", action="store_true",
-        help="multi-process launch (the JAX package's jax.distributed.initialize): not ported",
+        help="train on the data mesh of a torchrun launch (the JAX package's jax.distributed.initialize)",
     )
     parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     parser.add_argument("overrides", nargs="*", help="key=value config overrides")
@@ -43,9 +53,6 @@ def main(argv=None):
     """Run the config's agent. Returns the eval result, or the trained
     state."""
     args = parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(f"--distributed: a multi-process launch waits in {MESH_ITEM}")
-
     cfg = load_config(args.config, args.overrides)
 
     logging.basicConfig(
@@ -59,10 +66,21 @@ def main(argv=None):
         mode = "eval" if cfg.get("env") is not None else "train"
     log.info("mode=%s config=%s device=%s", mode, args.config, args.device)
 
+    if args.distributed:
+        if mode != "train":
+            raise ValueError("--distributed trains on a data mesh; evaluation runs in one process")
+        mesh = init_distributed(torch.device(args.device).type)
+        for handler in logging.getLogger().handlers:
+            handler.addFilter(MainRankFilter())
+        log.info("rank %d of %d on %s over %s", mesh.rank, mesh.size, mesh.device, mesh.backend)
     if mode == "train":
         from open_pi_zero_torch.agents.train import TrainAgent
 
-        return TrainAgent(cfg, device=args.device).run()
+        try:
+            return TrainAgent(cfg, device=args.device).run()
+        finally:
+            if args.distributed:
+                shutdown_distributed()
 
     from open_pi_zero_torch.agents.eval import EvalAgent
 

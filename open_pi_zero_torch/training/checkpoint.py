@@ -12,10 +12,18 @@ directory holds
                      count, the generator's state and the EMA/SWA average
   params/params.pt   the eval export (``averaging.eval_params``) that
                      serving loads (``restore_params``), when given
-  meta.json          host metadata (cnt_batch, wandb_id, and
-                     ``quant_layout_version`` when the params carry quantized
-                     bases), written last, through a temporary file and
-                     ``os.replace``: a directory without it is incomplete
+  meta.json          host metadata (cnt_batch, wandb_id, ``world_size`` when
+                     more than one process wrote it, and ``quant_layout_version``
+                     when the params carry quantized bases), written last,
+                     through a temporary file and ``os.replace``: a
+                     directory without it is incomplete
+
+A run on a data mesh saves the same one-device format, collectively (the
+JAX agent's save is a collective too): every rank calls
+``save_checkpoint``; under ZeRO-1 the moment and average slices are
+gathered; rank 0 writes, the others wait at a barrier. ``restore_checkpoint``
+reads the one-device format on every rank and keeps each rank's slices, so
+a checkpoint of n ranks resumes on m.
 
 Each ``.pt`` is also written to a temporary name and renamed, and read
 with ``torch.load(weights_only=True)``: tensors, dicts, lists and numbers
@@ -29,12 +37,15 @@ import os
 from typing import Any, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from open_pi_zero_torch import resolve_device
 from open_pi_zero_torch.models.tree import tree_map
 from open_pi_zero_torch.ops.lora import has_quantized_bases
 from open_pi_zero_torch.ops.quantization import QUANT_LAYOUT_VERSION
-from open_pi_zero_torch.training.averaging import AveragingState
+from open_pi_zero_torch.parallel.mesh import process_index, world_size
+from open_pi_zero_torch.training import averaging as avg_lib
+from open_pi_zero_torch.training.optimizer import Zero1Optimizer
 from open_pi_zero_torch.training.train_step import TrainState
 
 STATE_DIR = "state"
@@ -130,24 +141,35 @@ def save_checkpoint(
     """Write ``state`` under ``path/state/`` and, when given, ``eval_params``
     under ``path/params/`` (the same directory then feeds both resuming and
     serving), then ``meta.json`` with ``extra`` as the completion marker.
-    An existing checkpoint at ``path`` is overwritten."""
+    An existing checkpoint at ``path`` is overwritten. In a world of more
+    than one process every rank calls it: rank 0 writes the one-device
+    format (the ZeRO-1 slices gathered first, a collective), the others
+    wait at a barrier."""
     path = os.path.abspath(path)
-    os.makedirs(os.path.join(path, STATE_DIR), exist_ok=True)
+    world = world_size()
+    opt_state = state.opt_state.state_dict()  # gathered under ZeRO-1
     avg = state.avg
-    _save(
-        {
-            "params": _detached(state.params),
-            "opt_state": state.opt_state.state_dict(),
-            "step": int(state.step),
-            "generator": state.generator.get_state(),
-            "avg": None if avg is None else {"avg_params": _detached(avg.avg_params), "n_averaged": avg.n_averaged},
-        },
-        os.path.join(path, STATE_DIR, STATE_FILE),
-    )
-    if eval_params is not None:
-        os.makedirs(os.path.join(path, PARAMS_DIR), exist_ok=True)
-        _save(_detached(eval_params), os.path.join(path, PARAMS_DIR, PARAMS_FILE))
-    _write_meta(path, {**(extra or {}), **_quant_meta(state.params)})
+    avg = None if avg is None else {"avg_params": _detached(avg_lib.gathered(avg, state.params)),
+                                    "n_averaged": avg.n_averaged}
+    if process_index() == 0:
+        os.makedirs(os.path.join(path, STATE_DIR), exist_ok=True)
+        _save(
+            {
+                "params": _detached(state.params),
+                "opt_state": opt_state,
+                "step": int(state.step),
+                "generator": state.generator.get_state(),
+                "avg": avg,
+            },
+            os.path.join(path, STATE_DIR, STATE_FILE),
+        )
+        if eval_params is not None:
+            os.makedirs(os.path.join(path, PARAMS_DIR), exist_ok=True)
+            _save(_detached(eval_params), os.path.join(path, PARAMS_DIR, PARAMS_FILE))
+        ranks = {"world_size": world} if world > 1 else {}  # absent: one process
+        _write_meta(path, {**(extra or {}), **ranks, **_quant_meta(state.params)})
+    if world > 1:
+        dist.barrier()
 
 
 def restore_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, dict]:
@@ -155,7 +177,9 @@ def restore_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, dict]:
     ``init_train_state`` on the same tree and optimizer: its structure,
     shapes and dtypes must match, else ValueError), in place: the params
     and the average are copied into their tensors, which the optimizer
-    holds. Returns (state, the metadata)."""
+    holds; under ZeRO-1 (``train_step.shard_state_zero1``) each rank keeps
+    its slices of the moments and the average, whatever world size wrote
+    the checkpoint. Returns (state, the metadata)."""
     path = os.path.abspath(path)
     saved = torch.load(os.path.join(path, STATE_DIR, STATE_FILE), map_location="cpu", weights_only=True, mmap=True)
     extra = _read_meta(path)
@@ -165,14 +189,17 @@ def restore_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, dict]:
         raise ValueError(f"checkpoint {path}: EMA/SWA average {'absent' if saved['avg'] is None else 'present'}, "
                          "unlike the state restored into")
     _copy_into(state.params, saved["params"])
-    state.opt_state.load_state_dict(saved["opt_state"])
-    _check_opt_state(state.opt_state, saved["opt_state"], path)
+    opt, opt_saved = state.opt_state, saved["opt_state"]
+    if isinstance(opt, Zero1Optimizer):
+        opt, opt_saved = opt.inner, opt.shard_state_dict(opt_saved)
+    opt.load_state_dict(opt_saved)
+    _check_opt_state(opt, opt_saved, path)
     state.step = int(saved["step"])
     state.generator.set_state(saved["generator"])
     if state.avg is not None:
-        _check_tree(state.avg.avg_params, saved["avg"]["avg_params"], "avg")
-        _copy_into(state.avg.avg_params, saved["avg"]["avg_params"])
-        state.avg = AveragingState(state.avg.avg_params, int(saved["avg"]["n_averaged"]))
+        _check_tree(state.params if state.avg.shards is not None else state.avg.avg_params,
+                    saved["avg"]["avg_params"], "avg")
+        state.avg = avg_lib.load_average(state.avg, saved["avg"]["avg_params"], int(saved["avg"]["n_averaged"]))
     return state, extra
 
 

@@ -35,13 +35,16 @@ tensors, where JAX builds new trees.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from open_pi_zero_torch.config import TrainingConfig
 from open_pi_zero_torch.models.tree import tree_leaves, tree_map
 from open_pi_zero_torch.ops.lora import is_quantized_base, lora_label_fn
+from open_pi_zero_torch.ops.quantization import DEFAULT_BLOCK
+from open_pi_zero_torch.parallel import collectives
+from open_pi_zero_torch.parallel.sharding import Zero1Shards
 from open_pi_zero_torch.training import schedules
 from open_pi_zero_torch.training.quantized_adam import AdamW8bit
 
@@ -188,6 +191,11 @@ class Optimizer:
             leaf.requires_grad_(lab != "frozen")
             if lab != "frozen":
                 groups[lab].append(leaf)
+        return self.make(groups)
+
+    def make(self, groups: Dict[str, List[torch.Tensor]]) -> torch.optim.Optimizer:
+        """The AdamW state over ``groups`` (label -> tensors): one param
+        group per nonempty label, at the label's decay."""
         cfg = self.cfg
         decay = {"action": cfg.action_weight_decay, "vlm": cfg.vlm_weight_decay}
         adam = AdamW8bit if cfg.quantize_optimizer_states else torch.optim.AdamW
@@ -219,3 +227,84 @@ def build_optimizer(cfg: TrainingConfig, params: dict) -> Optimizer:
     """The optimizer for ``params``' tree under ``cfg`` (labels from
     ``param_labels``)."""
     return Optimizer(cfg, param_labels(params, cfg.train_vlm, lora=cfg.lora))
+
+
+class Zero1Optimizer:
+    """ZeRO-1 over the data group of a mesh: the AdamW state of this rank's
+    slice of every trained leaf (``parallel.sharding.Zero1Shards``: whole
+    blocks of 2048, so that int8 moments split between their scale
+    blocks). It stands where the ``torch.optim`` state stands
+    (``Optimizer.update`` drives it alike): ``step`` hands the inner
+    optimizer, built over flat views of the slices, the slices of the
+    all-reduced grads, updates the slices in place, then all-gathers the
+    updated params. The update is elementwise, so it is bitwise the
+    replicated one. ``state_dict`` gathers the state into the one-device
+    layout of ``full``'s type and ``load_state_dict`` takes that layout and
+    keeps the slices: both are collectives of the data group. ``shards``
+    is the layout of ``full``'s params, in its param groups' order."""
+
+    def __init__(self, full: torch.optim.Optimizer, optimizer: Optimizer, shards: Zero1Shards):
+        self.leaves = [p for group in full.param_groups for p in group["params"]]
+        self.shards = shards
+        self.views = self.shards.local(self.leaves)
+        view_of = {id(p): v for p, v in zip(self.leaves, self.views)}
+        self.inner = optimizer.make({g["name"]: [view_of[id(p)] for p in g["params"]] for g in full.param_groups})
+        self.blocks = isinstance(self.inner, AdamW8bit)  # state in blocks of DEFAULT_BLOCK, else per element
+        if full.state:
+            self.load_state_dict(full.state_dict())
+
+    @property
+    def param_groups(self) -> list:
+        return self.inner.param_groups
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for p in self.leaves:
+            p.grad = None
+        self.inner.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        me = self.shards.rank
+        for p, v, r in zip(self.leaves, self.views, self.shards.ranges):
+            v.grad = None if p.grad is None else p.grad.reshape(-1)[slice(*r[me])]
+        self.inner.step()
+        collectives.all_gather_ranges_([p.detach() for p in self.leaves], self.shards.ranges, self.shards.group)
+
+    def _rows(self, i: int, r: int) -> Tuple[int, int]:
+        """Rank r's rows of leaf i's state tensors: blocks or elements."""
+        lo, hi = self.shards.ranges[i][r]
+        return (lo // DEFAULT_BLOCK, -(-hi // DEFAULT_BLOCK)) if self.blocks else (lo, hi)
+
+    def shard_state_dict(self, full: dict) -> dict:
+        """This rank's slices of a state dict in the one-device layout."""
+        state = {}
+        for i, st in full["state"].items():
+            lo, hi = self._rows(i, self.shards.rank)
+            state[i] = {k: v if v.dim() == 0 else (v if self.blocks else v.reshape(-1))[lo:hi] for k, v in st.items()}
+        return {"state": state, "param_groups": full["param_groups"]}
+
+    def load_state_dict(self, full: dict) -> None:
+        self.inner.load_state_dict(self.shard_state_dict(full))
+
+    @torch.no_grad()
+    def state_dict(self) -> dict:
+        """The state in the one-device layout, on the CPU, on every rank,
+        gathered one tensor at a time."""
+        own = self.inner.state_dict()
+        n = self.shards.n
+        state = {}
+        for i, st in own["state"].items():
+            leaf, rows = self.leaves[i], [self._rows(i, r) for r in range(n)]
+            state[i] = {}
+            for k, v in st.items():
+                if v.dim() == 0:
+                    state[i][k] = v.cpu()
+                    continue
+                width = v.shape[1] if self.blocks else 1  # elements per row
+                full = torch.empty(max(hi for _, hi in rows) * width, dtype=v.dtype, device=v.device)
+                lo, hi = rows[self.shards.rank]
+                full[lo * width : hi * width] = v.reshape(-1)
+                collectives.all_gather_ranges_([full], [[(a * width, b * width) for a, b in rows]], self.shards.group)
+                shape = (-1, *v.shape[1:]) if self.blocks else leaf.shape
+                state[i][k] = full.view(shape).cpu()
+        return {"state": state, "param_groups": own["param_groups"]}

@@ -232,10 +232,33 @@ def test_batches_have_the_jax_agents_structure(data_dir, tmp_path):
 
 
 def test_iterator_refuses_a_world_of_processes(data_dir, monkeypatch):
+    """A world of 2 processes (torchrun's RANK and WORLD_SIZE): process i
+    reads every 2nd frame of the stream from i, JAX's ``ds.shard(2, i)``
+    before the batch. The shards are disjoint and together are the first
+    frames of the whole stream, each frame bitwise as the unsharded
+    iterator makes it (its draws come from its index in the stream);
+    ``shard_per_process=False`` reads the whole stream."""
     dataset = t_dataset.RLDSInterleavedDataset(data_config(data_dir), train=True)
+    whole = [dict(flat(b)) for b in batches(dataset, 4, batch_size=2)]
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="training under a mesh"):
-        dataset.iterator(4)
+    shards = []
+    for rank in (0, 1):
+        monkeypatch.setenv("RANK", str(rank))
+        shards.append([dict(flat(b)) for b in batches(dataset, 2, batch_size=2)])
+    it = dataset.iterator(2, shard_per_process=False)
+    try:
+        unsharded = dict(flat(next(it)))
+    finally:
+        it.close()
+    for name in whole[0]:
+        frames = np.concatenate([b[name] for b in whole])  # frames 0..7 of the stream
+        for rank in (0, 1):
+            got = np.concatenate([b[name] for b in shards[rank]])
+            if frames.dtype == object:
+                assert list(got) == list(frames[rank::2]), name
+            else:
+                np.testing.assert_array_equal(got, frames[rank::2], err_msg=name)
+        np.testing.assert_array_equal(unsharded[name], whole[0][name], err_msg=name)
 
 
 def test_oxe_simple_sampling_follows_the_balanced_weights(data_dir):

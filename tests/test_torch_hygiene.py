@@ -57,6 +57,11 @@ def test_import_leaves_jax_and_yaml_out():
                  "data.obs_transforms", "data.pipeline", "data.streams", "data.goal_relabeling",
                  "data.task_augmentation", "agents.dataset"):
         assert f"open_pi_zero_torch.{name}" in modules
+    # and data-parallel training's (the mesh, the collectives, ZeRO-1's
+    # layout, the rank programs, the multi-process dryrun)
+    for name in ("parallel.mesh", "parallel.collectives", "parallel.sharding", "parallel.ranks",
+                 "scripts.dryrun_multiprocess"):
+        assert f"open_pi_zero_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

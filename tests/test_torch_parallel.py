@@ -56,6 +56,13 @@ from open_pi_zero_tpu.parallel.sharding import tp_param_specs as j_tp_param_spec
 from tests.test_torch_models import example_inputs, torch_cfg
 
 TIMEOUT_S = 120  # every collective of a world; a world takes a few seconds
+# what a rank of data-parallel training imports (torchrun-launched ranks:
+# tests/test_torch_dp_agent.py)
+DP_MODULES = (
+    "open_pi_zero_torch.training.train_step", "open_pi_zero_torch.training.checkpoint",
+    "open_pi_zero_torch.agents.train", "open_pi_zero_torch.scripts.run",
+    "open_pi_zero_torch.scripts.dryrun_multiprocess",
+)
 
 ATTENTION_CASES = {
     # (B, Lq, Lkv, Hq, Hkv, D) of tests/test_pallas_attention.py's sharded tests
@@ -101,7 +108,7 @@ def world_2x2(tiny):
     tiny model's chunk with injected and with drawn noise."""
     cases = [_attention_case(name, seed) for seed, name in enumerate(ATTENTION_CASES)]
     calls = [
-        (ranks.attention_rank, (cases,)), *_infer_calls(tiny), (ranks.foreign_modules_rank, ()),
+        (ranks.attention_rank, (cases,)), *_infer_calls(tiny), (ranks.foreign_modules_rank, (DP_MODULES,)),
     ]
     attention, *infer, foreign = run_ranks(
         ranks.sequence, 2, 2, calls, device="cpu", timeout_s=TIMEOUT_S

@@ -9,11 +9,12 @@ those of an EvalAgent built in this process on the same params (both load
 through ``scripts/serve.load_params``; the noise comes from CPU
 generators seeded alike). ``train`` mode without data raises before any
 params are built (tests/test_torch_data_pipeline.py trains from
-``cfg.data``), and ``--distributed`` raises the error that names its
-ROADMAP item.
+``cfg.data``), and ``--distributed`` joins a torchrun world before the
+agent (tests/test_torch_dp_agent.py trains on one).
 """
 
 import os
+import socket
 
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ import torch
 from open_pi_zero_torch.agents import eval as t_eval
 from open_pi_zero_torch.config import load_config, pizero_config_from_dict, training_config_from_dict
 from open_pi_zero_torch.models import pizero
+from open_pi_zero_torch.parallel.mesh import get_mesh
 from open_pi_zero_torch.scripts import run, serve, try_checkpoint_in_simpler
 from open_pi_zero_torch.training import checkpoint as ckpt_lib
 from open_pi_zero_torch.training import optimizer as opt_lib
@@ -31,6 +33,12 @@ from tests.test_torch_eval import write_statistics
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIMPLER_LITE = os.path.join(ROOT, "configs/eval/simpler_lite.yaml")
 TRAIN_BRIDGE = os.path.join(ROOT, "configs/train/bridge.yaml")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 @pytest.fixture
@@ -100,8 +108,15 @@ def test_run_cli_mode_detection_and_refusals(demo_dir, monkeypatch):
     with pytest.raises(ValueError, match="no data"):
         run.main(["--config", SIMPLER_LITE, "--mode", "train", "--device", "cpu"])
     assert built == []
-    with pytest.raises(NotImplementedError, match="training under a mesh"):
-        run.main(["--config", SIMPLER_LITE, "--distributed", "--device", "cpu"])
+    # --distributed joins the world torchrun describes (here a world of one
+    # on the CPU) and trains on its mesh: the agent then refuses the eval
+    # config's missing data, and the process group is left on the way out
+    port = _free_port()
+    for key, value in dict(RANK=0, LOCAL_RANK=0, WORLD_SIZE=1, MASTER_ADDR="localhost", MASTER_PORT=port).items():
+        monkeypatch.setenv(key, str(value))
+    with pytest.raises(ValueError, match="no data"):
+        run.main(["--config", SIMPLER_LITE, "--mode", "train", "--distributed", "--device", "cpu"])
+    assert not torch.distributed.is_initialized() and get_mesh() is None
     # an orbax directory (neither .pt nor the port's format) names its queue item
     orbax = demo_dir / "orbax_ckpt"
     orbax.mkdir()

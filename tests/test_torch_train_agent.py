@@ -150,9 +150,15 @@ def test_agent_refuses_what_is_not_ported(tmp_path, monkeypatch):
     cfg, _ = tiny_config(tmp_path, overrides=["global_batch_size=5"])
     with pytest.raises(ValueError, match="not divisible"):
         t_agent.TrainAgent(cfg, dataset=Frames(0), device="cpu")
+    # a world of 2 processes: the batch math counts its ranks (6 frames do
+    # not split into 2 per device x 2 ranks), and a world that did not join
+    # its process group is told to (tests/test_torch_dp_agent.py trains on one)
     monkeypatch.setenv("WORLD_SIZE", "2")
+    cfg, _ = tiny_config(tmp_path, overrides=["global_batch_size=6"])
+    with pytest.raises(ValueError, match="per_device 2 x devices 2"):
+        t_agent.TrainAgent(cfg, dataset=Frames(0), device="cpu")
     cfg, _ = tiny_config(tmp_path)
-    with pytest.raises(NotImplementedError, match="training under a mesh"):
+    with pytest.raises(RuntimeError, match="init_distributed"):
         t_agent.TrainAgent(cfg, dataset=Frames(0), device="cpu")
 
 
