@@ -5,10 +5,12 @@
 
 Phases, each of which raises on failure:
   1. build   — nvcc builds csrc/mot_attention.cu (K1) and
-               csrc/mot_attention_bwd.cu (K1-vjp's backward kernels) into
-               build/torch_kernels/, one nvcc per source, both at once;
-               prints each kernel instance's registers and spills and the
-               card's name and power limit as nvidia-smi reports them
+               csrc/mot_attention_bwd.cu (K1-vjp's backward kernels), and
+               the host C++ compiler csrc/jpeg_codec.cc (the data
+               pipeline's JPEG codec), into build/torch_kernels/, one
+               compiler per source, all at once; prints each kernel
+               instance's registers and spills and the card's name and
+               power limit as nvidia-smi reports them
   2. kernels — the launch floor: an empty kernel's device time per
                launch and the interval between back-to-back launches. Then
                the MoT-attention kernel against its plain version on the
@@ -163,10 +165,20 @@ Phases, each of which raises on failure:
                `backward_ms` (the backward kernels' device time by symbol),
                `recompute_ms`, `plain_ms`, `library_ms` and `bound_ms` of
                the mot_attention_vjp entry
-  8b. train-agent — a bridge-shaped RLDS dataset written by the port's
-               writer (8 episodes of 34-42 steps, 224² PNG image_0 of a
-               smooth moving scene, 7-dim state and action, an
-               instruction, is_first; 2 shards), then the launcher
+  8a. codec  — the JPEG codec built in phase 1, on the card's host:
+               bitwise the committed fixture of TensorFlow's encodes and
+               decodes (tests/fixtures/jpeg_codec.npz: 224² and 256² 4:2:0
+               at quality 95, 4:4:4 at 75, gray, a 37x53 noise frame); the
+               host ms per decode and per encode of a 224² and a 256² frame
+               (median of 50) and the 224² decodes' frames/s on one thread
+               per core
+  8b. train-agent — the real data workflow: a bridge-shaped RLDS dataset
+               written by the port's writer as raw frames (8 episodes of
+               34-42 steps, 256² JPEG image_0 of a smooth moving scene, the
+               size of raw OXE bridge frames; 7-dim state and action, an
+               instruction, is_first; 2 shards), resized to 224² JPEG by
+               the port's scripts/modify_rlds_dataset (its seconds and
+               frames/s), then the launcher
                (scripts/run.main --mode train) on configs/train/bridge.yaml
                in its QLoRA recipe (quantize, lora, remat; B=16 x 2, 3
                updates, validation at 3, a save at the end) with
@@ -182,12 +194,14 @@ Phases, each of which raises on failure:
                time and each update's wait for its batch, peak memory, the
                tree's, optimizer state's and checkpoint's bytes, save and
                restore times; the pipeline alone (a fresh iterator's first
-               batch, then frames/s through decode, resize, augment and
-               batching). A second agent with resume_checkpoint_path=auto
+               batch, then frames/s through JPEG decode, resize, augment and
+               batching), and the same on a PNG copy of the dataset's
+               pixels. A second agent with resume_checkpoint_path=auto
                (its datasets from cfg.data too) takes ckpt_3 over a partial
                ckpt_99, restores step 3 and cnt_batch, and its update 4
                equals the first agent's on the same batch, the first of a
-               fresh iterator (bitwise, or within 1e-6, said which).
+               fresh iterator (bitwise, or within 1e-6, said which); its
+               save of ckpt_4 is skipped (the first agent's save is timed).
                scripts/serve.load_params serves ckpt_3 (merge, NF4 decode,
                production layout): one bf16 chunk, finite, in the clip,
                within the drift limit (mean L1 5e-3) of the merged float
@@ -245,7 +259,9 @@ Phases, each of which raises on failure:
                task, the base on both; rates printed, not asserted); the
                update time printed and one more update profiled
   9. shard-kernel — K1-shard (the kernel on one rank's shard under a
-               mesh) in 2 spawned ranks, mesh (data=1, model=2): each rank's
+               mesh) in 2 spawned ranks, mesh (data=1, model=2), the world
+               that then runs phase 11 (phase 10 runs after both): each
+               rank's
                shard against the plain version on the whole inputs sliced
                to it, at the main path's prefill and Euler shapes at B=1
                and B=2, a fully masked row, bf16 (2e-2) and fp32 (1e-4);
@@ -273,16 +289,16 @@ Phases, each of which raises on failure:
                bridge.yaml's QLoRA recipe at full width, both towers cut to
                4 layers (DP_LAYERS; --dp-layers 0 keeps the recipe's 18 and
                27), on 2 ranks, B = 16 per rank x accumulation 2 (a global
-               batch of 64), phase 8b's dataset written again. First one
-               process alone takes the update of one injected global batch
-               (B = 32 x 2, the recipe's first update at the full lr, Adam
-               eps 1e-3 as phase 7); then each rank takes the same update
-               on its rows with replicated moments and, from the same
-               params, with ZeRO-1: the two bitwise equal on every rank
-               (trained leaves, int8 moments and scales gathered), ZeRO-1's
-               moment bytes per rank beside the replicated ones, rank 0's
-               against the one process (loss and grad norm 1e-3 relative,
-               params 1e-6), every rank's K1 and backward launches per
+               batch of 64), phase 8b's dataset written again, at 224².
+               First one process alone takes the update of one injected
+               global batch (B = 32 x 2, the recipe's first update at the
+               full lr, Adam eps 1e-3 as phase 7); then each rank takes the
+               same update on its rows with replicated moments and, from
+               the same params, with ZeRO-1: the two bitwise equal on every
+               rank (trained leaves, int8 moments and scales gathered),
+               ZeRO-1's moment bytes per rank beside the replicated ones,
+               rank 0's against the one process (loss and grad norm 1e-3
+               relative, params 1e-6), every rank's K1 and backward launches per
                update those of one card's update (2 x 2 L each: 16 at
                depth 4). Then the TrainAgent on the 2 ranks (zero1, data
                from cfg.data, each rank its shard): 2 updates and a
@@ -326,8 +342,9 @@ from open_pi_zero_torch import config as cfg_lib
 from open_pi_zero_torch import serving
 from open_pi_zero_torch.agents import env_adapter
 from open_pi_zero_torch.agents.eval import EvalAgent
+from open_pi_zero_torch.agents.dataset import RLDSInterleavedDataset
 from open_pi_zero_torch.agents.train import TrainAgent
-from open_pi_zero_torch.data import images
+from open_pi_zero_torch.data import images, jpeg
 from open_pi_zero_torch.data import rlds as data_rlds
 from open_pi_zero_torch.envs import make_env
 from open_pi_zero_torch.envs.reach_env import ReachEnv
@@ -342,7 +359,8 @@ from open_pi_zero_torch.ops.attention import mot_attention_ref
 from open_pi_zero_torch.ops.masks import MASK_NEG
 from open_pi_zero_torch.parallel import ranks, run_ranks
 from open_pi_zero_torch.processing import VLAProcessor
-from open_pi_zero_torch.scripts import demo_closed_loop, demo_qlora_finetune, e2e_tier_sweep, run, serve
+from open_pi_zero_torch.scripts import (demo_closed_loop, demo_qlora_finetune, e2e_tier_sweep, modify_rlds_dataset,
+                                        run, serve)
 from open_pi_zero_torch.training import checkpoint as ckpt_lib
 from open_pi_zero_torch.training import optimizer as opt_lib
 from open_pi_zero_torch.training import seeds
@@ -2175,7 +2193,11 @@ DATA_OVERRIDES = [
 ]
 DEMO_EPISODES = 8
 DEMO_STEPS = (34, 43)  # steps per episode, drawn in [34, 43): bridge's typical 38
+RAW_SIZE = 256  # phase 8b's raw frames: the size of raw OXE bridge frames
+PREPROCESS_WORKERS = 8  # modify_rlds_dataset's threads in phase 8b
 PIPELINE_BATCHES = 8  # batches of 16 timed through the pipeline alone, after the first
+CODEC_FIXTURE = "tests/fixtures/jpeg_codec.npz"  # TensorFlow's encodes and decodes (tests/make_jpeg_fixture.py)
+CODEC_TIMED = 50  # calls timed per frame and direction in phase 8a
 
 
 def qlora_config(cfg):
@@ -2214,7 +2236,8 @@ class SyntheticFrames:
 def demo_frames(rng, steps: int, size: int = 224) -> list:
     """One episode's camera frames: a fixed scene of slow colour gradients
     and a blob (the arm's stand-in) moving across it, with a little sensor
-    noise: smooth, so that PNG compresses them as it does camera frames."""
+    noise: smooth, so that JPEG and PNG compress them as they do camera
+    frames."""
     y, x = np.mgrid[0:size, 0:size].astype(np.float32)
     phase = rng.uniform(0, 6, 3)
     scene = np.stack([110 + 60 * np.sin(x / (35 + 10 * c) + phase[c]) * np.cos(y / (45 + 5 * c) - phase[c])
@@ -2230,29 +2253,30 @@ def demo_frames(rng, steps: int, size: int = 224) -> list:
     return frames
 
 
-def write_demo_dataset(root: str) -> dict:
+def write_demo_dataset(root: str, size: int = 224) -> dict:
     """A bridge-shaped RLDS dataset written by the port's writer under
-    ``root/bridge_dataset``: DEMO_EPISODES episodes, 224² PNG ``image_0``,
-    7-dim ``state`` (a smooth path) and ``action`` (its deltas, then a
-    gripper of 0, 1 or in between), an instruction, ``is_first``; two
-    shards. Returns its sizes and the seconds it took."""
+    ``root/bridge_dataset``: DEMO_EPISODES episodes, ``size``² JPEG
+    ``image_0`` (quality 95, 4:2:0, as OXE stores frames), 7-dim ``state``
+    (a smooth path) and ``action`` (its deltas, then a gripper of 0, 1 or
+    in between), an instruction, ``is_first``; two shards. Returns its
+    sizes and the seconds it took."""
     t0 = time.time()
     rng = np.random.default_rng(11)
     L = data_rlds.LeafSpec
-    leaves = [L("steps/observation/image_0", "uint8", (224, 224, 3), "image", True, "png"),
+    leaves = [L("steps/observation/image_0", "uint8", (size, size, 3), "image", True, "jpeg"),
               L("steps/observation/state", "float32", (7,), "tensor", True),
               L("steps/action", "float32", (7,), "tensor", True),
               L("steps/language_instruction", "string", (), "text", True),
               L("steps/is_first", "bool", (), "tensor", True)]
     episodes, frames = [], 0
-    with ThreadPoolExecutor(8) as pool:  # zlib deflates outside the GIL
+    with ThreadPoolExecutor(8) as pool:  # the codec encodes outside the GIL
         for i in range(DEMO_EPISODES):
             steps = int(rng.integers(*DEMO_STEPS))
             state = np.cumsum(rng.normal(0, 0.02, size=(steps, 7)), axis=0).astype(np.float32)
             gripper = rng.choice([0.0, 1.0, 0.5], size=(steps, 1), p=[0.45, 0.45, 0.1])
             action = np.concatenate([np.diff(state[:, :6], axis=0, append=state[-1:, :6]), gripper], 1)
             episodes.append({"steps": {
-                "observation": {"image_0": list(pool.map(images.encode_png, demo_frames(rng, steps))),
+                "observation": {"image_0": list(pool.map(jpeg.encode_jpeg, demo_frames(rng, steps, size))),
                                 "state": state},
                 "action": action.astype(np.float32),
                 "language_instruction": [INSTRUCTIONS[i % len(INSTRUCTIONS)]] * steps,
@@ -2260,9 +2284,112 @@ def write_demo_dataset(root: str) -> dict:
             }})
             frames += steps
     data_rlds.write_rlds_dataset(os.path.join(root, "bridge_dataset"), "bridge_dataset", episodes, leaves, shards=2)
-    png = [len(b) for ep in episodes for b in ep["steps"]["observation"]["image_0"]]
-    return {"episodes": DEMO_EPISODES, "frames": frames, "png_kb_mean": sum(png) / len(png) / 1e3,
+    encoded = [len(b) for ep in episodes for b in ep["steps"]["observation"]["image_0"]]
+    return {"episodes": DEMO_EPISODES, "frames": frames, "size": size,
+            "jpeg_kb_mean": sum(encoded) / len(encoded) / 1e3,
             "bytes": dir_bytes(os.path.join(root, "bridge_dataset")), "write_s": time.time() - t0}
+
+
+def preprocess_demo_dataset(src_root: str, dst_root: str) -> dict:
+    """The real data workflow's offline step: the port's
+    ``scripts/modify_rlds_dataset`` resizes ``src_root``'s raw
+    ``RAW_SIZE``² JPEG frames to 224² JPEG under ``dst_root`` (decode,
+    Lanczos3, quality-95 encode, PREPROCESS_WORKERS threads). Checks the
+    output's spec and counts; returns its sizes and seconds."""
+    t0 = time.time()
+    src, dst = os.path.join(src_root, "bridge_dataset"), os.path.join(dst_root, "bridge_dataset")
+    modify_rlds_dataset.main(["--src", src, "--dst", dst, "--size", "224", "224",
+                              "--workers", str(PREPROCESS_WORKERS)])
+    seconds = time.time() - t0
+    spec = data_rlds.load_spec(dst)
+    image = [l for l in spec.leaves if l.kind == "image"]
+    episodes = list(data_rlds.episode_dataset(dst))
+    frames = [b for ep in episodes for b in ep["steps"]["observation"]["image_0"]]
+    if [(l.shape, l.encoding_format) for l in image] != [((224, 224, 3), "jpeg")] or len(episodes) != DEMO_EPISODES:
+        raise AssertionError(f"preprocessed dataset: image leaves {image}, {len(episodes)} episodes")
+    first = jpeg.decode_jpeg(frames[0])
+    if first.shape != (224, 224, 3):
+        raise AssertionError(f"a preprocessed frame decodes to {first.shape}")
+    return {"episodes": len(episodes), "frames": len(frames), "size": 224, "seconds": seconds,
+            "frames_per_s": len(frames) / seconds, "jpeg_kb_mean": sum(map(len, frames)) / len(frames) / 1e3,
+            "bytes": dir_bytes(dst)}
+
+
+def png_copy(src_root: str, dst_root: str) -> None:
+    """``src_root``'s dataset with every frame decoded and written again as
+    PNG: the same pixels, so that the pipeline's time on the two differs by
+    the decoder alone."""
+    src, dst = os.path.join(src_root, "bridge_dataset"), os.path.join(dst_root, "bridge_dataset")
+    spec = data_rlds.load_spec(src)
+    leaves = [dataclasses.replace(l, encoding_format="png") if l.kind == "image" else l for l in spec.leaves]
+    episodes = list(data_rlds.episode_dataset(src))
+    with ThreadPoolExecutor(8) as pool:
+        for ep in episodes:
+            obs = ep["steps"]["observation"]
+            obs["image_0"] = list(pool.map(lambda b: images.encode_png(jpeg.decode_jpeg(b)), obs["image_0"]))
+    data_rlds.write_rlds_dataset(dst, spec.name, episodes, leaves, shards=2)
+
+
+def median_call_ms(fn, calls: int = CODEC_TIMED) -> float:
+    """The median host ms of ``calls`` calls of ``fn``, after one more."""
+    fn()
+    times = []
+    for _ in range(calls):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def jpeg_fixture_cases() -> list:
+    """[(name, frame, jpeg bytes, TensorFlow's decode, quality,
+    chroma_downsampling)] of CODEC_FIXTURE, in the layout that
+    tests/make_jpeg_fixture.py writes."""
+    with np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), CODEC_FIXTURE)) as z:
+        cases = []
+        for name in [k[len("jpeg_"):] for k in z.files if k.startswith("jpeg_")]:
+            source = str(z[f"frame_of_{name}"]) if f"frame_of_{name}" in z.files else name
+            quality, chroma = (int(v) for v in z[f"settings_{name}"])
+            cases.append((name, z[f"frame_{source}"], z[f"jpeg_{name}"].tobytes(), z[f"decoded_{name}"], quality,
+                          bool(chroma)))
+    return cases
+
+
+def check_codec(info: str) -> dict:
+    """Phase 8a: the port's JPEG codec, built on this host by its C++
+    compiler (phase 1), against the committed fixture of TensorFlow's
+    encodes and decodes, bitwise; then the host ms per decode and per
+    encode of a 224² and a 256² frame at the pipeline's settings (quality
+    95, 4:2:0), one call at a time, and the frames/s of decodes of the
+    224² frame on one thread per core (the codec runs outside the GIL)."""
+    cases = jpeg_fixture_cases()
+    for name, frame, data, decoded, quality, chroma in cases:
+        encoded = jpeg.encode_jpeg(frame, quality=quality, chroma_downsampling=chroma)
+        got = jpeg.decode_jpeg(data)
+        if encoded != data or got.shape != decoded.shape or not np.array_equal(got, decoded):
+            raise AssertionError(f"codec vs the fixture's {name}: encode {'equal' if encoded == data else 'differs'}, "
+                                 f"decode {got.shape} vs {decoded.shape}")
+    by_name = {c[0]: c for c in cases}
+    timed = {}
+    for name in ("rgb224", "rgb256"):
+        _, frame, data, _, _, _ = by_name[name]
+        timed[name] = {"decode_ms": median_call_ms(lambda: jpeg.decode_jpeg(data)),
+                       "encode_ms": median_call_ms(lambda: jpeg.encode_jpeg(frame)), "jpeg_bytes": len(data)}
+    threads = os.cpu_count() or 1
+    data = by_name["rgb224"][2]
+    with ThreadPoolExecutor(threads) as pool:
+        list(pool.map(jpeg.decode_jpeg, [data] * threads))
+        t = time.perf_counter()
+        list(pool.map(jpeg.decode_jpeg, [data] * (threads * CODEC_TIMED)))
+        threaded = threads * CODEC_TIMED / (time.perf_counter() - t)
+    result = {"fixture_cases": [c[0] for c in cases], "bitwise": True, "timed": timed,
+              "threads": threads, "decode_frames_per_s_threads": threaded}
+    log(f"codec: csrc/jpeg_codec.cc built by {os.path.basename(_build.host_compiler())}, bitwise the fixture's "
+        f"TensorFlow encodes and decodes ({', '.join(result['fixture_cases'])}); per 224² frame decode "
+        f"{timed['rgb224']['decode_ms']:.3f} ms, encode {timed['rgb224']['encode_ms']:.3f} ms; per 256² frame decode "
+        f"{timed['rgb256']['decode_ms']:.3f} ms, encode {timed['rgb256']['encode_ms']:.3f} ms (median of "
+        f"{CODEC_TIMED}); 224² decodes on {threads} threads {threaded:.1f} frames/s, on {info}")
+    return result
 
 
 class TimedIterator:
@@ -2482,15 +2609,22 @@ def check_train_agent(dev, info: str) -> tuple:
 
 
 def check_agent_run(dev, info: str, tmp: str) -> dict:
-    """The dataset written (``write_demo_dataset``); the launcher
-    (``scripts/run.main --mode train``) builds the TrainAgent, whose
-    datasets come from cfg.data, and runs its 3 updates, the validation and
-    the save, each update's batch wait timed beside it; the pipeline alone;
-    a second agent resuming from ``auto``; serving from the checkpoint; one
-    profiled update."""
-    data = write_demo_dataset(os.path.join(tmp, "data"))
-    log(f"train-agent: wrote {data['episodes']} bridge-shaped episodes, {data['frames']} frames of 224² PNG "
-        f"({data['png_kb_mean']:.1f} kB each, {data['bytes'] / 1e6:.1f} MB in 2 shards) in {data['write_s']:.1f} s")
+    """The raw dataset written (``write_demo_dataset``, RAW_SIZE² JPEG) and
+    resized to 224² JPEG by ``scripts/modify_rlds_dataset``
+    (``preprocess_demo_dataset``); the launcher (``scripts/run.main --mode
+    train``) builds the TrainAgent, whose datasets come from cfg.data, and
+    runs its 3 updates, the validation and the save, each update's batch
+    wait timed beside it; the pipeline alone, on the JPEG dataset and on a
+    PNG copy of its pixels; a second agent resuming from ``auto``; serving
+    from the checkpoint; one profiled update."""
+    raw = write_demo_dataset(os.path.join(tmp, "raw"), size=RAW_SIZE)
+    log(f"train-agent: wrote {raw['episodes']} bridge-shaped episodes, {raw['frames']} frames of {RAW_SIZE}² JPEG "
+        f"({raw['jpeg_kb_mean']:.1f} kB each, {raw['bytes'] / 1e6:.1f} MB in 2 shards) in {raw['write_s']:.1f} s")
+    data = preprocess_demo_dataset(os.path.join(tmp, "raw"), os.path.join(tmp, "data"))
+    data["raw"] = raw
+    log(f"train-agent: scripts/modify_rlds_dataset resized them to 224² JPEG ({data['jpeg_kb_mean']:.1f} kB each, "
+        f"{data['bytes'] / 1e6:.1f} MB) in {data['seconds']:.2f} s, {data['frames_per_s']:.1f} frames/s on "
+        f"{PREPROCESS_WORKERS} threads")
     overrides = AGENT_OVERRIDES + DATA_OVERRIDES + [
         f"log_dir={tmp}", f"pretrained_model_path={tmp}/no_tokenizer", f"data.train.data_path={os.path.join(tmp, 'data')}",
     ]
@@ -2603,10 +2737,14 @@ def check_agent_run(dev, info: str, tmp: str) -> dict:
         f"frames from the iterator {[round(f, 3) for f in timed['fetch_ms']]} ms, beside the update "
         f"{[round(u, 3) for u in timed['update_ms']]} ms (the first wait fills the shuffle buffer)")
     alone = pipeline_alone(agent.dataset, agent.step_batch_size)
+    png_copy(os.path.join(tmp, "data"), os.path.join(tmp, "data_png"))
+    png_cfg = cfg_lib.ConfigDict({**cfg.data.train, "data_path": os.path.join(tmp, "data_png")})
+    alone["png"] = pipeline_alone(RLDSInterleavedDataset(png_cfg, train=True, seed=agent.seed), agent.step_batch_size)
     log(f"train-agent: the pipeline alone on this host: first batch of a fresh iterator in "
         f"{alone['first_batch_s']:.2f} s (1000 encoded frames read into the shuffle buffer), then "
-        f"{alone['frames_per_s']:.1f} frames/s through decode, resize, augment and batching "
-        f"({PIPELINE_BATCHES} batches of {agent.step_batch_size}), on {info}")
+        f"{alone['frames_per_s']:.1f} frames/s through JPEG decode, resize, augment and batching "
+        f"({PIPELINE_BATCHES} batches of {agent.step_batch_size}); on a PNG copy of the same pixels "
+        f"{alone['png']['first_batch_s']:.2f} s, then {alone['png']['frames_per_s']:.1f} frames/s; on {info}")
 
     # the resume: a partial ckpt_99 beside ckpt_3 (a save cut short: no
     # meta.json); the resumed agent's datasets come from cfg.data as well,
@@ -2617,7 +2755,13 @@ def check_agent_run(dev, info: str, tmp: str) -> dict:
     if resumed.state.step != 3 or resumed.cnt_batch != agent.cnt_batch:
         raise AssertionError(f"resumed at step {resumed.state.step}, cnt_batch {resumed.cnt_batch}; want 3, {agent.cnt_batch}")
     resumed_opt_gb = nbytes(opt_tensors(resumed.state)) / 1e9  # as restored, before its update
-    resumed.run()  # one update on the dataset's first batches, then ckpt_4
+    # one update on the dataset's first batches; its save of ckpt_4 (a
+    # second 10.7 GB write, timed by the first agent's) is skipped
+    skipped_saves = []
+    resumed.save = skipped_saves.append
+    resumed.run()
+    if skipped_saves != [4]:
+        raise AssertionError(f"the resumed agent saved at {skipped_saves}, want [4]")
     it = agent.dataset.iterator(agent.step_batch_size)
     try:
         batch = agent.next_update_batch(it)
@@ -3245,10 +3389,10 @@ def shard_cases() -> list:
     return cases
 
 
-def check_shard_kernel() -> dict:
-    """Phase 9: K1-shard in 2 ranks on the card against the plain version;
-    the training-shape VJP launches both backward kernels in each rank."""
-    rows = run_ranks(ranks.attention_rank, 1, 2, shard_cases(), device="cuda", timeout_s=RANK_TIMEOUT_S)
+def check_shard_kernel(rows: list) -> dict:
+    """Phase 9: K1-shard in 2 ranks on the card against the plain version
+    (``rows``: ``ranks.attention_rank`` on ``shard_cases()``); the
+    training-shape VJP launches both backward kernels in each rank."""
     errs = {}
     for row in rows:
         if row["bwd_launches"] != (2 if row["name"] == "train float32" else 0):
@@ -3287,13 +3431,19 @@ def check_shard_parity() -> dict:
     return {"launches_per_rank": got["launches"], "max_abs_diff": err}
 
 
-def check_shard_main(dev) -> dict:
-    """Phase 11: full-width fp32 TP=2 inference in 2 ranks."""
+def shard_main_args() -> tuple:
+    """Phase 11's arguments of ``ranks.main_path_rank``: full width, fp32
+    params from seed 0, B = 1, 5 timed chunks."""
     cfg = cfg_lib.PiZeroConfig()
     rng = np.random.default_rng(11)
     batch = example_batch(cfg, 1, rng)
     a0 = rng.normal(size=(1, cfg.horizon_steps, cfg.action_dim)).astype(np.float32)
-    got = run_ranks(ranks.main_path_rank, 1, 2, cfg, 0, batch, a0, 5, device="cuda", timeout_s=RANK_TIMEOUT_S)
+    return cfg, 0, batch, a0, 5
+
+
+def check_shard_main(cfg, got: dict) -> dict:
+    """Phase 11: full-width fp32 TP=2 inference in 2 ranks (``got``:
+    ``ranks.main_path_rank`` on ``shard_main_args()``)."""
     L = cfg.joint.num_hidden_layers
     expected = L + L * cfg.num_inference_steps
     for i, r in enumerate(got["ranks"]):
@@ -3600,6 +3750,10 @@ def single_card_phases(dev, info: str) -> list:
     del train_calls
     torch.cuda.empty_cache()
 
+    t0 = time.time()
+    check_codec(info)
+    log(f"phase codec ok in {time.time() - t0:.1f} s")
+
     agent, evaluated = check_train_agent(dev, info)  # phases 8b and 8d
     torch.cuda.empty_cache()
 
@@ -3687,20 +3841,22 @@ def single_card_phases(dev, info: str) -> list:
 
 
 def mesh_phases(dev, info: str, dp_layers: int = DP_LAYERS) -> dict:
-    """Phases 9-11 in spawned ranks; returns the K1-shard entry of the
-    kernels line."""
+    """Phases 9-12 in spawned ranks; returns the K1-shard entry of the
+    kernels line. Phases 9 and 11 share one world of 2 ranks (mesh (1,
+    2)), one rank program after the other, so that its processes start
+    once."""
     t0 = time.time()
-    shard_errs = check_shard_kernel()
+    main_args = shard_main_args()
+    attention_rows, main_path = run_ranks(
+        ranks.sequence, 1, 2, [(ranks.attention_rank, (shard_cases(),)), (ranks.main_path_rank, main_args)],
+        device="cuda", timeout_s=RANK_TIMEOUT_S)
+    log(f"shard-kernel and shard-main: their world of 2 ranks ran both in {time.time() - t0:.1f} s")
+    shard_errs = check_shard_kernel(attention_rows)
     log("shard-kernel, 2 ranks, mesh (1, 2), max|diff| vs the plain version: " + json.dumps(shard_errs))
     log(f"phase shard-kernel ok in {time.time() - t0:.1f} s")
 
     t0 = time.time()
-    shard_parity = check_shard_parity()
-    log(f"shard-parity: bridge widths depth 2 fp32 B=4, mesh (2, 2) on the card vs CPU: "
-        f"{json.dumps(shard_parity)}, {time.time() - t0:.1f} s")
-
-    t0 = time.time()
-    shard = check_shard_main(dev)
+    shard = check_shard_main(main_args[0], main_path)
     log("shard-main: " + json.dumps(shard))
     log(f"shard-main: full-width fp32 TP=2, backend {shard['backend']}, ranks on "
         f"{[r['device'] for r in shard['ranks']]} ({shard['card']}); warm TP chunk "
@@ -3708,7 +3864,12 @@ def mesh_phases(dev, info: str, dp_layers: int = DP_LAYERS) -> dict:
         f"transport when the ranks share a card), unsharded fp32 chunk on one rank "
         f"{statistics.median(shard['unsharded_chunk_ms']):.3f} ms (median of 3); peak memory per rank "
         f"{[round(r['peak_mem_gb'], 3) for r in shard['ranks']]} GB, on {info}")
-    log(f"phase shard-main ok in {time.time() - t0:.1f} s")
+    log(f"phase shard-main ok in {time.time() - t0:.1f} s (its ranks' run counted in shard-kernel's)")
+
+    t0 = time.time()
+    shard_parity = check_shard_parity()
+    log(f"shard-parity: bridge widths depth 2 fp32 B=4, mesh (2, 2) on the card vs CPU: "
+        f"{json.dumps(shard_parity)}, {time.time() - t0:.1f} s")
 
     t0 = time.time()
     dp = check_dp_main(dev, info, layers=dp_layers)
@@ -3755,8 +3916,8 @@ def main() -> None:
     start_replayer()
     try:
         t0 = time.time()
-        sources = (fa.SOURCE, fa.BWD_SOURCE)
-        with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
+        sources = (fa.SOURCE, fa.BWD_SOURCE, jpeg.SOURCE)
+        with ThreadPoolExecutor(len(sources)) as pool:  # one compiler per source, all at once
             list(pool.map(_build.build, sources))
         info = card()
         log(f"build: {', '.join(sources)} in {time.time() - t0:.1f} s")

@@ -1,6 +1,7 @@
-"""Image codecs of the data pipeline, in numpy and the standard library's
-``zlib``: a PNG decoder and encoder for 8-bit images (the JAX package
-decodes with ``tf.io.decode_image``, ``data/obs_transforms.py:15-18``).
+"""Image codecs of the data pipeline: a PNG decoder and encoder for 8-bit
+images in numpy and the standard library's ``zlib``, and ``decode_image``,
+which takes PNG or JPEG (the JAX package decodes with
+``tf.io.decode_image``, ``data/obs_transforms.py:15-18``).
 
 The decoder takes 8-bit grayscale, gray + alpha, RGB and RGBA, not
 interlaced, and converts to the channels asked for as TensorFlow's
@@ -16,8 +17,10 @@ with the least sum of absolute signed bytes (libpng's heuristic), so that
 the port's own files take the fast path. It deflates at zlib level 1: on
 smooth 224² frames a tenth of level 6's time for some 6% more bytes.
 
-JPEG raises NotImplementedError: the card's machine promises no libjpeg
-(ROADMAP.md queue 1, "JPEG decoding").
+JPEG goes through ``data/jpeg.py``, the port's own codec (no libjpeg,
+PIL, cv2 or TensorFlow), bit for bit ``tf.io.decode_jpeg``'s default.
+Real OXE datasets, the JAX package's demo writers and the port's store
+JPEG; PNG stays for datasets that hold it.
 """
 
 from __future__ import annotations
@@ -28,9 +31,10 @@ from typing import Optional
 
 import numpy as np
 
+from open_pi_zero_torch.data.jpeg import decode_jpeg
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
-JPEG_ITEM = "JPEG decoding waits in ROADMAP.md queue 1 (JPEG decoding and data/preprocess.py)"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG color type -> samples per pixel
 ZLIB_LEVEL = 1
 
@@ -166,10 +170,10 @@ def encode_png(image: np.ndarray) -> bytes:
 
 def decode_image(data: bytes, channels: int = 3) -> np.ndarray:
     """Encoded image bytes -> uint8 [H, W, channels] (``tf.io.decode_image``
-    with ``expand_animations=False``): PNG only; JPEG raises
-    NotImplementedError."""
+    with ``expand_animations=False``): PNG or JPEG, ``channels`` None or 0
+    for the file's own."""
     if data.startswith(PNG_SIGNATURE):
         return decode_png(data, channels)
     if data.startswith(JPEG_SIGNATURE):
-        raise NotImplementedError(JPEG_ITEM)
+        return decode_jpeg(data, channels)
     raise ValueError(f"unknown image format (first bytes {data[:8]!r})")

@@ -2,11 +2,12 @@
 canonicalization, standardization transforms and named mixes (counterpart
 of the JAX package's ``data/oxe.py``; reference src/data/oxe/*), in numpy.
 
-The port holds the entries the configs name: ``bridge_dataset``,
-``fractal20220817_data`` and the mixes ``bridge``, ``fractal`` and
-``oxe_simple``. The JAX package's extended registry
-(``data/oxe_registry.py``) waits in ROADMAP.md queue 1: no config names
-those datasets and none is in the repo; asking for one raises.
+This module holds the entries the configs name (``bridge_dataset``,
+``fractal20220817_data``; the mixes ``bridge``, ``fractal`` and
+``oxe_simple``). The full OXE table and its mixes (``rtx``, ``oxe_magic_soup``
+and the rest) come from ``data/oxe_registry.py``, imported at the end of
+this module, which merges them in as the JAX package's ``oxe.py`` does. A
+name that neither registers raises.
 """
 
 from __future__ import annotations
@@ -18,9 +19,6 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple
 import numpy as np
 
 from open_pi_zero_torch.models.tree import tree_map
-
-EXTENDED_REGISTRY_ITEM = "ROADMAP.md queue 1 (the extended OXE registry)"
-
 
 class ProprioEncoding(enum.Enum):
     NONE = "none"
@@ -189,8 +187,7 @@ def make_oxe_dataset_kwargs(
     """kwargs for pipeline.make_dataset_from_rlds
     (reference oxe/__init__.py:19-103)."""
     if name not in REGISTRY:
-        raise ValueError(f"unknown OXE dataset {name!r}: the port registers {sorted(REGISTRY)}; "
-                         f"the rest waits in {EXTENDED_REGISTRY_ITEM}")
+        raise ValueError(f"unknown OXE dataset {name!r}; add it to oxe.REGISTRY")
     cfg = copy.deepcopy(REGISTRY[name])
     # a view mapped to None is valid (padding image, reference
     # oxe/__init__.py:64-69 checks key presence, not None-ness)
@@ -225,10 +222,18 @@ def make_oxe_dataset_kwargs_and_weights(
         if mix in REGISTRY:
             entries = [(mix, 1.0)]
         else:
-            raise ValueError(f"unknown mix {mix!r}: the port has {sorted(MIXES)}; "
-                             f"the rest waits in {EXTENDED_REGISTRY_ITEM}")
+            raise ValueError(f"unknown mix {mix!r}")
     kwargs_list, weights = [], []
     for name, weight in entries:
         kwargs_list.append(make_oxe_dataset_kwargs(name, data_dir, **kwargs))
         weights.append(weight)
     return kwargs_list, weights
+
+
+# --------------------------------------------------------------------------- #
+# extended registry: the full OXE table and named mixes. data/oxe_registry.py
+# uses the helpers above and merges itself into REGISTRY, STANDARDIZE_FNS and
+# MIXES when it is imported.
+# --------------------------------------------------------------------------- #
+
+from open_pi_zero_torch.data import oxe_registry  # noqa: E402,F401

@@ -29,7 +29,7 @@ import json
 import os
 import re
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -309,24 +309,34 @@ def encode_episode(ep: dict, leaves: List[LeafSpec]) -> bytes:
 def write_rlds_dataset(
     data_dir: str,
     name: str,
-    episodes: List[dict],
+    episodes: Iterable[dict],
     leaves: List[LeafSpec],
     split: str = "train",
     shards: int = 1,
+    num_episodes: Optional[int] = None,
 ):
     """Write episodes (nested dicts; step leaves have leading [T]) in the
-    TFDS RLDS layout this module reads."""
+    TFDS RLDS layout this module reads. Given ``num_episodes``, the
+    episodes are streamed: each is encoded and written as it comes, and
+    the iterable must yield exactly that many."""
+    if num_episodes is None:
+        episodes = list(episodes)
+        num_episodes = len(episodes)
     os.makedirs(data_dir, exist_ok=True)
-    per_shard = [len(episodes) // shards] * shards
-    for i in range(len(episodes) % shards):
+    per_shard = [num_episodes // shards] * shards
+    for i in range(num_episodes % shards):
         per_shard[i] += 1
-    idx = 0
+    stream = iter(episodes)
+    written = 0
     for si, n in enumerate(per_shard):
         path = os.path.join(data_dir, f"{name}-{split}.tfrecord-{si:05d}-of-{shards:05d}")
         with tfrecord.TFRecordWriter(path) as w:
-            for ep in episodes[idx: idx + n]:
+            for ep in itertools.islice(stream, n):
                 w.write(encode_episode(ep, leaves))
-        idx += n
+                written += 1
+    if written != num_episodes or next(stream, None) is not None:
+        raise ValueError(f"{name}/{split}: {num_episodes} episodes promised, "
+                         f"{written if written < num_episodes else 'more'} given")
 
     with open(os.path.join(data_dir, FEATURES_FILE), "w") as f:
         json.dump(_nest_features_json(leaves), f)

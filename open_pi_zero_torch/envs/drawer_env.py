@@ -24,7 +24,7 @@ the drawer) AND gripper control (no grasp, no pull).
 
 The demo writers (``collect_fractal_demos``, ``write_fractal_demo_dataset``)
 write the raw fractal schema through the port's RLDS writer, frames in
-PNG as ``reach_env.write_demo_dataset`` writes them;
+JPEG as ``reach_env.write_demo_dataset`` writes them;
 ``register_drawer_lever_mix`` adds the lever mix to ``data/oxe.py``.
 """
 
@@ -350,11 +350,11 @@ def collect_fractal_demos(
     balance_targets: bool = False,
 ) -> Tuple[List[dict], float]:
     """Roll the drawer expert; returns (episodes in the raw
-    fractal20220817_data step schema, frames PNG-encoded; expert success
+    fractal20220817_data step schema, frames JPEG-encoded; expert success
     rate). Unlike the bridge tasks there is no action relabel from proprio
     (rt1_transform keeps world_vector as-is), so no closing frame is
     appended."""
-    from open_pi_zero_torch.data.images import encode_png
+    from open_pi_zero_torch.data.jpeg import encode_jpeg
 
     env = DrawerEnv(seed=seed, render_size=render_size,
                     max_steps=int(max_steps or 112), target=target)
@@ -383,7 +383,7 @@ def collect_fractal_demos(
         success_at = None
         while True:
             act = drawer_expert(env, rng, close_dist=close_dist)
-            images.append(encode_png(obs["image"]))
+            images.append(encode_jpeg(obs["image"]))
             base, gc = fractal_proprio_parts(obs)
             bases.append(base)
             grips.append(gc)
@@ -447,7 +447,7 @@ def write_fractal_demo_dataset(
     leaves = [
         rlds.LeafSpec(
             "steps/observation/image", "uint8",
-            (render_size, render_size, 3), "image", True, "png",
+            (render_size, render_size, 3), "image", True, "jpeg",
         ),
         rlds.LeafSpec(
             "steps/observation/base_pose_tool_reached", "float32", (7,),

@@ -18,9 +18,9 @@ axis-angle rotation (3), gripper] — the env integrates the xyz delta.
 
 The demo writers (``collect_demos``, ``write_demo_dataset``) roll the
 scripted expert and write its episodes as RLDS through the port's own
-writer (``data/rlds.py``). Frames are PNG, where the JAX package writes
-JPEG: the port has no JPEG codec, so it trains on lossless frames
-(ROADMAP.md queue 3, deliberate differences). The ``register_*``
+writer (``data/rlds.py``), frames JPEG-encoded by the port's own codec
+(``data/jpeg.py``) at ``tf.io.encode_jpeg``'s defaults, byte for byte the
+JAX package's. The ``register_*``
 functions add the SimplerLite training mixes to ``data/oxe.py``.
 """
 
@@ -190,7 +190,7 @@ def collect_demos(
     task: str = "reach",
 ) -> Tuple[List[dict], float]:
     """Roll the task's expert; returns (episodes in the bridge_dataset RLDS
-    step schema, frames PNG-encoded; expert success rate). Each episode
+    step schema, frames JPEG-encoded; expert success rate). Each episode
     keeps `hold_steps` stay-put frames after first success so the policy
     also learns to hold position (keeps success latched under closed-loop
     chunked control).
@@ -199,7 +199,7 @@ def collect_demos(
     (gripper 1.0 open / 0.0 closed); the env is stepped with the SAME
     conversion the adapter applies at eval time (gripper binarize ->
     +1/-1, env_adapter.py:200-203), so demo dynamics match eval dynamics."""
-    from open_pi_zero_torch.data.images import encode_png
+    from open_pi_zero_torch.data.jpeg import encode_jpeg
     from open_pi_zero_torch.envs import TASKS
 
     spec = TASKS[task]
@@ -217,7 +217,7 @@ def collect_demos(
         reached_at = None
         while True:
             act = expert(env, rng)
-            images.append(encode_png(obs["image"]))
+            images.append(encode_jpeg(obs["image"]))
             states.append(bridge_proprio(obs))
             actions.append(act)
             cmd = np.concatenate([act[:6], [2.0 * (act[6] > 0.5) - 1.0]])
@@ -228,7 +228,7 @@ def collect_demos(
             if done:
                 # closing frame so relabel_actions_from_proprio (which drops
                 # the last step, data/oxe.py) keeps every real action
-                images.append(encode_png(obs["image"]))
+                images.append(encode_jpeg(obs["image"]))
                 states.append(bridge_proprio(obs))
                 actions.append(act)
                 break
@@ -273,7 +273,7 @@ def write_demo_dataset(
     leaves = [
         rlds.LeafSpec(
             "steps/observation/image_0", "uint8",
-            (render_size, render_size, 3), "image", True, "png",
+            (render_size, render_size, 3), "image", True, "jpeg",
         ),
         rlds.LeafSpec("steps/observation/state", "float32", (7,), "tensor", True),
         rlds.LeafSpec("steps/action", "float32", (7,), "tensor", True),

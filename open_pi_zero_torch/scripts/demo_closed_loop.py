@@ -3,7 +3,7 @@
 
 Shows that the whole stack learns, not just that each stage runs:
 scripted expert -> RLDS demos written by the port's writer
-(``envs.write_demo_dataset``, PNG frames) -> the unmodified bridge
+(``envs.write_demo_dataset``, JPEG frames) -> the unmodified bridge
 pipeline (``data/``, ``agents/dataset.py``: gripper binarize, action
 relabel, bound normalization) -> ``TrainAgent`` (K1 forward, K1-vjp
 backward, EMA) -> a ``training/checkpoint.py`` checkpoint with its

@@ -285,7 +285,9 @@ def test_png_each_filter_type_alone_and_the_ports_encoder():
         assert filters_used(png) <= {0, 1, 2}
         assert np.array_equal(tf.io.decode_png(png, channels=c).numpy(), img)
         assert np.array_equal(t_images.decode_png(png), img)
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        t_images.decode_image(tf.io.encode_jpeg(img[..., :1]).numpy())
+    gray_jpeg = tf.io.encode_jpeg(img[..., :1]).numpy()
+    for c in (None, 1, 3):
+        assert np.array_equal(t_images.decode_image(gray_jpeg, c),
+                              tf.io.decode_image(gray_jpeg, channels=c or 0, expand_animations=False).numpy())
     with pytest.raises(ValueError, match="corrupt PNG chunk"):
         t_images.decode_png(png[:40] + bytes([png[40] ^ 1]) + png[41:])

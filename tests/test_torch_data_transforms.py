@@ -267,8 +267,9 @@ def test_standardize_transforms_equal_jax(name):
             assert {k: v for k, v in a.items() if k != "standardize_fn"} == {
                 k: v for k, v in b.items() if k != "standardize_fn"}
             assert a["standardize_fn"].__name__ == b["standardize_fn"].__name__
-    with pytest.raises(ValueError, match="extended OXE registry"):
-        t_oxe.make_oxe_dataset_kwargs_and_weights("kuka", "/data")
+    for lib in (t_oxe, j_oxe):  # a name that neither package registers
+        with pytest.raises(ValueError, match="unknown mix 'no_such_mix'"):
+            lib.make_oxe_dataset_kwargs_and_weights("no_such_mix", "/data")
 
 
 def canonical_traj(rng, t, with_timestep=False):

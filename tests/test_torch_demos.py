@@ -4,22 +4,19 @@
 - ``collect_demos`` (reach, pick_place) and ``collect_fractal_demos``
   (``target``, ``start_coverage``, ``balance_targets``): states, actions,
   instructions, file paths, episode lengths and the expert rate bitwise
-  JAX's. Frames: the port writes PNG where JAX writes JPEG (a deliberate
-  difference, ROADMAP.md queue 3). The port's decoded PNG is bitwise the
-  env's render, replayed from the recorded actions; JAX's JPEG, decoded by
-  ``tf.io.decode_jpeg``, is within JPEG's loss of it: a mean |diff| of at
-  most 2 levels per episode (TensorFlow's quality 95 with 4:2:0 chroma
-  subsampling measured 0.8-1.4 levels; single pixels at saturated colour
-  edges differ by up to some 150 levels, so the max is not a useful bound).
+  JAX's, frames included: each frame's JPEG bytes (the port's codec) equal
+  JAX's (``tf.io.encode_jpeg``), and the frame is the env's render,
+  replayed from the recorded actions, through that encoder.
 - ``DrawerEnv.randomize_start`` from the same generator: the start, the
   frame and the generator's state after it, bitwise.
 - ``quat2euler``, ``axangle2mat``, ``isrotation``: bitwise on random inputs.
 - After each ``register_*``: the port's REGISTRY entries (enums by name),
   STANDARDIZE_FNS (by function name) and MIXES equal JAX's.
-- A dataset written by the port's writers (reach in the bridge schema and
-  drawer in the fractal one), read by the port's pipeline and by JAX's
-  TF pipeline, gives the same frames as a multiset, bitwise (as
-  tests/test_torch_data_pipeline.py compares them).
+- A dataset written by the port's writers, and one written by JAX's
+  (reach in the bridge schema and drawer in the fractal one, JPEG frames),
+  read by the port's pipeline and by JAX's TF pipeline, gives the same
+  frames as a multiset, bitwise (as tests/test_torch_data_pipeline.py
+  compares them).
 - The diagnostic inputs of ``tests/demo_reference_inputs.py``: the JAX
   package's init, exported, is bitwise what ``demo_closed_loop
   --init-params`` makes the TrainAgent start from.
@@ -34,7 +31,7 @@ import torch
 
 from open_pi_zero_torch import envs as t_envs
 from open_pi_zero_torch.agents.train import TrainAgent
-from open_pi_zero_torch.data import images as t_images
+from open_pi_zero_torch.data import jpeg as t_jpeg
 from open_pi_zero_torch.data import oxe as t_oxe
 from open_pi_zero_torch.data import pipeline as t_pipeline
 from open_pi_zero_torch.scripts import demo_closed_loop
@@ -49,7 +46,6 @@ from tests.test_torch_data_pipeline import flat, frames_of
 tf.config.set_visible_devices([], "GPU")
 
 EPISODES = 3
-JPEG_MEAN_LEVELS = 2.0
 
 
 def replay_bridge(task, episode, seed=0):
@@ -86,11 +82,8 @@ def replay_drawer(episode, seed=0, target=None, start_coverage=False, balance_ta
 
 def check_frames(port_bytes, jax_bytes, renders):
     assert len(port_bytes) == len(jax_bytes) == len(renders)
-    decoded = np.stack([t_images.decode_png(b) for b in port_bytes])
-    assert all(b.startswith(t_images.PNG_SIGNATURE) for b in port_bytes)
-    assert np.array_equal(decoded, np.stack(renders))
-    jpeg = np.stack([tf.io.decode_jpeg(b).numpy() for b in jax_bytes])
-    assert np.abs(decoded.astype(int) - jpeg.astype(int)).mean() <= JPEG_MEAN_LEVELS
+    assert np.array_equal(np.array(port_bytes, dtype=object), np.array(jax_bytes, dtype=object))
+    assert [t_jpeg.encode_jpeg(r) for r in renders] == list(port_bytes)
 
 
 @pytest.mark.parametrize("task", ["reach", "pick_place"])
@@ -204,11 +197,12 @@ def hermetic_cache(tmp_path, monkeypatch):
     monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
 
 
-def test_port_written_demos_are_the_same_frames_in_both_pipelines(tmp_path, hermetic_cache):
+@pytest.mark.parametrize("writer", [t_envs, j_envs], ids=["port_written", "jax_written"])
+def test_port_written_demos_are_the_same_frames_in_both_pipelines(writer, tmp_path, hermetic_cache):
     root = tmp_path / "oxe"
     size = 28  # the frames stay at their own size: bitwise
-    assert t_envs.write_demo_dataset(str(root / "bridge_dataset"), 3, seed=0, render_size=size, shards=2) == 1.0
-    assert t_envs.write_fractal_demo_dataset(str(root / "fractal20220817_data"), 2, seed=0, render_size=size,
+    assert writer.write_demo_dataset(str(root / "bridge_dataset"), 3, seed=0, render_size=size, shards=2) == 1.0
+    assert writer.write_fractal_demo_dataset(str(root / "fractal20220817_data"), 2, seed=0, render_size=size,
                                              shards=2, target="middle") == 1.0
     want, _ = frames_of(j_pipeline, j_oxe, str(root), "oxe_simple", size)
     got, _ = frames_of(t_pipeline, t_oxe, str(root), "oxe_simple", size)

@@ -1,8 +1,9 @@
 """The port's boundaries: it imports neither jax, yaml, safetensors, optax,
-orbax, tensorflow, transformers, cv2 nor the JAX package; its source names
-none of them (simpler_env and imageio only inside the functions that need
-them); and its serving loop answers concurrent requests with a tiny model
-on the CPU."""
+orbax, tensorflow, transformers, cv2, PIL nor the JAX package; its source
+names none of them (simpler_env and imageio only inside the functions that
+need them); its host C++ (``csrc/*.cc``, the JPEG codec) includes no
+libjpeg header and its build links no library; and its serving loop
+answers concurrent requests with a tiny model on the CPU."""
 
 import json
 import os
@@ -23,7 +24,7 @@ PORT = REPO / "open_pi_zero_torch"
 
 
 def _port_sources():
-    files = sorted(p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh"))
+    files = sorted(p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh", ".cc"))
     return files + [REPO / "chip_smoke.py"]
 
 
@@ -57,6 +58,9 @@ def test_import_leaves_jax_and_yaml_out():
                  "data.obs_transforms", "data.pipeline", "data.streams", "data.goal_relabeling",
                  "data.task_augmentation", "agents.dataset"):
         assert f"open_pi_zero_torch.{name}" in modules
+    # and the JPEG codec's, the offline resize's and the extended registry's
+    for name in ("data.jpeg", "data.preprocess", "data.oxe_registry", "scripts.modify_rlds_dataset"):
+        assert f"open_pi_zero_torch.{name}" in modules
     # and data-parallel training's (the mesh, the collectives, ZeRO-1's
     # layout, the rank programs, the multi-process dryrun)
     for name in ("parallel.mesh", "parallel.collectives", "parallel.sharding", "parallel.ranks",
@@ -67,7 +71,7 @@ def test_import_leaves_jax_and_yaml_out():
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'yaml', 'safetensors', 'open_pi_zero_tpu', 'optax', 'orbax', 'tensorflow', "
-        "'transformers', 'cv2', 'simpler_env', 'imageio'))))\n"
+        "'transformers', 'cv2', 'PIL', 'simpler_env', 'imageio'))))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -81,9 +85,9 @@ def test_import_leaves_jax_and_yaml_out():
 def test_sources_import_no_jax_package():
     # the JAX package's name may appear in notes that say which TPU kernel
     # a kernel replaces; what is refused is any import of it, jax, yaml,
-    # safetensors, optax, orbax, tensorflow, transformers or cv2 (the card's
-    # machine has none of them)
-    names = "jax|jaxlib|yaml|safetensors|open_pi_zero_tpu|optax|orbax|tensorflow|transformers|cv2"
+    # safetensors, optax, orbax, tensorflow, transformers, cv2 or PIL (the
+    # card's machine has none of them)
+    names = "jax|jaxlib|yaml|safetensors|open_pi_zero_tpu|optax|orbax|tensorflow|transformers|cv2|PIL"
     bad = re.compile(
         rf"^\s*(import|from)\s+({names})\b|import_module\(\s*['\"]({names})\b",
         re.M,
@@ -101,6 +105,17 @@ def test_sources_import_no_jax_package():
     lazy = [p.relative_to(REPO).as_posix() for p in _port_sources()
             if re.search(r"^\s+(import|from)\s+(simpler_env|imageio)\b", p.read_text(), re.M)]
     assert lazy == ["open_pi_zero_torch/agents/env_adapter.py", "open_pi_zero_torch/agents/eval.py"]
+
+
+def test_host_sources_need_no_libjpeg():
+    from open_pi_zero_torch.ops import _build
+
+    sources = sorted((PORT / "csrc").glob("*.cc"))
+    assert [p.name for p in sources] == ["jpeg_codec.cc"]
+    for p in sources:
+        assert not re.search(r"#\s*include\s*[<\"](jpeglib|turbojpeg|jconfig|jmorecfg)\.h", p.read_text()), p
+        command = _build.compile_command(p.stem, _build.BUILD_DIR / "x.so")
+        assert not [arg for arg in command if arg.startswith("-l")], command
 
 
 def _tiny_request(cfg, rng):

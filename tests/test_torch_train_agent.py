@@ -139,10 +139,10 @@ def test_auto_resume_skips_a_partial_checkpoint_and_keeps_wandb_id(tmp_path):
 
 
 def test_agent_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    # the data comes from cfg.data now; a mix of the JAX package's extended
-    # OXE registry is not ported, and no data at all is refused
-    cfg, _ = tiny_config(tmp_path, overrides=[f"data={{train: {{dataset_mix: kuka, data_path: {tmp_path}}}}}"])
-    with pytest.raises(ValueError, match="extended OXE registry"):
+    # the data comes from cfg.data; a mix that no registry holds, and no
+    # data at all, are refused
+    cfg, _ = tiny_config(tmp_path, overrides=[f"data={{train: {{dataset_mix: no_such_mix, data_path: {tmp_path}}}}}"])
+    with pytest.raises(ValueError, match="unknown mix 'no_such_mix'"):
         t_agent.TrainAgent(cfg, device="cpu")
     cfg, _ = tiny_config(tmp_path)
     with pytest.raises(ValueError, match="no data"):
