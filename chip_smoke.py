@@ -82,7 +82,7 @@ Phases, each of which raises on failure:
                none counted by the wrapper; kernels and copies per replay
                beside the eager chunk's, device-busy ms, K1 ms, host ms per
                replay, the pool's bytes; the warm chunk of each graph and of
-               its eager chunk in turns (median of TURNS, 5); then the bf16 trees
+               its eager chunk in turns (median of TURNS, 3); then the bf16 trees
                are freed. Then a capture under the cyclic GC: a dropped
                reference cycle holding a CompiledChunk, gc.set_threshold(1,
                1, 1), another capture (tiny config): it succeeds, the cycle
@@ -108,7 +108,7 @@ Phases, each of which raises on failure:
                K1 and device-busy ms per token (a profiled compiled generate
                less its prefill), host ms per replay; then logits, prefill,
                eager and compiled generate of the three trees in turns
-               (median of TURNS, 5): ms per decode token beside the byte bound
+               (median of TURNS, 3): ms per decode token beside the byte bound
                (the trunk's and the table's bytes at 3.35 TB/s). Card vs
                CPU at bridge widths in fp32 (logits <= 1e-3, greedy tokens
                equal, eager and graph); the reference's golden text logits
@@ -168,10 +168,12 @@ Phases, each of which raises on failure:
   8a. codec  — the JPEG codec built in phase 1, on the card's host:
                bitwise the committed fixture of TensorFlow's encodes and
                decodes (tests/fixtures/jpeg_codec.npz: 224² and 256² 4:2:0
-               at quality 95, 4:4:4 at 75, gray, a 37x53 noise frame); the
-               host ms per decode and per encode of a 224² and a 256² frame
-               (median of 50) and the 224² decodes' frames/s on one thread
-               per core
+               at quality 95, 4:4:4 at 75, gray, a 37x53 noise frame), the
+               decodes at both IDCTs (IFAST, the default, and ISLOW,
+               dct_method INTEGER_ACCURATE, which the offline resize runs);
+               the host ms per decode (each IDCT) and per encode of a 224²
+               and a 256² frame (median of 50) and the 224² decodes'
+               frames/s on one thread per core
   8b. train-agent — the real data workflow: a bridge-shaped RLDS dataset
                written by the port's writer as raw frames (8 episodes of
                34-42 steps, 256² JPEG image_0 of a smooth moving scene, the
@@ -205,10 +207,9 @@ Phases, each of which raises on failure:
                scripts/serve.load_params serves ckpt_3 (merge, NF4 decode,
                production layout): one bf16 chunk, finite, in the clip,
                within the drift limit (mean L1 5e-3) of the merged float
-               params' bf16 chunk. One more update under torch.profiler:
-               K1's and the backward kernels' ms, the ms of the kernels
-               inside the NF4 dequant and 8-bit Adam ranges, and the card's
-               busy share of the update
+               params' bf16 chunk. One more update under torch.profiler,
+               device events only: K1's and the backward kernels' ms and
+               the card's busy share of the update
   8d. eval   — run right after 8b, in its temporary log_dir: the
                launcher (open_pi_zero_torch.scripts.run's main) evaluates
                8b's ckpt_3 with configs/eval/bridge.yaml, env.task=
@@ -227,6 +228,19 @@ Phases, each of which raises on failure:
                K1). Card vs CPU at bridge widths, depth 2, fp32: one reach
                episode, the CPU's chunk on each card replay's noise, actions
                <= 1e-3, the same success
+  8g. verify — run after 8d, in 8b's log_dir: the readiness harness
+               open_pi_zero_torch/scripts/verify_checkpoint.py through its
+               main on 8b's ckpt_3 at full width, fp32 (its default), with
+               configs/eval/bridge.yaml and the keys of the model 8b
+               trained: load (the checkpoint directory, adapters merged,
+               NF4 bases decoded), oracle (the cached chunk against the
+               no-cache forward), drift (the production layout against the
+               fused one) PASS within the script's default bands (mean L1
+               2.5e-3); refine reports its value; textgen and episodes skip
+               (no lm head, no simpler_env). Each stage's seconds and
+               values; K1's launches over the stages, exactly those their
+               chunks take (each at the main path's shapes but the no-cache
+               forward's)
   8c. train-8bit — phase 8's full fine-tune with int8 Adam moments
                (configs/train/bridge_v5e.yaml's recipe on one card), 2
                updates: finite losses, the launches, update time, peak memory
@@ -357,10 +371,10 @@ from open_pi_zero_torch.ops import linear as linear_ops
 from open_pi_zero_torch.ops import lora as lora_lib
 from open_pi_zero_torch.ops.attention import mot_attention_ref
 from open_pi_zero_torch.ops.masks import MASK_NEG
-from open_pi_zero_torch.parallel import ranks, run_ranks
+from open_pi_zero_torch.parallel import make_mesh, ranks, run_ranks, set_mesh
 from open_pi_zero_torch.processing import VLAProcessor
 from open_pi_zero_torch.scripts import (demo_closed_loop, demo_qlora_finetune, e2e_tier_sweep, modify_rlds_dataset,
-                                        run, serve)
+                                        run, serve, verify_checkpoint)
 from open_pi_zero_torch.training import checkpoint as ckpt_lib
 from open_pi_zero_torch.training import optimizer as opt_lib
 from open_pi_zero_torch.training import seeds
@@ -388,7 +402,7 @@ KEYS_SYMBOL = "mot_attention_bwd_keys_kernel"
 MARKERS = 128  # empty kernels before the work of a profiled window
 WINDOW_TRIES = 6  # windows that profiled_window takes at most
 # rounds of the phases that time chunks and generates in turns (4c, 4d, 4e)
-TURNS = 5
+TURNS = 3
 
 
 START = time.time()
@@ -446,12 +460,11 @@ def time_ms(fn, samples: int = 21, calls: int = 10) -> float:
     return statistics.median(times)
 
 
-def profiled_window(fn, expected: dict, counted=None, ranges=()) -> tuple:
+def profiled_window(fn, expected: dict, counted=None) -> tuple:
     """(got, its device events, wall ms) of one run of ``fn`` under torch.profiler:
     ``got[match]`` is (device ms, events) of the device events whose name
     contains ``match`` (all of them for None), the marker kernels left
-    out; ``got[name]`` for each of ``ranges`` is (the device ms of the
-    kernels launched inside the ``annotate(name)`` ranges, the ranges). The profiler loses device events in some windows on an H100:
+    out. The profiler loses device events in some windows on an H100:
     mostly the first ones, more late in a process, once about half of a
     replayed training update. So ``fn`` runs after MARKERS empty kernels,
     which take the loss of a window's first events, and a window counts
@@ -465,15 +478,15 @@ def profiled_window(fn, expected: dict, counted=None, ranges=()) -> tuple:
       window that passed the other checks: a window that lost events falls
       short of the other.
     One that does not count is taken again, WINDOW_TRIES times at most;
-    then it raises. Host ops are traced only where ``ranges`` asks for
-    them: turning every host op of a full-width update into an event took
-    some 40 s of the host per window, the device events about a tenth."""
+    then it raises. Host ops are not traced: turning every host op of a
+    full-width update into an event took some 40 s of the host per window,
+    the device events about a tenth."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda", torch.cuda.current_device())
     totals = [m for m, n in expected.items() if n is None]
     passed = []  # the totals of the windows that passed the other checks
-    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else [])
+    activities = [ProfilerActivity.CUDA]
     for _ in range(WINDOW_TRIES):
         torch.cuda.synchronize()
         with profile(activities=activities) as prof:
@@ -493,9 +506,6 @@ def profiled_window(fn, expected: dict, counted=None, ranges=()) -> tuple:
         for match in expected:
             ms, count = device_ms(events, match)
             got[match] = (ms - marker_ms, count - markers) if match is None else (ms, count)
-        for name in ranges:
-            spans = [e for e in averages if e.key == name and e.device_type.name == "CPU"]
-            got[name] = (sum(e.device_time_total for e in spans) / 1e3, sum(e.count for e in spans))
         launched = (fa.launches, fa.bwd_launches)
         complete = (markers > 0 and all(n in (None, got[m][1]) for m, n in expected.items())
                     and counted in (None, launched))
@@ -2169,8 +2179,6 @@ def replay_vjp(calls) -> dict:
 # phases 7 (QLoRA), 8b, 8c: fine-tuning
 # --------------------------------------------------------------------------- #
 
-NF4_RANGE = "opz_nf4_dequant"  # the annotate() ranges of ops/linear.base_matmul and AdamW8bit.step
-ADAM8_RANGE = "opz_adam8bit_step"
 AGENT_CONFIG = "configs/train/bridge.yaml"
 # its QLoRA recipe at B = 16 x 2 for 3 updates, validating and saving once
 # at the end; pretrained_model_path points at no file, so that the agent
@@ -2343,37 +2351,43 @@ def median_call_ms(fn, calls: int = CODEC_TIMED) -> float:
 
 def jpeg_fixture_cases() -> list:
     """[(name, frame, jpeg bytes, TensorFlow's decode, quality,
-    chroma_downsampling)] of CODEC_FIXTURE, in the layout that
-    tests/make_jpeg_fixture.py writes."""
+    chroma_downsampling, TensorFlow's INTEGER_ACCURATE decode)] of
+    CODEC_FIXTURE, in the layout that tests/make_jpeg_fixture.py writes."""
     with np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), CODEC_FIXTURE)) as z:
         cases = []
         for name in [k[len("jpeg_"):] for k in z.files if k.startswith("jpeg_")]:
             source = str(z[f"frame_of_{name}"]) if f"frame_of_{name}" in z.files else name
             quality, chroma = (int(v) for v in z[f"settings_{name}"])
             cases.append((name, z[f"frame_{source}"], z[f"jpeg_{name}"].tobytes(), z[f"decoded_{name}"], quality,
-                          bool(chroma)))
+                          bool(chroma), z[f"decoded_accurate_{name}"]))
     return cases
 
 
 def check_codec(info: str) -> dict:
     """Phase 8a: the port's JPEG codec, built on this host by its C++
     compiler (phase 1), against the committed fixture of TensorFlow's
-    encodes and decodes, bitwise; then the host ms per decode and per
-    encode of a 224² and a 256² frame at the pipeline's settings (quality
-    95, 4:2:0), one call at a time, and the frames/s of decodes of the
-    224² frame on one thread per core (the codec runs outside the GIL)."""
+    encodes and decodes, bitwise, the decodes at both IDCTs (IFAST, the
+    default; ISLOW, INTEGER_ACCURATE); then the host ms per decode (each
+    IDCT) and per encode of a 224² and a 256² frame at the pipeline's
+    settings (quality 95, 4:2:0), one call at a time, and the frames/s of
+    IFAST decodes of the 224² frame on one thread per core (the codec runs
+    outside the GIL)."""
     cases = jpeg_fixture_cases()
-    for name, frame, data, decoded, quality, chroma in cases:
+    for name, frame, data, decoded, quality, chroma, accurate in cases:
         encoded = jpeg.encode_jpeg(frame, quality=quality, chroma_downsampling=chroma)
         got = jpeg.decode_jpeg(data)
-        if encoded != data or got.shape != decoded.shape or not np.array_equal(got, decoded):
+        islow = jpeg.decode_jpeg(data, dct_method="INTEGER_ACCURATE")
+        if (encoded != data or got.shape != decoded.shape or not np.array_equal(got, decoded)
+                or islow.shape != accurate.shape or not np.array_equal(islow, accurate)):
             raise AssertionError(f"codec vs the fixture's {name}: encode {'equal' if encoded == data else 'differs'}, "
-                                 f"decode {got.shape} vs {decoded.shape}")
+                                 f"decode {got.shape} vs {decoded.shape}, ISLOW decode {islow.shape} vs "
+                                 f"{accurate.shape}, equal {np.array_equal(islow, accurate)}")
     by_name = {c[0]: c for c in cases}
     timed = {}
     for name in ("rgb224", "rgb256"):
-        _, frame, data, _, _, _ = by_name[name]
+        _, frame, data = by_name[name][:3]
         timed[name] = {"decode_ms": median_call_ms(lambda: jpeg.decode_jpeg(data)),
+                       "decode_islow_ms": median_call_ms(lambda: jpeg.decode_jpeg(data, dct_method="INTEGER_ACCURATE")),
                        "encode_ms": median_call_ms(lambda: jpeg.encode_jpeg(frame)), "jpeg_bytes": len(data)}
     threads = os.cpu_count() or 1
     data = by_name["rgb224"][2]
@@ -2385,9 +2399,10 @@ def check_codec(info: str) -> dict:
     result = {"fixture_cases": [c[0] for c in cases], "bitwise": True, "timed": timed,
               "threads": threads, "decode_frames_per_s_threads": threaded}
     log(f"codec: csrc/jpeg_codec.cc built by {os.path.basename(_build.host_compiler())}, bitwise the fixture's "
-        f"TensorFlow encodes and decodes ({', '.join(result['fixture_cases'])}); per 224² frame decode "
-        f"{timed['rgb224']['decode_ms']:.3f} ms, encode {timed['rgb224']['encode_ms']:.3f} ms; per 256² frame decode "
-        f"{timed['rgb256']['decode_ms']:.3f} ms, encode {timed['rgb256']['encode_ms']:.3f} ms (median of "
+        f"TensorFlow encodes and decodes, IFAST and ISLOW ({', '.join(result['fixture_cases'])}); per 224² frame "
+        f"decode {timed['rgb224']['decode_ms']:.3f} ms (ISLOW {timed['rgb224']['decode_islow_ms']:.3f}), encode "
+        f"{timed['rgb224']['encode_ms']:.3f} ms; per 256² frame decode {timed['rgb256']['decode_ms']:.3f} ms (ISLOW "
+        f"{timed['rgb256']['decode_islow_ms']:.3f}), encode {timed['rgb256']['encode_ms']:.3f} ms (median of "
         f"{CODEC_TIMED}); 224² decodes on {threads} threads {threaded:.1f} frames/s, on {info}")
     return result
 
@@ -2599,6 +2614,11 @@ def check_train_agent(dev, info: str) -> tuple:
         evaluated = check_eval(dev, info, tmp)
         log("eval: " + json.dumps(evaluated))
         log(f"phase eval ok in {time.time() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        verified = check_verify(dev, info, tmp)
+        log("verify: " + json.dumps(verified))
+        log(f"phase verify ok in {time.time() - t0:.1f} s")
         return agent, evaluated
     finally:
         if cache is None:
@@ -2836,9 +2856,8 @@ def check_agent_serving(dev, cfg, mcfg, ckpt: str) -> dict:
 
 
 def profile_agent_update(agent, per_update: int) -> dict:
-    """One more update under torch.profiler (``profiled_window``): K1's and
-    the backward kernels' device ms by symbol, and the device ms of the
-    kernels inside the NF4 dequant and the 8-bit Adam step ranges. No
+    """One more update under torch.profiler (``profiled_window``, device
+    events only): K1's and the backward kernels' device ms by symbol. No
     total is asked for, so one complete window serves (a confirming
     second window would cost another profiled update): the busy ms is
     that window's, unconfirmed."""
@@ -2850,18 +2869,15 @@ def profile_agent_update(agent, per_update: int) -> dict:
     got, traced, wall = profiled_window(
         lambda: agent.train_step(agent.state, batch),
         {KERNEL_SYMBOL: per_update, ROWS_SYMBOL: per_update // 2, KEYS_SYMBOL: per_update // 2},
-        counted=(per_update, per_update), ranges=(NF4_RANGE, ADAM8_RANGE),
+        counted=(per_update, per_update),
     )
     busy = device_ms(traced)[0] - device_ms(traced, "opz_empty_kernel")[0]
     log_profile("train-agent-profile", traced, wall, busy)
     result = {"kernel_ms": got[KERNEL_SYMBOL][0], "backward_ms": got[ROWS_SYMBOL][0] + got[KEYS_SYMBOL][0],
-              "nf4_dequant_ms": got[NF4_RANGE][0], "nf4_dequants": got[NF4_RANGE][1],
-              "adam8bit_ms": got[ADAM8_RANGE][0], "wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall}
+              "wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall}
     log(f"train-agent: profiled update {wall:.1f} ms (busy {busy:.1f}: the card busy {100 * busy / wall:.1f}% of "
         f"the update): K1 {result['kernel_ms']:.3f} ms over "
-        f"{per_update} launches, backward kernels {result['backward_ms']:.3f} ms over {per_update} launches, NF4 "
-        f"dequant {result['nf4_dequant_ms']:.3f} ms over {result['nf4_dequants']} decodes, 8-bit Adam step "
-        f"{result['adam8bit_ms']:.3f} ms")
+        f"{per_update} launches, backward kernels {result['backward_ms']:.3f} ms over {per_update} launches")
     return result
 
 
@@ -3106,6 +3122,38 @@ def check_eval(dev, info: str, tmp: str) -> dict:
                     "host_ms_per_chunk": refined_host},
         "parity": parity, "run_s": run_s,
     }
+
+
+VERIFY_PASS = ("load", "oracle", "drift", "refine")  # the stages that must PASS at full width (refine: finite)
+
+
+def check_verify(dev, info: str, tmp: str) -> dict:
+    """Phase 8g: ``scripts/verify_checkpoint``'s main on phase 8b's ckpt_3
+    at full width, fp32, with EVAL_CONFIG and the trained model's keys:
+    load, oracle and drift PASS within its default bands, refine reports
+    its value; K1 launched exactly as its stages' chunks take it: the
+    oracle's cached chunk and its no-cache forward (L per velocity
+    evaluation over the whole sequence), the drift's fused and production
+    chunks, the refine's full chunk and its refined one."""
+    ckpt = os.path.join(tmp, "checkpoint", "ckpt_3")
+    mcfg = cfg_lib.pizero_config_from_dict(cfg_lib.load_config(EVAL_CONFIG, overrides=TRAINED_MODEL_OVERRIDES))
+    L, steps = mcfg.joint.num_hidden_layers, mcfg.num_inference_steps
+    chunk = L * (1 + steps)
+    want = chunk + L * steps + 2 * chunk + chunk + L * (1 + round(steps * 0.5))
+    fa.launches = 0
+    result = verify_checkpoint.main([ckpt, "--config", EVAL_CONFIG, "--device", str(dev), *TRAINED_MODEL_OVERRIDES])
+    launches = fa.launches
+    status = dict(result["results"])
+    if any(status.get(stage) != "PASS" for stage in VERIFY_PASS) or launches != want:
+        raise AssertionError(f"verify_checkpoint on ckpt_3: {status}, values {result['values']}, {launches} K1 "
+                             f"launches (want {want})")
+    seconds = result["seconds"]
+    log(f"verify: scripts/verify_checkpoint.py on ckpt_3 at full width, fp32: "
+        + ", ".join(f"{stage} {status.get(stage, '-')} {seconds[stage]:.1f} s" for stage in seconds)
+        + f"; oracle mean L1 {result['values']['oracle']:.3e}, drift {result['values']['drift']:.3e} (bands "
+        f"{verify_checkpoint.DEFAULT_BAND}), refine {result['values']['refine']:.3e} (report-only); {launches} K1 "
+        f"launches, on {info}")
+    return {"results": result["results"], "values": result["values"], "seconds": seconds, "launches": launches}
 
 
 def check_eval_parity(dev, tmp: str) -> dict:
@@ -3507,11 +3555,25 @@ def dp_launches_per_update(mcfg) -> int:
     return GRAD_ACCUM * 2 * mcfg.joint.num_hidden_layers
 
 
+def in_world_of_one(fn, *args, device):
+    """``fn(mesh, *args)`` in this process, in a world of one rank (gloo),
+    as ``run_ranks(fn, 1, 1, ...)`` runs it in a spawned one, without the
+    spawned process's start-up (some 20 s on the card's host). The world
+    is left on the way out."""
+    with tempfile.TemporaryDirectory(prefix="opz_world_") as tmp:
+        torch.distributed.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0)
+        try:
+            return fn(make_mesh(1, 1, device), *args)
+        finally:
+            set_mesh(None)
+            torch.distributed.destroy_process_group()
+
+
 def check_dp_main(dev, info: str, device_type: str = "cuda", layers: int = DP_LAYERS) -> dict:
     """Phase 12: configs/train/bridge.yaml's QLoRA recipe, cut to ``layers``
     (``dp_depth_overrides``), on DP_RANKS ranks sharing the card (``parallel/ranks.dp_main_rank``), after one process
-    alone has taken the raw update on the whole global batch
-    (``dp_reference_rank``), in a temporary directory that holds phase 8b's
+    alone, this one, has taken the raw update on the whole global batch
+    (``dp_reference_rank`` in a world of one), in a temporary directory that holds phase 8b's
     dataset, the checkpoints and the statistics cache."""
     tmp = tempfile.mkdtemp(prefix="opz_dp_main_")
     cache = os.environ.get("XDG_CACHE_HOME")
@@ -3530,8 +3592,8 @@ def check_dp_main(dev, info: str, device_type: str = "cuda", layers: int = DP_LA
         mcfg = cfg_lib.pizero_config_from_dict(raw_cfg)
         batch = train_batch(mcfg, TRAIN_B * DP_RANKS, np.random.default_rng(12), inject=True)
         t0 = time.time()
-        reference = run_ranks(ranks.dp_reference_rank, 1, 1, one_cfg, [batch], os.path.join(tmp, "reference.pt"),
-                              DP_ADAM_EPS, device=device_type, timeout_s=RANK_TIMEOUT_S)
+        reference = in_world_of_one(ranks.dp_reference_rank, one_cfg, [batch], os.path.join(tmp, "reference.pt"),
+                                    DP_ADAM_EPS, device=dev)
         reference_s = time.time() - t0
         t0 = time.time()
         got = run_ranks(ranks.dp_main_rank, DP_RANKS, 1, raw_cfg, [batch], DP_ADAM_EPS,

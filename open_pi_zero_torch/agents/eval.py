@@ -16,9 +16,11 @@ and for video; where they are missing that raises ImportError.
 
 Parameters passed in are used as they are. Otherwise the checkpoint is
 loaded as the serve CLI loads it (``scripts/serve.load_params``): a
-reference ``.pt`` or a checkpoint directory of the port's trainer, its
-LoRA adapters merged per mixture and its NF4 bases decoded, then the
-serving layout of the config's knobs (``fuse.serving_layout_kwargs``).
+reference ``.pt`` or a checkpoint directory of the port's trainer (or a
+JAX package's checkpoint converted by ``convert_jax_checkpoint.py``; an
+orbax directory raises with that command line), its LoRA adapters merged
+per mixture and its NF4 bases decoded, then the serving layout of the
+config's knobs (``fuse.serving_layout_kwargs``).
 """
 
 from __future__ import annotations

@@ -35,7 +35,10 @@ Where it differs from the JAX agent, by design:
   - the tokenizer: ``FakeTokenizer`` when ``pretrained_model_path`` does
     not exist, as in JAX; an existing path raises, since the PaliGemma
     tokenizer needs transformers (ROADMAP.md, "Not queued");
-  - checkpoints are ``training/checkpoint.py``'s, not orbax directories.
+  - checkpoints are ``training/checkpoint.py``'s, not orbax directories:
+    ``resume_checkpoint_path`` and ``base_params_checkpoint`` refuse the
+    JAX package's with the command line of ``convert_jax_checkpoint.py``,
+    whose params export ``base_params_checkpoint`` then reads.
 """
 
 from __future__ import annotations

@@ -1,13 +1,15 @@
 // Baseline JPEG codec for the data pipeline, on the host, in C++17 with a
 // plain C interface (bound with ctypes by data/jpeg.py). It needs no
-// libjpeg: the decoder reproduces tf.io.decode_jpeg's default output bit
-// for bit, and the encoder tf.io.encode_jpeg's bytes, by following the
+// libjpeg: the decoder reproduces tf.io.decode_jpeg's output bit for bit
+// at either integer dct_method, and the encoder tf.io.encode_jpeg's bytes, by following the
 // integer algorithms of libjpeg(-turbo) that TensorFlow runs:
 //
 //   decode  Huffman sequential (SOF0, SOF1), 8-bit samples, 1 or 3
 //           components, sampling factors 1 or 2 per axis;
 //           jidctfst.c's IFAST (AAN) inverse DCT, the dequantisation
-//           premultiplied by the AAN scales as jddctmgr.c does;
+//           premultiplied by the AAN scales as jddctmgr.c does, or
+//           jidctint.c's ISLOW on the plain table (dct_method
+//           INTEGER_ACCURATE, libjpeg's own default);
 //           jdsample.c's "fancy" triangle upsampling (h2v1, h2v2, h1v2),
 //           with its alternating rounding bias and its context rows across
 //           iMCU boundaries; jdcolor.c's fixed-point YCbCr -> RGB.
@@ -485,6 +487,10 @@ struct Decoder {
 
 // ---- jidctfst.c: IFAST inverse DCT -------------------------------------------
 
+// tf.io.decode_jpeg's dct_method: "" and INTEGER_FAST are IFAST,
+// INTEGER_ACCURATE is ISLOW (libjpeg's own default).
+enum DctMethod { kIfast = 0, kIslow = 1 };
+
 constexpr int kIfastConstBits = 8;
 constexpr int kPass1Bits = 2;
 constexpr int FIX_1_082392200 = 277;
@@ -587,18 +593,122 @@ void idct_ifast(const int16_t* in, const int* mult, uint8_t* out, int stride) {
   }
 }
 
-// One component's samples, [blocks_h * 8][blocks_w * 8].
-std::vector<uint8_t> component_samples(const Decoder& d, const Component& c) {
+// ---- jidctint.c: ISLOW inverse DCT -------------------------------------------
+// libjpeg's default (JDCT_ISLOW, tf.io.decode_jpeg's INTEGER_ACCURATE): the
+// Loeffler-Ligtenberg-Moschytz algorithm in 13-bit fixed point, on the plain
+// quantisation table (jddctmgr.c copies it as it is for ISLOW). Products are
+// JLONG (64-bit here), the workspace int, as in jidctint.c.
+
+constexpr int kIslowConstBits = 13;
+constexpr int64_t FIX_0_298631336 = 2446;
+constexpr int64_t FIX_0_390180644 = 3196;
+constexpr int64_t FIX_0_541196100 = 4433;
+constexpr int64_t FIX_0_765366865 = 6270;
+constexpr int64_t FIX_0_899976223 = 7373;
+constexpr int64_t FIX_1_175875602 = 9633;
+constexpr int64_t FIX_1_501321110 = 12299;
+constexpr int64_t FIX_1_847759065_ISLOW = 15137;
+constexpr int64_t FIX_1_961570560 = 16069;
+constexpr int64_t FIX_2_053119869 = 16819;
+constexpr int64_t FIX_2_562915447 = 20995;
+constexpr int64_t FIX_3_072711026 = 25172;
+
+// jpegint.h's DESCALE: a right shift by n, rounded half up.
+inline int64_t descale(int64_t x, int n) { return (x + (int64_t{1} << (n - 1))) >> n; }
+
+// The even and odd halves of one 8-point IDCT (jidctint.c, both passes):
+// in[0..7] are the dequantised (pass 1) or workspace (pass 2) values of
+// one column or row; out[k] gets output k before its descale.
+inline void islow_1d(const int64_t* in, int64_t* out) {
+  int64_t z2 = in[2], z3 = in[6];
+  int64_t z1 = (z2 + z3) * FIX_0_541196100;
+  int64_t tmp2 = z1 + z3 * -FIX_1_847759065_ISLOW;
+  int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+  int64_t tmp0 = (in[0] + in[4]) * (int64_t{1} << kIslowConstBits);
+  int64_t tmp1 = (in[0] - in[4]) * (int64_t{1} << kIslowConstBits);
+  int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  tmp0 = in[7];
+  tmp1 = in[5];
+  tmp2 = in[3];
+  tmp3 = in[1];
+  z1 = tmp0 + tmp3;
+  z2 = tmp1 + tmp2;
+  z3 = tmp0 + tmp2;
+  int64_t z4 = tmp1 + tmp3;
+  int64_t z5 = (z3 + z4) * FIX_1_175875602;
+  tmp0 *= FIX_0_298631336;
+  tmp1 *= FIX_2_053119869;
+  tmp2 *= FIX_3_072711026;
+  tmp3 *= FIX_1_501321110;
+  z1 *= -FIX_0_899976223;
+  z2 *= -FIX_2_562915447;
+  z3 = z3 * -FIX_1_961570560 + z5;
+  z4 = z4 * -FIX_0_390180644 + z5;
+  tmp0 += z1 + z3;
+  tmp1 += z2 + z4;
+  tmp2 += z2 + z3;
+  tmp3 += z1 + z4;
+  out[0] = tmp10 + tmp3;
+  out[7] = tmp10 - tmp3;
+  out[1] = tmp11 + tmp2;
+  out[6] = tmp11 - tmp2;
+  out[2] = tmp12 + tmp1;
+  out[5] = tmp12 - tmp1;
+  out[3] = tmp13 + tmp0;
+  out[4] = tmp13 - tmp0;
+}
+
+void idct_islow(const int16_t* in, const int* quant, uint8_t* out, int stride) {
+  int ws[64];
+  int64_t v[8], r[8];
+  // Pass 1: columns, scaled up by 2**kPass1Bits.
+  for (int col = 0; col < 8; ++col) {
+    const int16_t* ip = in + col;
+    const int* q = quant + col;
+    int* w = ws + col;
+    if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 && ip[40] == 0 && ip[48] == 0 &&
+        ip[56] == 0) {
+      int dcval = static_cast<int>(static_cast<int64_t>(ip[0]) * q[0] * (1 << kPass1Bits));
+      for (int k = 0; k < 8; ++k) w[8 * k] = dcval;
+      continue;
+    }
+    for (int k = 0; k < 8; ++k) v[k] = static_cast<int64_t>(ip[8 * k]) * q[8 * k];
+    islow_1d(v, r);
+    for (int k = 0; k < 8; ++k) w[8 * k] = static_cast<int>(descale(r[k], kIslowConstBits - kPass1Bits));
+  }
+  // Pass 2: rows, descaled by 8 and 2**kPass1Bits into the range limit.
+  constexpr int kShift = kIslowConstBits + kPass1Bits + 3;
+  for (int row = 0; row < 8; ++row) {
+    const int* w = ws + 8 * row;
+    uint8_t* o = out + static_cast<size_t>(row) * stride;
+    if (w[1] == 0 && w[2] == 0 && w[3] == 0 && w[4] == 0 && w[5] == 0 && w[6] == 0 && w[7] == 0) {
+      uint8_t dcval = kIdctLimit.t[static_cast<int>(descale(w[0], kPass1Bits + 3)) & 1023];
+      for (int c = 0; c < 8; ++c) o[c] = dcval;
+      continue;
+    }
+    for (int k = 0; k < 8; ++k) v[k] = w[k];
+    islow_1d(v, r);
+    for (int k = 0; k < 8; ++k) o[k] = kIdctLimit.t[static_cast<int>(descale(r[k], kShift)) & 1023];
+  }
+}
+
+// One component's samples, [blocks_h * 8][blocks_w * 8], through the IDCT
+// that dct_method names.
+std::vector<uint8_t> component_samples(const Decoder& d, const Component& c, DctMethod method) {
   int mult[64];
-  for (int i = 0; i < 64; ++i)  // jddctmgr.c: DESCALE(q * aanscale, 14 - 2), rounded
-    mult[i] = (static_cast<int32_t>(d.qt[c.tq][i]) * kAanScales[i] + (1 << 11)) >> 12;
+  for (int i = 0; i < 64; ++i)
+    mult[i] = method == kIslow
+                  ? static_cast<int>(d.qt[c.tq][i])  // jddctmgr.c: the table as it is
+                  // jddctmgr.c: DESCALE(q * aanscale, 14 - 2), rounded
+                  : (static_cast<int32_t>(d.qt[c.tq][i]) * kAanScales[i] + (1 << 11)) >> 12;
+  auto idct = method == kIslow ? idct_islow : idct_ifast;
   int stride = c.blocks_w * 8;
   std::vector<uint8_t> plane(static_cast<size_t>(stride) * c.blocks_h * 8);
   // Only the blocks that hold samples of the image are transformed.
   for (int by = 0; by < c.height_in_blocks; ++by)
     for (int bx = 0; bx < c.width_in_blocks; ++bx)
-      idct_ifast(&c.coef[(static_cast<size_t>(by) * c.blocks_w + bx) * 64], mult,
-                 &plane[static_cast<size_t>(by) * 8 * stride + bx * 8], stride);
+      idct(&c.coef[(static_cast<size_t>(by) * c.blocks_w + bx) * 64], mult,
+           &plane[static_cast<size_t>(by) * 8 * stride + bx * 8], stride);
   return plane;
 }
 
@@ -683,7 +793,8 @@ struct YccTables {
 };
 const YccTables kYcc;
 
-std::vector<uint8_t> decode(const uint8_t* data, size_t len, int channels, int* h, int* w, int* c) {
+std::vector<uint8_t> decode(const uint8_t* data, size_t len, int channels, DctMethod method, int* h, int* w,
+                            int* c) {
   Decoder d(data, len);
   d.parse();
   const int n = static_cast<int>(d.comps.size());
@@ -699,7 +810,7 @@ std::vector<uint8_t> decode(const uint8_t* data, size_t len, int channels, int* 
     if (d.max_h % comp.h || d.max_v % comp.v || rh > 2 || rv > 2)
       unsupported("JPEG sampling ratio other than 1 or 2 per axis");
     std::vector<uint8_t> res(npix);
-    upsample(comp, component_samples(d, comp), d.max_h, d.max_v, W, H, res.data());
+    upsample(comp, component_samples(d, comp, method), d.max_h, d.max_v, W, H, res.data());
     return res;
   };
   if (n == 1) {
@@ -1127,13 +1238,15 @@ void report(const Failure& f, char* err, int errlen) {
 extern "C" {
 
 // Decodes a JPEG into a malloc'd buffer of h * w * c bytes (free it with
-// opz_jpeg_free). channels is 0 (the file's own: 1 or 3), 1 or 3. Returns
-// 0, or a status with a message in err.
-int opz_jpeg_decode(const uint8_t* data, size_t len, int channels, uint8_t** out, int* h, int* w, int* c,
-                    char* err, int errlen) {
+// opz_jpeg_free). channels is 0 (the file's own: 1 or 3), 1 or 3;
+// dct_method 0 is IFAST, 1 ISLOW. Returns 0, or a status with a message in
+// err.
+int opz_jpeg_decode(const uint8_t* data, size_t len, int channels, int dct_method, uint8_t** out, int* h,
+                    int* w, int* c, char* err, int errlen) {
   *out = nullptr;
   try {
-    std::vector<uint8_t> pixels = decode(data, len, channels, h, w, c);
+    if (dct_method != kIfast && dct_method != kIslow) throw Failure{kBadArgument, "dct_method must be 0 or 1"};
+    std::vector<uint8_t> pixels = decode(data, len, channels, static_cast<DctMethod>(dct_method), h, w, c);
     *out = static_cast<uint8_t*>(std::malloc(pixels.size() ? pixels.size() : 1));
     if (!*out) throw Failure{kNoMemory, "out of memory"};
     std::memcpy(*out, pixels.data(), pixels.size());

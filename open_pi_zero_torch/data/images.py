@@ -18,7 +18,8 @@ the port's own files take the fast path. It deflates at zlib level 1: on
 smooth 224² frames a tenth of level 6's time for some 6% more bytes.
 
 JPEG goes through ``data/jpeg.py``, the port's own codec (no libjpeg,
-PIL, cv2 or TensorFlow), bit for bit ``tf.io.decode_jpeg``'s default.
+PIL, cv2 or TensorFlow), bit for bit ``tf.io.decode_jpeg``'s default
+(IFAST) unless ``dct_method`` asks for ISLOW.
 Real OXE datasets, the JAX package's demo writers and the port's store
 JPEG; PNG stays for datasets that hold it.
 """
@@ -168,12 +169,13 @@ def encode_png(image: np.ndarray) -> bytes:
             + _chunk(b"IEND", b""))
 
 
-def decode_image(data: bytes, channels: int = 3) -> np.ndarray:
+def decode_image(data: bytes, channels: int = 3, dct_method: str = "INTEGER_FAST") -> np.ndarray:
     """Encoded image bytes -> uint8 [H, W, channels] (``tf.io.decode_image``
     with ``expand_animations=False``): PNG or JPEG, ``channels`` None or 0
-    for the file's own."""
+    for the file's own; a JPEG's IDCT is ``dct_method``'s
+    (``jpeg.decode_jpeg``)."""
     if data.startswith(PNG_SIGNATURE):
         return decode_png(data, channels)
     if data.startswith(JPEG_SIGNATURE):
-        return decode_jpeg(data, channels)
+        return decode_jpeg(data, channels, dct_method)
     raise ValueError(f"unknown image format (first bytes {data[:8]!r})")

@@ -6,8 +6,10 @@ and ``tf.io.encode_jpeg``).
 The codec needs no libjpeg, PIL, cv2 or TensorFlow. ``ops/_build.py``
 compiles it with the host C++ compiler at first use; a failed build
 raises with the compiler's output. ``decode_jpeg`` is bit for bit
-``tf.io.decode_jpeg``'s default (libjpeg's IFAST IDCT and fancy
-upsampling), ``encode_jpeg``'s bytes are ``tf.io.encode_jpeg``'s. The C
+``tf.io.decode_jpeg`` (fancy upsampling) at either integer
+``dct_method``: its default IFAST IDCT, or libjpeg's own default ISLOW
+(``INTEGER_ACCURATE``, the JAX package's ``native_io.decode_jpeg``);
+``encode_jpeg``'s bytes are ``tf.io.encode_jpeg``'s. The C
 side owns its buffers and frees them; this side copies out. Calls go
 through ``ctypes.CDLL``, which releases the GIL, so the pipeline's threads
 decode in parallel.
@@ -27,6 +29,10 @@ SOURCE = "jpeg_codec"
 _ERROR_BYTES = 256
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _EXCEPTIONS = {1: NotImplementedError, 2: ValueError, 3: ValueError, 4: MemoryError}
+# tf.io.decode_jpeg's dct_method names -> the codec's IDCT ("" is TensorFlow's
+# default, IFAST). TensorFlow's INTEGER_FAST and "" run libjpeg's JDCT_IFAST,
+# INTEGER_ACCURATE its JDCT_ISLOW.
+DCT_METHODS = {"": 0, "INTEGER_FAST": 0, "INTEGER_ACCURATE": 1}
 
 
 @functools.lru_cache(maxsize=None)
@@ -36,7 +42,7 @@ def library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     lib.opz_jpeg_decode.restype = ctypes.c_int
     lib.opz_jpeg_decode.argtypes = [
-        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.POINTER(_U8P),
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int, ctypes.POINTER(_U8P),
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
         ctypes.c_char_p, ctypes.c_int,
     ]
@@ -54,22 +60,26 @@ def _raise(status: int, message: ctypes.Array) -> None:
     raise _EXCEPTIONS.get(status, RuntimeError)(message.value.decode(errors="replace"))
 
 
-def decode_jpeg(data: bytes, channels: Optional[int] = None) -> np.ndarray:
+def decode_jpeg(data: bytes, channels: Optional[int] = None, dct_method: str = "INTEGER_FAST") -> np.ndarray:
     """JPEG bytes -> uint8 [H, W, C], as ``tf.io.decode_jpeg(data,
-    channels)``: ``channels`` None or 0 gives the file's own (1 or 3), 1
-    gray (a colour file's Y), 3 RGB (a gray file's Y repeated).
+    channels, dct_method=dct_method)``: ``channels`` None or 0 gives the
+    file's own (1 or 3), 1 gray (a colour file's Y), 3 RGB (a gray file's Y
+    repeated); ``dct_method`` ``""`` or ``"INTEGER_FAST"`` (TensorFlow's
+    default, IFAST) or ``"INTEGER_ACCURATE"`` (ISLOW, libjpeg's default).
 
     Raises NotImplementedError, naming what, for progressive, lossless,
     arithmetic-coded, 12-bit, 4-component and RGB-coded files, ValueError
-    for truncated or corrupt data."""
+    for truncated or corrupt data or another ``dct_method``."""
     channels = channels or 0
     if channels not in (0, 1, 3):
         raise ValueError(f"JPEG decodes to 1 or 3 channels, not {channels}")
+    if dct_method not in DCT_METHODS:
+        raise ValueError(f"dct_method {dct_method!r} is not one of {sorted(DCT_METHODS)}")
     data = bytes(data)
     lib = library()
     out, h, w, c = _U8P(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     message = ctypes.create_string_buffer(_ERROR_BYTES)
-    status = lib.opz_jpeg_decode(data, len(data), channels, ctypes.byref(out), ctypes.byref(h),
+    status = lib.opz_jpeg_decode(data, len(data), channels, DCT_METHODS[dct_method], ctypes.byref(out), ctypes.byref(h),
                                  ctypes.byref(w), ctypes.byref(c), message, _ERROR_BYTES)
     try:
         if status:

@@ -12,6 +12,14 @@ quality 95 in a thread pool, and written before the next is read. The
 codec releases the GIL, so threads share the work without pickling
 episodes across processes. The output has the JAX package's leaf specs and
 shard count; empty byte strings (padding frames) pass through.
+
+JPEG frames decode with libjpeg's ISLOW IDCT (``INTEGER_ACCURATE``), not
+the training pipeline's IFAST: the JAX package decodes them through
+``native_io.decode_jpeg``, a host libjpeg at its default (ISLOW), and
+falls back to TensorFlow only where that library fails, as it does on a
+PNG frame. The two IDCTs give frames several levels apart, which the
+resize and the re-encode carry into the output. PNG frames decode as
+TensorFlow's do (lossless, no IDCT).
 """
 
 from __future__ import annotations
@@ -30,11 +38,13 @@ from open_pi_zero_torch.data.obs_transforms import resize_image
 log = logging.getLogger(__name__)
 
 JPEG_QUALITY = 95
+JPEG_DCT_METHOD = "INTEGER_ACCURATE"  # the JAX package's libjpeg decode (module docstring)
 
 
 def resize_frame(encoded: bytes, size: Tuple[int, int]) -> np.ndarray:
-    """An encoded frame -> RGB uint8 [*size, 3], resized."""
-    return resize_image(decode_image(encoded, 3), size)
+    """An encoded frame -> RGB uint8 [*size, 3], resized (a JPEG decoded
+    with ``JPEG_DCT_METHOD``)."""
+    return resize_image(decode_image(encoded, 3, JPEG_DCT_METHOD), size)
 
 
 def resize_encode(encoded: bytes, size: Tuple[int, int]) -> bytes:

@@ -5,7 +5,9 @@ Any ``ckpt_N/params`` export (the EMA-blended eval params that
 ``training/checkpoint.py:save_checkpoint`` writes beside the state) is
 scored through the same ``run_eval`` path ``demo_closed_loop`` uses, so a
 learning curve's intermediate checkpoints, or a run cut short, are
-comparable with the full run's result.
+comparable with the full run's result. An orbax checkpoint of the JAX
+package raises with the command line that converts it
+(``training/checkpoint.refuse_orbax``).
 
   python -m open_pi_zero_torch.scripts.eval_scaleup_ckpt --workdir build/opz_reach \\
       --ckpt ckpt_4000 --hidden 96 --layers 3 --heads 4 --kv-heads 1 \\

@@ -23,8 +23,9 @@ reference ``.pt`` (through ``models/convert.py``) or a checkpoint
 directory of the port's trainer (``training/checkpoint.py``: its eval
 export); LoRA adapters are merged and NF4 bases decoded before the serving
 layout, as the JAX package's EvalAgent does. An orbax directory of the JAX
-package raises NotImplementedError (ROADMAP.md queue 1, reading the JAX
-package's orbax checkpoints).
+package raises NotImplementedError with the command line of
+``convert_jax_checkpoint.py`` (repository root), which converts it into the
+port's format where JAX and orbax are installed.
 """
 
 from __future__ import annotations
@@ -44,8 +45,6 @@ from open_pi_zero_torch.ops import lora as lora_lib
 from open_pi_zero_torch.training import checkpoint as ckpt_lib
 
 log = logging.getLogger("serve")
-
-ORBAX_ITEM = "ROADMAP.md queue 1 (reading the JAX package's orbax checkpoints)"
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -122,9 +121,10 @@ def load_params(cfg, model_cfg, dtype, device, random_init: bool) -> dict:
     elif ckpt_lib.is_checkpoint(path):
         params = ckpt_lib.restore_params(path, abstract_params(model_cfg), device)
     else:
+        ckpt_lib.refuse_orbax(path)
         raise NotImplementedError(
-            f"{path}: neither a .pt nor a checkpoint directory of the port's trainer; reading the JAX "
-            f"package's orbax directories waits in {ORBAX_ITEM}"
+            f"{path}: neither a .pt nor a checkpoint directory of the port's trainer (the JAX package's orbax "
+            f"checkpoints convert into one: {ckpt_lib.convert_hint(path)})"
         )
     params = convert.to_dtype(params, dtype, device)
     return fuse.prepare_for_serving(merge_and_decode(params, model_cfg, dtype), **knobs)

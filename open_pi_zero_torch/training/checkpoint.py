@@ -3,15 +3,19 @@
 
 The JAX package writes orbax directories, which the card's machine cannot
 read (no orbax, no tensorstore): the port keeps JAX's layout and semantics
-in its own format (ROADMAP.md §3, deliberate differences). A checkpoint
-directory holds
+in its own format. ``convert_jax_checkpoint.py`` at the repository's root,
+run where JAX and orbax are, converts a JAX checkpoint's params into it;
+every loader here refuses an orbax directory (``refuse_orbax``, which
+reads orbax's metadata files, no orbax import) with that command line. A
+checkpoint directory holds
 
   state/state.pt     the whole TrainState: the params, the optimizer's
                      ``state_dict`` (Adam moments, int8 payloads and their
                      scales under AdamW8bit, each group's count), the update
                      count, the generator's state and the EMA/SWA average
   params/params.pt   the eval export (``averaging.eval_params``) that
-                     serving loads (``restore_params``), when given
+                     serving loads (``restore_params``), when given; a
+                     params-only export (``save_params``) holds this alone
   meta.json          host metadata (cnt_batch, wandb_id, ``world_size`` when
                      more than one process wrote it, and ``quant_layout_version``
                      when the params carry quantized bases), written last,
@@ -53,6 +57,32 @@ PARAMS_DIR = "params"
 META_FILE = "meta.json"
 STATE_FILE = "state.pt"
 PARAMS_FILE = "params.pt"
+# files that orbax writes into every checkpoint item it saves
+ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "_METADATA")
+CONVERT_COMMAND = "python convert_jax_checkpoint.py {src} <out_dir> --config <the run's yaml> [key=value ...]"
+
+
+def is_orbax_checkpoint(path: str) -> bool:
+    """True if ``path``, or its ``params/`` or ``state/``, holds orbax's
+    metadata files: a checkpoint of the JAX package."""
+    return any(os.path.isfile(os.path.join(path, sub, marker))
+               for sub in ("", PARAMS_DIR, STATE_DIR) for marker in ORBAX_MARKERS)
+
+
+def convert_hint(path: str) -> str:
+    """How to convert the JAX package's orbax checkpoint at ``path`` into
+    this module's format."""
+    return ("run, where JAX and orbax are installed, from the repository's root: "
+            + CONVERT_COMMAND.format(src=path) + "; then load <out_dir>")
+
+
+def refuse_orbax(path: str) -> None:
+    """Raise NotImplementedError, with the converter's command line, if
+    ``path`` is an orbax checkpoint of the JAX package."""
+    if is_orbax_checkpoint(path):
+        raise NotImplementedError(
+            f"{path} is an orbax checkpoint of the JAX package, which the port does not read: {convert_hint(path)}"
+        )
 
 
 def _save(obj, path: str) -> None:
@@ -172,6 +202,22 @@ def save_checkpoint(
         dist.barrier()
 
 
+def save_params(path: str, params: dict, extra: Optional[dict] = None) -> None:
+    """A params-only export for eval and serving: ``params`` under
+    ``path/params/``, then ``meta.json`` with ``extra`` and, for quantized
+    bases, ``quant_layout_version``, atomically as ``save_checkpoint``
+    writes them. ``restore_params`` reads it and ``is_checkpoint`` knows
+    it. In a world of more than one process every rank calls it; rank 0
+    writes."""
+    path = os.path.abspath(path)
+    if process_index() == 0:
+        os.makedirs(os.path.join(path, PARAMS_DIR), exist_ok=True)
+        _save(_detached(params), os.path.join(path, PARAMS_DIR, PARAMS_FILE))
+        _write_meta(path, {**(extra or {}), **_quant_meta(params)})
+    if world_size() > 1:
+        dist.barrier()
+
+
 def restore_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, dict]:
     """Restore the checkpoint at ``path`` into ``state`` (from
     ``init_train_state`` on the same tree and optimizer: its structure,
@@ -181,6 +227,7 @@ def restore_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, dict]:
     its slices of the moments and the average, whatever world size wrote
     the checkpoint. Returns (state, the metadata)."""
     path = os.path.abspath(path)
+    refuse_orbax(path)
     saved = torch.load(os.path.join(path, STATE_DIR, STATE_FILE), map_location="cpu", weights_only=True, mmap=True)
     extra = _read_meta(path)
     _check_tree(state.params, saved["params"], "params")
@@ -215,8 +262,10 @@ def restore_params(path: str, abstract_params: Optional[dict] = None, device="cu
     raises without a card unless ``device='cpu'``). With
     ``abstract_params`` (real or ``meta`` tensors) the tree must match its
     structure, shapes and dtypes. A directory with a TrainState but no
-    eval export raises FileNotFoundError."""
+    eval export raises FileNotFoundError, an orbax directory of the JAX
+    package NotImplementedError (``refuse_orbax``)."""
     path = os.path.abspath(path)
+    refuse_orbax(path)
     device = resolve_device(device)
     if not os.path.exists(os.path.join(path, PARAMS_DIR)) and os.path.exists(os.path.join(path, STATE_DIR)):
         raise FileNotFoundError(

@@ -8,8 +8,11 @@
 
 Draws come from an explicit ``torch.Generator``. ``torch.distributions.Beta``
 takes no generator, so the beta branch draws Beta(alpha, 1) as U^(1/alpha)
-with U uniform from the generator (its CDF is z^alpha). Every config has
-``flow_beta: 1.0``; any other beta raises.
+with U uniform from the generator (its CDF is z^alpha; every config has
+``flow_beta: 1.0``, and resumes replay this stream), and Beta(alpha, beta)
+for beta != 1 as X / (X + Y) with X ~ Gamma(alpha) and Y ~ Gamma(beta),
+both from the generator (``torch._standard_gamma``). JAX draws from its
+own generator: the two match in law, not draw by draw.
 """
 
 from __future__ import annotations
@@ -29,11 +32,13 @@ def sample_flow_time(generator: torch.Generator, bsz: int, cfg: PiZeroConfig) ->
         i = torch.arange(bsz, dtype=torch.float32, device=device)
         return torch.remainder(offset + i / bsz, 1 - STRATIFIED_EPS)
     if cfg.flow_sampling == "beta":
-        if cfg.flow_beta != 1.0:
-            raise NotImplementedError(
-                f"flow_beta={cfg.flow_beta}: only Beta(alpha, 1) is ported (every config uses 1.0)"
-            )
-        u = torch.rand((bsz,), generator=generator, device=device)
-        z = u.pow(1.0 / cfg.flow_alpha)
+        if cfg.flow_beta == 1.0:
+            u = torch.rand((bsz,), generator=generator, device=device)
+            z = u.pow(1.0 / cfg.flow_alpha)
+        else:
+            shape = torch.full((2, bsz), cfg.flow_alpha, dtype=torch.float32, device=device)
+            shape[1] = cfg.flow_beta
+            x, y = torch._standard_gamma(shape, generator=generator)
+            z = x / (x + y)
         return ((1.0 - cfg.flow_sig_min) * (1.0 - z)).to(torch.float32)
     raise ValueError(f"invalid flow_sampling: {cfg.flow_sampling}")

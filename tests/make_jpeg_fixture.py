@@ -10,8 +10,10 @@ Run where TensorFlow is installed: ``python -m tests.make_jpeg_fixture``.
 Keys, for each case name: ``frame_<name>`` (uint8 [H, W, C]; a case
 that encodes the frame of another names it in ``frame_of_<name>``
 instead), ``jpeg_<name>`` (the file's bytes as uint8), ``decoded_<name>``
-(uint8 [H, W, C], ``tf.io.decode_jpeg`` at its default), and
-``settings_<name>`` (quality, chroma downsampling).
+(uint8 [H, W, C], ``tf.io.decode_jpeg`` at its default),
+``decoded_accurate_<name>`` (the same with ``dct_method=
+"INTEGER_ACCURATE"``, libjpeg's ISLOW IDCT) and ``settings_<name>``
+(quality, chroma downsampling).
 """
 
 from __future__ import annotations
@@ -61,6 +63,12 @@ def load(path: str = PATH):
     return out
 
 
+def load_accurate(path: str = PATH) -> dict:
+    """{name: TensorFlow's ``INTEGER_ACCURATE`` decode} from the fixture."""
+    with np.load(path) as z:
+        return {k[len("decoded_accurate_"):]: z[k] for k in z.files if k.startswith("decoded_accurate_")}
+
+
 def main() -> None:
     import tensorflow as tf
 
@@ -75,6 +83,7 @@ def main() -> None:
         data = tf.io.encode_jpeg(frame, quality=quality, chroma_downsampling=chroma).numpy()
         arrays[f"jpeg_{name}"] = np.frombuffer(data, np.uint8)
         arrays[f"decoded_{name}"] = tf.io.decode_jpeg(data).numpy()
+        arrays[f"decoded_accurate_{name}"] = tf.io.decode_jpeg(data, dct_method="INTEGER_ACCURATE").numpy()
         arrays[f"settings_{name}"] = np.array([quality, int(chroma)], np.int32)
     np.savez_compressed(PATH, **arrays)
     print(f"wrote {PATH} ({os.path.getsize(PATH)} bytes)")

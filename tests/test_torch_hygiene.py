@@ -2,8 +2,15 @@
 orbax, tensorflow, transformers, cv2, PIL nor the JAX package; its source
 names none of them (simpler_env and imageio only inside the functions that
 need them); its host C++ (``csrc/*.cc``, the JPEG codec) includes no
-libjpeg header and its build links no library; and its serving loop
-answers concurrent requests with a tiny model on the CPU."""
+libjpeg header and its build links no library; neither the port nor
+``chip_smoke.py`` imports or names the module ``convert_jax_checkpoint``
+(only its command line, ``python convert_jax_checkpoint.py ...``, in the
+loaders' errors); and its serving loop answers concurrent requests with a
+tiny model on the CPU.
+
+The converter itself (``convert_jax_checkpoint.py`` at the repository's
+root) is not scanned: it is not part of the port, and it imports JAX and
+the JAX package by design, running where they are installed."""
 
 import json
 import os
@@ -66,6 +73,11 @@ def test_import_leaves_jax_and_yaml_out():
     for name in ("parallel.mesh", "parallel.collectives", "parallel.sharding", "parallel.ranks",
                  "scripts.dryrun_multiprocess"):
         assert f"open_pi_zero_torch.{name}" in modules
+    # and the last leftovers: module specs, the readiness harness and the
+    # checking scripts
+    for name in ("utils.spec", "scripts.verify_checkpoint", "scripts.model_memory", "scripts.check_sampling",
+                 "scripts.check_data"):
+        assert f"open_pi_zero_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -104,7 +116,21 @@ def test_sources_import_no_jax_package():
     assert hits == []
     lazy = [p.relative_to(REPO).as_posix() for p in _port_sources()
             if re.search(r"^\s+(import|from)\s+(simpler_env|imageio)\b", p.read_text(), re.M)]
-    assert lazy == ["open_pi_zero_torch/agents/env_adapter.py", "open_pi_zero_torch/agents/eval.py"]
+    assert lazy == ["open_pi_zero_torch/agents/env_adapter.py", "open_pi_zero_torch/agents/eval.py",
+                    "open_pi_zero_torch/scripts/verify_checkpoint.py"]
+
+
+def test_sources_neither_import_nor_name_the_converter():
+    # the loaders' errors give the converter's command line, which names
+    # its file; any other mention (an import, an attribute, a module name
+    # handed to importlib or runpy) ties the port to a script that needs JAX
+    assert (REPO / "convert_jax_checkpoint.py").exists()
+    assert REPO / "convert_jax_checkpoint.py" not in _port_sources()
+    pattern = re.compile(r"\bconvert_jax_checkpoint\b(?!\.py)")
+    hits = [f"{p.relative_to(REPO)}:{i + 1}: {line.strip()}" for p in _port_sources()
+            for i, line in enumerate(p.read_text().splitlines()) if pattern.search(line)]
+    assert hits == []
+    assert any("python convert_jax_checkpoint.py" in p.read_text() for p in _port_sources())
 
 
 def test_host_sources_need_no_libjpeg():

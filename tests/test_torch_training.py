@@ -333,8 +333,12 @@ def test_sample_flow_time_beta_distribution():
     # and JAX's sampler draws from the same law: means agree within 5 standard errors
     jt = np.asarray(j_sampling.sample_flow_time(jax.random.key(0), n, cfg), np.float64)
     assert abs(jt.mean() - t.mean()) < 5 * t_max * np.sqrt(2 * var / n)
-    with pytest.raises(NotImplementedError):
-        t_sampling.sample_flow_time(torch.Generator(), 4, dataclasses.replace(cfg, flow_beta=2.0))
+    # beta != 1 draws Beta(alpha, beta) (its law: tests/test_torch_leftovers.py)
+    b = 2.0
+    t2 = t_sampling.sample_flow_time(torch.Generator().manual_seed(0), n, dataclasses.replace(cfg, flow_beta=b))
+    z2 = 1 - t2.double().numpy() / t_max
+    var2 = a * b / ((a + b) ** 2 * (a + b + 1))
+    assert t2.dtype == torch.float32 and abs(z2.mean() - a / (a + b)) < 5 * np.sqrt(var2 / n)
 
 
 @pytest.mark.parametrize(
