@@ -32,7 +32,7 @@ import numpy as np
 
 from open_pi_zero_torch.data import normalization as norm_lib
 from open_pi_zero_torch.data import obs_transforms, rlds, traj_transforms
-from open_pi_zero_torch.data.streams import ordered_map, shuffle_buffer
+from open_pi_zero_torch.data.streams import one_blas_thread, ordered_map, shuffle_buffer
 
 REQUIRED_KEYS = {"observation", "action"}
 AUTOTUNE = -1  # tf.data.AUTOTUNE: the port takes the host's core count
@@ -322,9 +322,11 @@ class FrameDataset:
 
     def frames(self, index: int = 0, count: int = 1) -> Iterator[dict]:
         """The frames of shard ``index`` of ``count`` (every count-th frame
-        of the stream from ``index``), unbatched."""
+        of the stream from ``index``), unbatched; numpy's BLAS runs on one
+        thread from here on (``streams.one_blas_thread``)."""
         if not 0 <= index < count:
             raise ValueError(f"shard {index} of {count}")
+        one_blas_thread()
         return self._make_frames(index, count)
 
     def __iter__(self) -> Iterator[dict]:

@@ -1,15 +1,20 @@
 """Host-side stream helpers of the data pipeline (what ``tf.data`` gives the
 JAX package): a shuffle buffer on an explicit generator, an ordered map
-over a thread pool, and a background prefetch. Each output order depends
-only on the input order and the generator, never on thread timing."""
+over a thread pool, a background prefetch, and numpy's BLAS held to one
+thread. Each output order depends only on the input order and the
+generator, never on thread timing."""
 
 from __future__ import annotations
 
 import collections
+import ctypes
+import functools
+import glob
+import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterable, Iterator
+from typing import Callable, Iterable, Iterator, Optional
 
 import numpy as np
 
@@ -94,3 +99,36 @@ def prefetch(items: Iterable, depth: int) -> Iterator:
     finally:
         stop.set()
         thread.join(timeout=10)
+
+
+# numpy's bundled OpenBLAS: the setter's name in its wheels (numpy 2's
+# scipy-openblas with 64-bit ints, then older builds)
+_BLAS_SETTERS = ("scipy_openblas_set_num_threads64_", "scipy_openblas_set_num_threads",
+                 "openblas_set_num_threads64_", "openblas_set_num_threads")
+
+
+@functools.lru_cache(maxsize=None)
+def _blas_setter() -> Optional[Callable[[int], None]]:
+    numpy_dir = os.path.dirname(np.__file__)
+    for path in sorted(glob.glob(os.path.join(numpy_dir, os.pardir, "numpy.libs", "*openblas*"))
+                       + glob.glob(os.path.join(numpy_dir, ".libs", "*openblas*"))):
+        lib = ctypes.CDLL(path)  # the handle numpy already holds
+        for name in _BLAS_SETTERS:
+            setter = getattr(lib, name, None)
+            if setter is not None:
+                setter.argtypes, setter.restype = [ctypes.c_int], None
+                return setter
+    return None
+
+
+def one_blas_thread() -> bool:
+    """Run numpy's BLAS calls on one thread, in this whole process;
+    whether numpy's OpenBLAS was found. The pipeline's parallelism is its
+    own threads (``ordered_map``): a BLAS pool on every core under each of
+    them spins on the cores that those threads and the trainer need, and
+    the frame transforms' small products gain nothing from it. A product's
+    values do not depend on the count."""
+    setter = _blas_setter()
+    if setter is not None:
+        setter(1)
+    return setter is not None

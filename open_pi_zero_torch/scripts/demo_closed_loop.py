@@ -21,9 +21,11 @@ batch (``per_device_batch_size`` = ``global_batch_size``, no gradient
 accumulation). ``--resume`` continues from the newest complete checkpoint
 in ``--workdir``, so a run longer than one session of the card is split
 into several calls. Besides the JAX script's JSON keys the result holds
-the card's name and power limit (``device``), the median update time
-(first update left out), the batch wait per update, the kernels'
-launches per update and the loss per 50 updates. ``--seed`` and
+the card's name and power limit (``device``), the ``seed``, the median
+update time (first update left out), the batch wait per update, the
+card's utilization while it trains (``nvidia-smi``'s samples, of every
+process on the card), the kernels' launches per update and the loss per
+50 updates. ``--seed`` and
 ``--init-params`` (the seeded init replaced by a params export, e.g. the
 JAX package's init converted by ``tests/demo_reference_inputs.py``) serve
 diagnostics of a run; the JAX script's recipe leaves both unset.
@@ -145,6 +147,38 @@ def device_info(device: torch.device) -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+class UtilizationSampler:
+    """The card's utilization as nvidia-smi samples it (the share of each
+    sample period in which a kernel ran, every ``period_ms``) while the
+    ``with`` block runs; every process on the card counts. ``summary()``
+    is None off the card."""
+
+    def __init__(self, device: torch.device, period_ms: int = 1000):
+        self.device, self.period_ms, self.samples = device, period_ms, []
+
+    def __enter__(self):
+        self.proc = None
+        if self.device.type == "cuda":
+            self.proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=utilization.gpu", "--format=csv,noheader,nounits",
+                 "-i", str(self.device.index or 0), "-lms", str(self.period_ms)],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc is not None:
+            self.proc.terminate()
+            out, _ = self.proc.communicate(timeout=60)
+            self.samples = [float(x) for x in out.split() if x.replace(".", "", 1).isdigit()]
+
+    def summary(self):
+        if not self.samples:
+            return None
+        return {"mean_percent": statistics.fmean(self.samples), "median_percent": statistics.median(self.samples),
+                "samples": len(self.samples), "period_ms": self.period_ms,
+                "of": "the whole card: every process on it, not this run alone"}
 
 
 class UpdateTimes:
@@ -424,7 +458,8 @@ def main(argv=None) -> dict:
     timed = UpdateTimes(agent)
     first_update = agent.state.step
     launches = (fa.launches, fa.bwd_launches)
-    state = agent.run()
+    with UtilizationSampler(device) as utilization:
+        state = agent.run()
     updates = max(1, state.step - first_update)
     k1_per_update = (fa.launches - launches[0]) / updates
     bwd_per_update = (fa.bwd_launches - launches[1]) / updates
@@ -480,8 +515,10 @@ def main(argv=None) -> dict:
         "devices": 1,
         # the port's own fields: the card and what its updates cost
         "device": device_info(device),
+        "seed": args.seed,
         "updates_this_run": [first_update + 1, first_update + updates],  # a resumed run starts past 1
         **timed.summary(),
+        "card_utilization": utilization.summary(),
         "k1_launches_per_update": k1_per_update,
         "bwd_launches_per_update": bwd_per_update,
     }

@@ -16,7 +16,9 @@ images are within one level of JAX's (the resize's float sums run in
 another order; tests/test_torch_data_transforms.py bounds them).
 
 The port's own properties: two ``iterator()`` calls give the same batches,
-whatever the thread counts; the batches have the JAX agent's structure
+whatever the thread counts; the frames run numpy's BLAS on one thread, and
+the resize's products are bitwise those of the BLAS pool on every core;
+the batches have the JAX agent's structure
 (keys, dtypes, shapes); ``oxe_simple``'s sampling frequencies match its
 transition-balanced weights within 4 binomial standard deviations."""
 
@@ -30,6 +32,7 @@ import torch
 
 from open_pi_zero_torch.agents import dataset as t_dataset
 from open_pi_zero_torch.config import ConfigDict
+from open_pi_zero_torch.data import obs_transforms
 from open_pi_zero_torch.data import oxe as t_oxe
 from open_pi_zero_torch.data import pipeline as t_pipeline
 from open_pi_zero_torch.scripts import run
@@ -216,6 +219,26 @@ def test_iterator_restarts_from_the_seed_whatever_the_threads(data_dir):
             assert x.dtype == y.dtype and x.tolist() == y.tolist(), name
     other = batches(t_dataset.RLDSInterleavedDataset(data_config(data_dir), train=True, seed=4), 1)[0]
     assert not np.array_equal(other["observation"]["image_primary"], first[0]["observation"]["image_primary"])
+
+
+@pytest.mark.parametrize("shape,size", [((256, 256, 3), (224, 224)), ((64, 80, 3), (224, 224)),
+                                        ((480, 640, 3), (256, 256))])
+def test_frames_run_numpy_blas_on_one_thread(data_dir, shape, size):
+    """FrameDataset.frames holds numpy's OpenBLAS to one thread (as
+    threadpoolctl reads it back); a resize's products under it are bitwise
+    those under a pool of every core, so the count changes no frame."""
+    import threadpoolctl
+
+    image = np.random.default_rng(0).integers(0, 256, shape, np.uint8)
+    with threadpoolctl.threadpool_limits(limits=os.cpu_count(), user_api="blas"):
+        many = obs_transforms.resize_float(image, size)
+        frames = t_dataset.RLDSInterleavedDataset(data_config(data_dir), train=True, seed=0).dataset.frames()
+        next(frames)
+        pools = [p for p in threadpoolctl.threadpool_info()  # numpy's (scipy has its own)
+                 if p["internal_api"] == "openblas" and "numpy" in os.path.basename(os.path.dirname(p["filepath"]))]
+        assert pools and all(p["num_threads"] == 1 for p in pools)
+        one = obs_transforms.resize_float(image, size)
+    assert np.array_equal(many, one)
 
 
 def test_batches_have_the_jax_agents_structure(data_dir, tmp_path):

@@ -58,7 +58,8 @@ def test_import_leaves_jax_and_yaml_out():
                  "scripts.try_checkpoint_in_simpler"):
         assert f"open_pi_zero_torch.{name}" in modules
     # and the demonstration scripts'
-    for name in ("scripts.demo_closed_loop", "scripts.eval_scaleup_ckpt", "scripts.e2e_tier_sweep"):
+    for name in ("scripts.demo_closed_loop", "scripts.eval_scaleup_ckpt", "scripts.e2e_tier_sweep",
+                 "scripts.merge_e2e_entry", "scripts.demo_entry"):
         assert f"open_pi_zero_torch.{name}" in modules
     # and the TF-free data pipeline's
     for name in ("data.tfrecord", "data.tf_example", "data.images", "data.rlds", "data.oxe", "data.traj_transforms",
