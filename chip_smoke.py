@@ -207,9 +207,7 @@ Phases, each of which raises on failure:
                scripts/serve.load_params serves ckpt_3 (merge, NF4 decode,
                production layout): one bf16 chunk, finite, in the clip,
                within the drift limit (mean L1 5e-3) of the merged float
-               params' bf16 chunk. One more update under torch.profiler,
-               device events only: K1's and the backward kernels' ms and
-               the card's busy share of the update
+               params' bf16 chunk
   8d. eval   — run right after 8b, in its temporary log_dir: the
                launcher (open_pi_zero_torch.scripts.run's main) evaluates
                8b's ckpt_3 with configs/eval/bridge.yaml, env.task=
@@ -274,8 +272,8 @@ Phases, each of which raises on failure:
                update time printed and one more update profiled
   9. shard-kernel — K1-shard (the kernel on one rank's shard under a
                mesh) in 2 spawned ranks, mesh (data=1, model=2), the world
-               that then runs phase 11 (phase 10 runs after both): each
-               rank's
+               that then runs phase 11 and tp-train (phase 10 runs after
+               them): each rank's
                shard against the plain version on the whole inputs sliced
                to it, at the main path's prefill and Euler shapes at B=1
                and B=2, a fully masked row, bf16 (2e-2) and fp32 (1e-4);
@@ -285,7 +283,12 @@ Phases, each of which raises on failure:
  10. shard-parity — bridge widths at depth 2, fp32, B=4, injected noise,
                mesh (data=2, model=2), 4 ranks: the TP x DP chunk gathered
                to rank 0 against the CPU's single-process chunk (plain
-               version), max|diff| <= 1e-3
+               version), max|diff| <= 1e-3; then in the same world one
+               DP x TP update (remat, EMA, B = 2, injected t and x0)
+               gathered to rank 0 against the CPU's single-process update
+               of the same params: loss and grad norm 1e-3 relative, params
+               1e-6, K1-shard's launches one card's, the replicated leaves
+               bitwise equal over each model group
  11. shard-main — the fp32 2-card TP recipe: full-width PiZeroConfig() in
                fp32, mesh (data=1, model=2), B=1. Every rank builds the
                params from seed 0 on its card; rank 0 first runs one
@@ -299,6 +302,18 @@ Phases, each of which raises on failure:
                forward K1-shard launches), the plain version and one
                library call, timed as in phase 4: `ms`, `plain_ms`,
                `library_ms` and `bound_ms` of the mot_attention_shard entry
+ 11b. tp-train — tensor-parallel training in the same world of 2 ranks:
+               full-width PiZeroConfig() in fp32, both towers cut to 4
+               layers (TP_LAYERS), remat, EMA, Adam eps 1e-3 and the full lr
+               as phase 7, B = 4 x 2 injected, 3 updates. Rank 0 first takes
+               them unsharded (one card's path), then both ranks take them
+               on their TP shards: every rank's K1 and backward launches
+               per update one card's (2 x 2 L each), every attention call
+               through K1-shard; the ranks' losses and norms alike, within
+               1e-3 relative of the unsharded ones, the gathered params
+               within 1e-6, the replicated leaves bitwise equal. Update ms
+               per rank, the model group's all-reduce ms, peak memory per
+               rank; the kernels line's tp_launches_per_update
  12. dp-main — data-parallel training and ZeRO-1: configs/train/
                bridge.yaml's QLoRA recipe at full width, both towers cut to
                4 layers (DP_LAYERS; --dp-layers 0 keeps the recipe's 18 and
@@ -2808,7 +2823,6 @@ def check_agent_run(dev, info: str, tmp: str) -> dict:
     torch.cuda.empty_cache()
 
     served = check_agent_serving(dev, cfg, mcfg, ckpt)
-    prof = profile_agent_update(agent, per_update)
     return {
         "launches": launches, "bwd_launches": bwd_launches, "validate_launches": timed["validate_launches"],
         "losses": timed["losses"], "grad_norms": timed["grad_norms"], "eval": timed["eval"], "data": data,
@@ -2818,7 +2832,7 @@ def check_agent_run(dev, info: str, tmp: str) -> dict:
         "peak_mem_gb": peak_gb, "tree_gb": tree_gb, "opt_state_gb": opt_gb, "resumed_opt_state_gb": resumed_opt_gb,
         "checkpoint_gb": ckpt_gb,
         "save_s": timed["save_s"], "restore_s": restore_s, "build_s": build_s,
-        "resume_bitwise": bitwise, "resume_max_abs_diff": resume_diff, "serving": served, "profile": prof,
+        "resume_bitwise": bitwise, "resume_max_abs_diff": resume_diff, "serving": served,
     }
 
 
@@ -2853,32 +2867,6 @@ def check_agent_serving(dev, cfg, mcfg, ckpt: str) -> dict:
         f"{tree_gb:.3f} GB): chunk finite, in the clip, drift from the merged float params' bf16 chunk {drift:.3e} "
         f"(<= {DRIFT_LIMIT})")
     return {"load_s": load_s, "tree_gb": tree_gb, "drift": drift}
-
-
-def profile_agent_update(agent, per_update: int) -> dict:
-    """One more update under torch.profiler (``profiled_window``, device
-    events only): K1's and the backward kernels' device ms by symbol. No
-    total is asked for, so one complete window serves (a confirming
-    second window would cost another profiled update): the busy ms is
-    that window's, unconfirmed."""
-    it = agent.dataset.iterator(agent.step_batch_size)
-    try:
-        batch = agent.next_update_batch(it)
-    finally:
-        it.close()
-    got, traced, wall = profiled_window(
-        lambda: agent.train_step(agent.state, batch),
-        {KERNEL_SYMBOL: per_update, ROWS_SYMBOL: per_update // 2, KEYS_SYMBOL: per_update // 2},
-        counted=(per_update, per_update),
-    )
-    busy = device_ms(traced)[0] - device_ms(traced, "opz_empty_kernel")[0]
-    log_profile("train-agent-profile", traced, wall, busy)
-    result = {"kernel_ms": got[KERNEL_SYMBOL][0], "backward_ms": got[ROWS_SYMBOL][0] + got[KEYS_SYMBOL][0],
-              "wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall}
-    log(f"train-agent: profiled update {wall:.1f} ms (busy {busy:.1f}: the card busy {100 * busy / wall:.1f}% of "
-        f"the update): K1 {result['kernel_ms']:.3f} ms over "
-        f"{per_update} launches, backward kernels {result['backward_ms']:.3f} ms over {per_update} launches")
-    return result
 
 
 # --------------------------------------------------------------------------- #
@@ -3455,16 +3443,61 @@ def check_shard_kernel(rows: list) -> dict:
     return errs
 
 
+def tp_training_config():
+    """The TP updates' training config: phase 7's (the first update at the
+    full lr, Adam's eps 1e-3) with the EMA from the first update, as the
+    JAX package's TP step (``TrainingConfig(use_ema=True, ema_start=0)``)."""
+    sched = cfg_lib.LRSchedulerConfig(warmup_steps=0)
+    return cfg_lib.TrainingConfig(action_lr_scheduler=sched, vlm_lr_scheduler=sched, adam_eps=DP_ADAM_EPS,
+                                  use_ema=True, ema_start=0)
+
+
+def check_tp_update(name: str, cfg, got: dict, accum: int = GRAD_ACCUM) -> dict:
+    """A ``ranks.train_rank`` result under a model axis against its reference (one process's
+    updates): every rank's K1 and backward launches per update those of one
+    card's update at ``accum`` microbatches (``dp_launches_per_update``),
+    every attention call a K1-shard call; the ranks' losses and norms alike
+    and within phase 7's limits of the reference (DP_TOL), the gathered
+    params too; the replicated trained leaves bitwise equal over each model
+    group."""
+    per_update = dp_launches_per_update(cfg) // GRAD_ACCUM * accum
+    for r in got["ranks"]:
+        if not (set(r["launches"]) == set(r["bwd_launches"]) == set(r["shard_calls"]) == {per_update}):
+            raise AssertionError(f"{name} rank {r['rank']}: K1 {r['launches']}, backward {r['bwd_launches']}, "
+                                 f"K1-shard calls {r['shard_calls']} per update, want {per_update} each")
+        if (r["losses"], r["grad_norms"]) != (got["ranks"][0]["losses"], got["ranks"][0]["grad_norms"]):
+            raise AssertionError(f"{name}: the ranks' losses or grad norms differ: {got['ranks']}")
+    ref, mine = got["reference"], got["ranks"][0]
+    rel = {k: max(abs(a - b) / abs(b) for a, b in zip(mine[k], ref[k])) for k in ("losses", "grad_norms")}
+    param_err = got["vs_reference"]["params"]["max_abs_diff"]
+    if not (max(rel.values()) <= DP_TOL["relative"] and param_err <= DP_TOL["params"] and got["replicated_bitwise"]):
+        raise AssertionError(f"{name}: vs one process relative {rel}, params max|diff| {param_err} (limits "
+                             f"{DP_TOL}); replicated leaves bitwise equal: {got['replicated_bitwise']}")
+    return {"launches_per_update": per_update, "relative": rel, "params_max_abs_diff": param_err,
+            "replicated_bitwise": got["replicated_bitwise"]}
+
+
 def check_shard_parity() -> dict:
     """Phase 10: bridge widths, depth 2, fp32, B=4 on a (2, 2) mesh of
-    ranks on the card against the CPU's single-process chunk."""
+    ranks on the card against the CPU's single-process chunk; then, in the
+    same world, one DP x TP update (remat, EMA, B = 2, one row per data
+    index, injected t and x0) against the single-process update of the
+    same params (drawn on the card from seed 1) that rank 0 takes on the
+    CPU first."""
     cfg = cfg_lib.bridge_width_dryrun_config()
     rng = np.random.default_rng(10)
     batch = example_batch(cfg, 4, rng)
     batch["attention_mask"][1, 20:] = 0  # a shorter row
     batch["input_ids"][1, 20:] = 0
     a0 = rng.normal(size=(4, cfg.horizon_steps, cfg.action_dim)).astype(np.float32)
-    got = run_ranks(ranks.infer_rank, 2, 2, cfg, batch, a0, None, 1, device="cuda", timeout_s=RANK_TIMEOUT_S)
+    tcfg, train_cfg = with_remat(cfg), tp_training_config()
+    train = [{k: v[0] for k, v in train_batch(tcfg, 2, rng, inject=True).items()}]  # one microbatch
+    got, trained = run_ranks(
+        ranks.sequence, 2, 2,
+        [(ranks.infer_rank, (cfg, batch, a0, None, 1)),
+         (ranks.train_rank, (tcfg, train_cfg, train, 1, False, None, 1, "cpu", False))],
+        device="cuda", timeout_s=RANK_TIMEOUT_S)
+    update = check_tp_update("shard-parity", tcfg, trained, accum=1)
     L = cfg.joint.num_hidden_layers
     expected = L + L * cfg.num_inference_steps
     if got["launches"] != expected:
@@ -3476,7 +3509,9 @@ def check_shard_parity() -> dict:
     err = float(np.abs(got["chunk"] - on_cpu).max())
     if not (got["chunk"].shape == on_cpu.shape and err <= 1e-3):
         raise AssertionError(f"TP x DP chunk {got['chunk'].shape} vs CPU max|diff| {err} > 1e-3")
-    return {"launches_per_rank": got["launches"], "max_abs_diff": err}
+    return {"launches_per_rank": got["launches"], "max_abs_diff": err,
+            "update": {**update, "cpu_update_s": trained["parts_s"]["reference"], "update_ms": [r["update_ms"] for r in trained["ranks"]],
+                       "rank_program_s": trained["parts_s"]}}
 
 
 def shard_main_args() -> tuple:
@@ -3519,6 +3554,67 @@ def check_shard_main(cfg, got: dict) -> dict:
         "profile": got["profile"], "max_abs_diff_vs_unsharded": err,
         "chunk": chunk.round(4).tolist(), "replayed": replayed,
     }
+
+
+# --------------------------------------------------------------------------- #
+# tp-train: tensor-parallel training in the world of phases 9 and 11
+# --------------------------------------------------------------------------- #
+
+TP_LAYERS = 4  # both towers' depth: two ranks' fp32 states (Adam, EMA) and rank 0's unsharded one on one card
+TP_B = 4  # rows per microbatch, all on the mesh's one data index
+TP_UPDATES = 3
+
+
+def tp_train_args() -> tuple:
+    """tp-train's arguments of ``ranks.train_rank``: ``PiZeroConfig()``
+    at full widths with both towers cut to TP_LAYERS, remat, fp32 params
+    from seed 0 drawn on each rank's card; TP_UPDATES updates of TP_B x
+    GRAD_ACCUM injected rows at ``tp_training_config``; rank 0 first takes
+    them alone."""
+    cfg = cfg_lib.PiZeroConfig()
+    cfg = with_remat(dataclasses.replace(
+        cfg, joint=dataclasses.replace(cfg.joint, num_hidden_layers=TP_LAYERS),
+        siglip=dataclasses.replace(cfg.siglip, num_hidden_layers=TP_LAYERS)))
+    rng = np.random.default_rng(13)
+    batches = [train_batch(cfg, TP_B, rng, inject=True) for _ in range(TP_UPDATES)]
+    return cfg, tp_training_config(), batches, GRAD_ACCUM, False, None, 0, "cuda", False
+
+
+def check_tp_train(cfg, got: dict, info: str) -> dict:
+    """tp-train: full-width fp32 TP = 2 training in 2 ranks (``got``:
+    ``ranks.train_rank`` on ``tp_train_args()``) against rank 0's
+    unsharded updates (``check_tp_update``)."""
+    checked = check_tp_update("tp-train", cfg, got)
+    ref = got["reference"]
+    if set(ref["launches"]) != {checked["launches_per_update"]} or ref["bwd_launches"] != ref["launches"]:
+        raise AssertionError(f"tp-train: the unsharded updates launched K1 {ref['launches']} and the backward kernels "
+                             f"{ref['bwd_launches']} times, want {checked['launches_per_update']} per update")
+    rows = got["ranks"]
+    result = {
+        **checked, "backend": got["backend"], "card": got["card"], "seconds": got["seconds"], "parts_s": got["parts_s"],
+        "depth": {"joint": cfg.joint.num_hidden_layers, "siglip": cfg.siglip.num_hidden_layers},
+        "update_ms": [r["update_ms"] for r in rows],
+        "update_ms_median": [statistics.median(r["update_ms"][1:]) for r in rows],
+        "model_allreduce_ms": [r["model_allreduce_ms"] for r in rows],
+        "model_allreduce_calls": [r["model_allreduce_calls"][0] for r in rows],
+        "peak_gb": [r["peak_gb"] for r in rows],
+        "reference": {k: got["reference"][k] for k in ("losses", "grad_norms", "update_ms", "peak_gb")},
+        "losses": rows[0]["losses"], "grad_norms": rows[0]["grad_norms"],
+    }
+    log("tp-train: " + json.dumps(result))
+    cards = "sharing one card" if got["backend"] == "gloo" else "a card each"
+    log(f"tp-train: PiZeroConfig() at full width, fp32, depth {result['depth']['joint']} (SigLIP "
+        f"{result['depth']['siglip']}), remat, EMA, TP = 2 on 2 ranks over {got['backend']} ({cards}, {got['card']}), "
+        f"B = {TP_B} x {GRAD_ACCUM}: update ms per rank {[round(m, 1) for m in result['update_ms_median']]} (median "
+        f"of updates 2-{TP_UPDATES}), of it the model group's all-reduces "
+        f"{[[round(m, 1) for m in r['model_allreduce_ms']] for r in rows]} ms over "
+        f"{result['model_allreduce_calls']} calls per update; peak memory per rank "
+        f"{[round(g, 3) for g in result['peak_gb']]} GB; the unsharded update on one rank "
+        f"{statistics.median(got['reference']['update_ms'][1:]):.1f} ms, peak {got['reference']['peak_gb']:.3f} GB; "
+        f"K1-shard {checked['launches_per_update']} K1 and {checked['launches_per_update']} backward launches per rank "
+        f"per update, one card's; vs unsharded relative {checked['relative']}, params max|diff| "
+        f"{checked['params_max_abs_diff']:.3e}, replicated leaves bitwise equal over the ranks; on {info}")
+    return result
 
 
 # --------------------------------------------------------------------------- #
@@ -3863,9 +3959,8 @@ def single_card_phases(dev, info: str) -> list:
         "adaln_ms": adaln["compiled"]["float"]["k1_ms"],
         "text_launches_per_generate": text["bf16"]["k1_launches_per_generate"],
         "text_ms_per_token": text["bf16"]["k1_ms_per_token"],
-        # one full-width QLoRA update of the TrainAgent (phase 8b), profiled
+        # one full-width QLoRA update of the TrainAgent (phase 8b)
         "qlora_update_launches": agent["launches"] // 3,
-        "qlora_update_ms": agent["profile"]["kernel_ms"],
         # one in-loop act of the EvalAgent (phase 8d): a replay of the
         # production chunk's graph, profiled; and the refined graph's
         "eval_launches_per_chunk": evaluated["k1_launches_per_chunk"],
@@ -3893,26 +3988,26 @@ def single_card_phases(dev, info: str) -> list:
         "bound_ms": replayed_vjp["bound_ms"],
         "bound_by": replayed_vjp["bound_by"],
         "library_ms": replayed_vjp["library_ms"],
-        # one full-width QLoRA update of the TrainAgent (phase 8b), profiled:
-        # K1's forwards and the backward kernels' launches, their device ms
+        # one full-width QLoRA update of the TrainAgent (phase 8b): K1's
+        # forwards and the backward kernels' launches
         "qlora_update_launches": (agent["launches"] + agent["bwd_launches"]) // 3,
-        "qlora_update_ms": agent["profile"]["kernel_ms"] + agent["profile"]["backward_ms"],
-        "qlora_update_backward_ms": agent["profile"]["backward_ms"],
     }
     return [entry, vjp_entry]
 
 
 def mesh_phases(dev, info: str, dp_layers: int = DP_LAYERS) -> dict:
     """Phases 9-12 in spawned ranks; returns the K1-shard entry of the
-    kernels line. Phases 9 and 11 share one world of 2 ranks (mesh (1,
-    2)), one rank program after the other, so that its processes start
-    once."""
+    kernels line. Phases 9, 11 and tp-train share one world of 2 ranks
+    (mesh (1, 2)), one rank program after the other, so that its
+    processes start once."""
     t0 = time.time()
-    main_args = shard_main_args()
-    attention_rows, main_path = run_ranks(
-        ranks.sequence, 1, 2, [(ranks.attention_rank, (shard_cases(),)), (ranks.main_path_rank, main_args)],
+    main_args, tp_args = shard_main_args(), tp_train_args()
+    attention_rows, main_path, tp_train = run_ranks(
+        ranks.sequence, 1, 2, [(ranks.attention_rank, (shard_cases(),)), (ranks.main_path_rank, main_args),
+                               (ranks.train_rank, tp_args)],
         device="cuda", timeout_s=RANK_TIMEOUT_S)
-    log(f"shard-kernel and shard-main: their world of 2 ranks ran both in {time.time() - t0:.1f} s")
+    log(f"shard-kernel, shard-main and tp-train: their world of 2 ranks ran all three in {time.time() - t0:.1f} s "
+        f"(tp-train's program {tp_train['seconds']:.1f} s of it)")
     shard_errs = check_shard_kernel(attention_rows)
     log("shard-kernel, 2 ranks, mesh (1, 2), max|diff| vs the plain version: " + json.dumps(shard_errs))
     log(f"phase shard-kernel ok in {time.time() - t0:.1f} s")
@@ -3929,9 +4024,18 @@ def mesh_phases(dev, info: str, dp_layers: int = DP_LAYERS) -> dict:
     log(f"phase shard-main ok in {time.time() - t0:.1f} s (its ranks' run counted in shard-kernel's)")
 
     t0 = time.time()
+    tp = check_tp_train(tp_args[0], tp_train, info)
+    log(f"phase tp-train ok in {time.time() - t0:.1f} s (its ranks' run, {tp['seconds']:.1f} s, counted in "
+        "shard-kernel's)")
+
+    t0 = time.time()
     shard_parity = check_shard_parity()
     log(f"shard-parity: bridge widths depth 2 fp32 B=4, mesh (2, 2) on the card vs CPU: "
         f"{json.dumps(shard_parity)}, {time.time() - t0:.1f} s")
+    log(f"shard-parity: one DP x TP update (B = 2) on the mesh vs the CPU's single-process update: "
+        f"relative {shard_parity['update']['relative']}, params max|diff| "
+        f"{shard_parity['update']['params_max_abs_diff']:.3e} (limits {DP_TOL}), K1-shard "
+        f"{shard_parity['update']['launches_per_update']} K1 and backward launches per rank")
 
     t0 = time.time()
     dp = check_dp_main(dev, info, layers=dp_layers)
@@ -3957,6 +4061,11 @@ def mesh_phases(dev, info: str, dp_layers: int = DP_LAYERS) -> dict:
         # card's count
         "dp_launches_per_update": dp_agent["launches"][0],
         "dp_bwd_launches_per_update": dp_agent["bwd_launches"][0],
+        # tp-train: rank 0's launches per update of the TP = 2 training, its
+        # forwards through K1-shard and its VJPs' backward kernels (one
+        # card's count at the same depth and accumulation)
+        "tp_launches_per_update": tp_train["ranks"][0]["launches"][0],
+        "tp_bwd_launches_per_update": tp_train["ranks"][0]["bwd_launches"][0],
     }
 
 

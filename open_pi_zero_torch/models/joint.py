@@ -107,7 +107,9 @@ def _layer(
         k_all, v_all = k_new, v_new
 
     q_all = torch.cat(qs, dim=1)
-    # under TP with one replicated kv head, q holds this rank's heads only
+    # under TP with one replicated kv head, q holds this rank's heads only;
+    # K1-shard's VJP then sums dk and dv over the model group, which is why
+    # k/v's input takes no copy_to_model_group (models/mixture.py)
     kv_replicated = q_all.shape[2] < cfg.num_attention_heads and k_all.shape[2] == cfg.num_key_value_heads
     attn = mot_attention(q_all, k_all, v_all, mask, cfg.attn_softclamp, kv_replicated)
     b, lq = attn.shape[:2]
@@ -158,7 +160,10 @@ def joint_forward(
     With ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
     (non-reentrant): only the layer boundaries are kept, and the backward
     pass runs each layer's forward again, the attention kernel included,
-    so a forward and backward launch it 2 * L times."""
+    so a forward and backward launch it 2 * L times. Under tensor
+    parallelism the rerun makes the layer's forward all-reduces again;
+    every rank walks the same graph, so its collectives come in one order
+    on every rank of the model group."""
     names = tuple(embeds.keys())
     time_conds = _as_time_conds(time_cond, names)
     ropes = _rope_tables(cfg, names, position_ids)

@@ -25,7 +25,12 @@ and mlp gateup [L, D, 2I] instead; any kernel may be a quantized dict
 Under tensor parallelism (``parallel/sharding.py``) a rank holds a slice
 of the heads and of the MLP width: q/k/v reshape by their own width, and
 the row-parallel o and down all-reduce their partial sums over the model
-group (``parallel.collectives.sum_row_parallel``).
+group (``parallel.collectives.sum_row_parallel``). Under autograd the input
+of each projection that is split on the rank (q; k/v only when their heads
+split; gate/up) sums its gradient over the model group
+(``copy_to_model_group``): replicated K/V (one KV head) take none, since
+K1-shard's VJP sums dk and dv over the group already and one more sum
+would count their input gradient tp times.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from open_pi_zero_torch.config import JointConfig, MixtureConfig
 from open_pi_zero_torch.ops.linear import proj
 from open_pi_zero_torch.ops.norms import adaptive_layerscale, adaptive_rms_norm, rms_norm
 from open_pi_zero_torch.ops.rope import apply_rope
-from open_pi_zero_torch.parallel.collectives import sum_row_parallel
+from open_pi_zero_torch.parallel.collectives import copy_to_model_group, sum_row_parallel
 
 
 def norm(
@@ -66,6 +71,7 @@ def adaptive_scale(
 
 def q_proj(lp_attn: dict, joint: JointConfig, x: torch.Tensor, scaling: float = 1.0) -> torch.Tensor:
     b, s, _ = x.shape
+    x = copy_to_model_group(x, lp_attn["q"], joint.num_attention_heads * joint.head_dim)
     return proj(lp_attn, "q", x, scaling).reshape(b, s, -1, joint.head_dim)
 
 
@@ -74,6 +80,7 @@ def kv_proj(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, s, _ = x.shape
     shape = (b, s, -1, joint.head_dim)
+    x = copy_to_model_group(x, lp_attn["k"], joint.num_key_value_heads * joint.head_dim)  # k and v split alike
     return (
         proj(lp_attn, "k", x, scaling).reshape(shape),
         proj(lp_attn, "v", x, scaling).reshape(shape),
@@ -108,6 +115,7 @@ def mlp(lp_mlp: dict, mix: MixtureConfig, x: torch.Tensor, scaling: float = 1.0)
     if "gateup" in lp_mlp:
         gate, up = proj(lp_mlp, "gateup", x).chunk(2, dim=-1)
     else:
+        x = copy_to_model_group(x, lp_mlp["gate"], mix.intermediate_size)  # gate and up split alike
         gate = proj(lp_mlp, "gate", x, scaling)
         up = proj(lp_mlp, "up", x, scaling)
     h = F.gelu(gate.to(torch.float32), approximate="tanh").to(x.dtype) * up

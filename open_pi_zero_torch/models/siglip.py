@@ -19,7 +19,10 @@ Param tree (L = num layers):
 Under tensor parallelism (``parallel/sharding.py``) a rank holds a slice
 of the heads (q/k/v and their biases) and of the MLP width (fc1 and its
 bias); the row-parallel o and fc2 all-reduce their partial sums over the
-model group, and their biases, kept whole, are added once after it.
+model group, and their biases, kept whole, are added once after it. Under
+autograd the input of the split q/k/v and of fc1 sums its gradient over the
+model group (``parallel.collectives.copy_to_model_group``), once for the
+three heads' projections that share it.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from open_pi_zero_torch.models.tree import layer_split
 from open_pi_zero_torch.ops.attention import mha_attention
 from open_pi_zero_torch.ops.linear import base_matmul, linear, lora_delta
 from open_pi_zero_torch.ops.norms import layer_norm
-from open_pi_zero_torch.parallel.collectives import sum_row_parallel
+from open_pi_zero_torch.parallel.collectives import copy_to_model_group, sum_row_parallel
 
 
 def patchify(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
@@ -73,12 +76,14 @@ def _encoder_layer(x: torch.Tensor, lp: dict, cfg: SiglipConfig) -> torch.Tensor
     if "qkv" in lp["attn"]:  # the fused serving layout (models/fuse.py)
         q, k, v = _proj(lp["attn"], "qkv", h, s).chunk(3, dim=-1)
     else:
+        h = copy_to_model_group(h, lp["attn"]["q"]["kernel"], cfg.hidden_size)  # q, k and v split alike
         q, k, v = (_proj(lp["attn"], name, h, s) for name in ("q", "k", "v"))
     q, k, v = q.reshape(shape), k.reshape(shape), v.reshape(shape)
     attn = mha_attention(q, k, v).reshape(b, n, -1)
     x = x + _proj(lp["attn"], "o", attn, s, cfg.hidden_size)
 
     h = layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"], eps)
+    h = copy_to_model_group(h, lp["mlp"]["fc1"]["kernel"], cfg.intermediate_size)
     h = F.gelu(_proj(lp["mlp"], "fc1", h, s), approximate="tanh")
     return x + _proj(lp["mlp"], "fc2", h, s, cfg.intermediate_size)
 

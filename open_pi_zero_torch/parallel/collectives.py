@@ -5,11 +5,22 @@ Under ``nccl`` the tensors go to ``torch.distributed`` as they are. Under
 is staged through host memory explicitly: copied to the CPU, reduced or
 gathered there, copied back. A group of one rank is a no-op.
 
-``sum_row_parallel`` is the one all-reduce of the model itself: the
-partial sums of a row-parallel projection (o, down, fc2) over the model
-group. It is forward only: training runs on a data mesh (``n_model = 1``,
-as the JAX TrainAgent's), where it returns its input; it raises on a
-split kernel's output that requires grad.
+The model's own collectives are Megatron's two operators over the model
+group, autograd-aware, so that a train step runs under tensor parallelism:
+  - ``sum_row_parallel``, the output of a row-parallel projection (o, down,
+    fc2): the ranks' partial sums all-reduced in the forward; the identity
+    in the backward, where every rank holds the whole cotangent of the
+    replicated output (``torch.distributed.nn.all_reduce`` would all-reduce
+    it again and count the gradient tp times);
+  - ``copy_to_model_group``, the input of a column-parallel projection that
+    is split (q, k/v when their heads split, gate/up, SigLIP's q/k/v and
+    fc1): the identity in the forward; in the backward each rank's input
+    gradient is the partial sum over its output columns, all-reduced. It
+    goes on the input of a split projection only: where K/V are replicated
+    (one KV head), K1-shard's VJP sums dk and dv over the model group
+    already, so the K/V path's input gradient is whole on every rank.
+Without autograd (inference) the first all-reduces in place and the second
+returns its input.
 
 Training's collectives: ``all_reduce_mean_``, the DP gradient all-reduce
 (the trained leaves' grads packed into flat fp32 buckets, one collective
@@ -140,19 +151,68 @@ def all_gather_ranges_(
                 offset += hi - lo
 
 
+def _model_group(local: int, full: int, what: str):
+    """The registered mesh's model group, over whose ranks ``full`` rows or
+    columns (``what``) of a kernel are split ``local`` to a rank."""
+    mesh = get_mesh()
+    if mesh is None or mesh.n_model * local != full:
+        raise ValueError(f"a kernel holds {local} of {full} {what} under mesh {None if mesh is None else mesh.shape}")
+    return mesh.model_group
+
+
+def _under_autograd(x: torch.Tensor) -> bool:
+    return x.requires_grad and torch.is_grad_enabled()
+
+
+class _ReduceForward(torch.autograd.Function):
+    """All-reduce in the forward, the identity in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _ReduceBackward(torch.autograd.Function):
+    """The identity in the forward, all-reduce in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.clone(memory_format=torch.contiguous_format), ctx.group), None
+
+
 def sum_row_parallel(x: torch.Tensor, local_in: int, full_in: int) -> torch.Tensor:
     """The output of a projection whose kernel holds ``local_in`` of its
     ``full_in`` input rows: a partial sum when the rows were split over the
-    model group, all-reduced there; ``x`` itself when they were not."""
+    model group, all-reduced there (the backward is the identity); ``x``
+    itself when they were not."""
     if local_in == full_in:
         return x
-    mesh = get_mesh()
-    if mesh is None or mesh.n_model * local_in != full_in:
-        raise ValueError(
-            f"a row-parallel kernel holds {local_in} of {full_in} input rows "
-            f"under mesh {None if mesh is None else mesh.shape}"
-        )
-    if x.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError("tensor-parallel training: the all-reduce has no backward (the JAX "
-                                  "TrainAgent trains on a data mesh only)")
-    return all_reduce(x, mesh.model_group)
+    group = _model_group(local_in, full_in, "input rows")
+    if _under_autograd(x):
+        return _ReduceForward.apply(x, group)
+    return all_reduce(x, group)
+
+
+def copy_to_model_group(x: torch.Tensor, kernel, full_out: int) -> torch.Tensor:
+    """``x`` as the input of a projection by ``kernel`` (stored ``[in,
+    out]``), of ``full_out`` output columns: when the rank's kernel holds a
+    slice of them (a split over the model group), ``x`` with its gradient
+    all-reduced there in the backward; ``x`` itself when it holds them all
+    or without autograd. A quantized kernel (a dict) is never split
+    (``parallel/sharding.py``)."""
+    local_out = kernel.shape[-1] if torch.is_tensor(kernel) else full_out
+    if local_out == full_out:
+        return x
+    group = _model_group(local_out, full_out, "output columns")
+    if _under_autograd(x):
+        return _ReduceBackward.apply(x, group)
+    return x

@@ -1,6 +1,6 @@
 """Rank programs: what ``parallel.run_ranks`` runs on every position of a
 mesh, for the tests (on the CPU, over gloo) and for ``chip_smoke.py``
-phases 9-11 and dp-main (on the card). Each takes this rank's ``Mesh``
+phases 9-11, tp-train and dp-main (on the card). Each takes this rank's ``Mesh``
 first and returns, on rank 0, plain data on the CPU (numpy arrays,
 numbers).
 
@@ -11,6 +11,7 @@ it runs: none of them may pull in JAX.
 from __future__ import annotations
 
 import importlib
+import os
 import statistics
 import sys
 import time
@@ -28,7 +29,7 @@ from open_pi_zero_torch.ops import lora as lora_lib
 from open_pi_zero_torch.ops.attention import mot_attention_ref
 from open_pi_zero_torch.parallel import collectives
 from open_pi_zero_torch.parallel.mesh import Mesh, set_mesh, shard_batch
-from open_pi_zero_torch.parallel.sharding import shard_params_tp
+from open_pi_zero_torch.parallel.sharding import gather_tp, shard_params_tp, tp_param_specs
 from open_pi_zero_torch.training import averaging as avg_lib
 from open_pi_zero_torch.training import optimizer as opt_lib
 from open_pi_zero_torch.training import seeds
@@ -354,32 +355,80 @@ def moment_bytes(opt_state) -> int:
     return sum(t.numel() * t.element_size() for st in inner.state.values() for t in st.values() if torch.is_tensor(t))
 
 
-class _Timed:
-    """Per update: the loss and grad norm, the device-synchronised ms of
-    the train step and of its gradient all-reduce
-    (``collectives.all_reduce_mean_``, wrapped while the block runs), and
-    the kernels' launches."""
+class _Spans:
+    """The calls of ``owner.<name>`` (those that ``counts`` accepts, by
+    their arguments), counted and timed while the block runs without making
+    the host wait: on the card a pair of CUDA events on the current stream
+    around each call, read by ``take`` once the caller has synchronised; on
+    the CPU the host clock. Callers look the function up on ``owner`` at
+    each call."""
 
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.losses, self.grad_norms, self.update_ms, self.allreduce_ms = [], [], [], []
-        self.launches, self.bwd_launches = [], []
+    def __init__(self, owner, name: str, device: torch.device, counts=None):
+        self.owner, self.name, self.device, self.counts = owner, name, device, counts
+        self.spans = []
+
+    def _now(self):
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    def _spanned(self, *args, **kwargs):
+        if self.counts is not None and not self.counts(*args, **kwargs):
+            return self._original(*args, **kwargs)
+        start = self._now()
+        out = self._original(*args, **kwargs)
+        self.spans.append((start, self._now()))
+        return out
 
     def __enter__(self):
-        self._reduce = collectives.all_reduce_mean_
-
-        def timed(*args, **kwargs):
-            _sync(self.device)
-            t0 = time.perf_counter()
-            self._reduce(*args, **kwargs)
-            _sync(self.device)
-            self.allreduce_ms.append((time.perf_counter() - t0) * 1e3)
-
-        collectives.all_reduce_mean_ = timed
+        self._original = getattr(self.owner, self.name)
+        setattr(self.owner, self.name, self._spanned)
         return self
 
     def __exit__(self, *exc):
-        collectives.all_reduce_mean_ = self._reduce
+        setattr(self.owner, self.name, self._original)
+        return False
+
+    def take(self) -> tuple:
+        """(ms, calls) of the spans since the last ``take``."""
+        if self.device.type == "cuda":
+            ms = sum(a.elapsed_time(b) for a, b in self.spans)
+        else:
+            ms = sum(b - a for a, b in self.spans) * 1e3
+        out, self.spans = (ms, len(self.spans)), []
+        return out
+
+
+class _Timed:
+    """Per update: the loss and grad norm, the device-synchronised ms of
+    the train step, the kernels' launches, and the ms of its data group's
+    gradient all-reduce (``collectives.all_reduce_mean_``, where it runs);
+    under a model axis of ``mesh`` also K1-shard's calls and the ms and
+    count of the model group's all-reduces (``collectives.all_reduce``).
+    Each is a ``_Spans``: the host never waits on them, so the update's ms
+    is the unwrapped step's."""
+
+    def __init__(self, device: torch.device, mesh: Optional[Mesh] = None):
+        self.device = device
+        self.losses, self.grad_norms, self.update_ms, self.allreduce_ms = [], [], [], []
+        self.launches, self.bwd_launches = [], []
+        self.shard_calls, self.model_allreduce_ms, self.model_allreduce_calls = [], [], []
+        self.spans = {"data": _Spans(collectives, "all_reduce_mean_", device)}
+        if mesh is not None and mesh.n_model > 1:
+            self.spans["model"] = _Spans(collectives, "all_reduce", device,
+                                         lambda x, group=None, op=None: group is mesh.model_group)
+            self.spans["shard"] = _Spans(fa, "mot_attention_fused_sharded", device)
+
+    def __enter__(self):
+        for spans in self.spans.values():
+            spans.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for spans in reversed(self.spans.values()):
+            spans.__exit__(*exc)
         return False
 
     def step(self, step_fn, state, batch) -> dict:
@@ -393,6 +442,14 @@ class _Timed:
         self.bwd_launches.append(fa.bwd_launches - bwd)
         self.losses.append(float(metrics["loss"]))
         self.grad_norms.append(float(metrics["grad_norm"]))
+        ms, calls = self.spans["data"].take()
+        if calls:
+            self.allreduce_ms.append(ms)
+        if "model" in self.spans:
+            ms, calls = self.spans["model"].take()
+            self.model_allreduce_ms.append(ms)
+            self.model_allreduce_calls.append(calls)
+            self.shard_calls.append(self.spans["shard"].take()[1])
         return metrics
 
 
@@ -413,50 +470,6 @@ def _trained(params: dict) -> list:
 
 def _opt_tensors(state_dict: dict) -> list:
     return [v for _, st in sorted(state_dict["state"].items()) for _, v in sorted(st.items()) if torch.is_tensor(v)]
-
-
-def _updates(mesh: Mesh, cfg: PiZeroConfig, train_cfg: TrainingConfig, params: dict, batches: List[dict],
-             accum: int, zero1: bool, seed: int):
-    """The TrainState of ``params`` (the train stream of ``seed``; ZeRO-1
-    with ``zero1``) after an update on this rank's rows of each global
-    batch (numpy; a leading [accum] axis when ``accum`` > 1; optional ``t``
-    and ``x0`` inject the flow times and the noise). Returns the state and
-    the ``_Timed`` record."""
-    dev = mesh.device
-    optimizer = opt_lib.build_optimizer(train_cfg, params)
-    state = init_train_state(params, optimizer, seeds.stream_generator(seed, seeds.TRAIN, device=dev), train_cfg)
-    if zero1:
-        state = shard_state_zero1(state, optimizer, mesh)
-    step = make_train_step(cfg, train_cfg, optimizer, accum)
-    _reset_peak(dev)
-    with _Timed(dev) as timed:
-        for batch in batches:
-            timed.step(step, state, shard_batch(mesh, _on(batch, dev), axis=1 if accum > 1 else 0))
-    return state, timed
-
-
-def train_rank(
-    mesh: Mesh, cfg: PiZeroConfig, train_cfg: TrainingConfig, batches: List[dict], accum: int = 1,
-    zero1: bool = False, params_np: Optional[dict] = None, seed: int = 0,
-) -> dict:
-    """``_updates`` in fp32 from the params ``params_np`` (a JAX tree of
-    numpy leaves) or drawn on the CPU from ``seed``, quantized as ``cfg``
-    says. Returns each update's loss and grad norm, the params, the
-    optimizer state and the average in the one-device layout (gathered),
-    and each rank's optimizer-state bytes."""
-    dev = mesh.device
-    _exact_fp32()
-    if params_np is not None:
-        params = params_from_jax(params_np, device=dev)
-    else:
-        params = tree_map(lambda x: x.to(dev), pizero.init_params(cfg, seed=seed, device="cpu"))
-    params = lora_lib.quantize_per_model_config(params, cfg)
-    state, timed = _updates(mesh, cfg, train_cfg, params, batches, accum, zero1, seed)
-    opt = opt_state_numpy(state.opt_state.state_dict())
-    avg = None if state.avg is None else _numpy_tree(avg_lib.gathered(state.avg, state.params))
-    return {"losses": timed.losses, "grad_norms": timed.grad_norms, "params": _numpy_tree(state.params), "opt": opt,
-            "avg": avg, "n_averaged": None if state.avg is None else state.avg.n_averaged,
-            "moment_bytes": _gather_objects(mesh, moment_bytes(state.opt_state))}
 
 
 def state_numpy(state) -> dict:
@@ -600,10 +613,10 @@ def dp_updates(mesh: Mesh, cfg, batches: List[dict], zero1: bool, keep: bool = F
     seed = int(cfg.get("seed", 42))
     params = _full_width_params(model_cfg, seed, dev) if params is None else params
     accum = train_cfg.global_batch_size // (train_cfg.per_device_batch_size * mesh.n_data)
-    state, timed = _updates(mesh, model_cfg, train_cfg, params, batches, accum, zero1, seed)
-    out = {"losses": timed.losses, "grad_norms": timed.grad_norms, "update_ms": timed.update_ms,
-           "allreduce_ms": timed.allreduce_ms, "launches": timed.launches, "bwd_launches": timed.bwd_launches,
-           "peak_gb": _peak_gb(dev), "moment_bytes": moment_bytes(state.opt_state), "accum": accum}
+    state, _, record = _updates(mesh, model_cfg, train_cfg, params, batches, accum, zero1, seed)
+    out = {**{k: record[k] for k in ("losses", "grad_norms", "update_ms", "allreduce_ms", "launches", "bwd_launches",
+                                     "peak_gb")},
+           "moment_bytes": moment_bytes(state.opt_state), "accum": accum}
     if keep:
         out["trained"] = [_host(x) for x in _trained(state.params)]
         out["opt"] = {"state": {i: {k: _host(v) for k, v in st.items()}
@@ -725,3 +738,209 @@ def dp_main_rank(mesh: Mesh, raw_cfg, raw_batches: List[dict], adam_eps: float, 
     out["agent"] = run
     return {"ranks": _gather_objects(mesh, out), "backend": mesh.backend,
             "card": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"}
+
+
+# --------------------------------------------------------------------------- #
+# training on a (data, model) mesh: the tests, dryrun_multichip, tp_probe,
+# chip_smoke.py tp-train and phase 10
+# --------------------------------------------------------------------------- #
+
+
+def megatron_rank(mesh: Mesh, x: np.ndarray, w1: np.ndarray, w2: np.ndarray, g: np.ndarray) -> dict:
+    """Megatron's MLP pair over the model group, on whole numpy inputs:
+    ``sum_row_parallel(gelu(copy_to_model_group(x) @ w1[:, mine]) @ w2[mine])``
+    with this rank's slice ``mine`` of the hidden width, and its VJP for the
+    cotangent ``g``. Returns y, every rank's dx, and the grads of w1 and w2
+    gathered whole."""
+    dev, n, i = mesh.device, mesh.n_model, mesh.model_index
+    full = w1.shape[1]
+    width = full // n
+    x_t = torch.from_numpy(x).to(dev).requires_grad_()
+    w1_t = torch.from_numpy(w1[:, i * width : (i + 1) * width]).to(dev).requires_grad_()
+    w2_t = torch.from_numpy(w2[i * width : (i + 1) * width]).to(dev).requires_grad_()
+    hidden = torch.nn.functional.gelu(collectives.copy_to_model_group(x_t, w1_t, full) @ w1_t)
+    y = collectives.sum_row_parallel(hidden @ w2_t, width, full)
+    dx, dw1, dw2 = torch.autograd.grad(y, (x_t, w1_t, w2_t), torch.from_numpy(g).to(dev))
+    return {"y": _numpy(y), "dx": _gather_objects(mesh, _numpy(dx)),
+            "dw1": _numpy(collectives.all_gather(dw1, mesh.model_group, dim=1)),
+            "dw2": _numpy(collectives.all_gather(dw2, mesh.model_group, dim=0))}
+
+
+def _updates(mesh: Optional[Mesh], cfg: PiZeroConfig, train_cfg: TrainingConfig, params: dict, batches: List[dict],
+             accum: int, zero1: bool = False, seed: int = 0, grads: bool = False) -> tuple:
+    """The TrainState of ``params`` (the train stream of ``seed``; ZeRO-1
+    with ``zero1``) after an update on each global batch (numpy; a leading
+    [accum] axis when ``accum`` > 1; optional ``t`` and ``x0`` inject the
+    flow times and the noise): this rank's rows under ``mesh``, the whole
+    batch with None (no mesh registered: one device's path). Returns the
+    state, with ``grads`` the first update's grads (after the data group's
+    all-reduce, before the surgery and the clip; else None), and the
+    record: per update the loss, the grad norm, the ms, the data group's
+    gradient all-reduce ms, the kernels' launches and, under a model axis,
+    K1-shard's calls and the model group's all-reduce ms and count
+    (``_Timed``); the peak memory."""
+    dev = params["embed_tokens"].device
+    optimizer = opt_lib.build_optimizer(train_cfg, params)
+    state = init_train_state(params, optimizer, seeds.stream_generator(seed, seeds.TRAIN, device=dev), train_cfg)
+    if zero1:
+        state = shard_state_zero1(state, optimizer, mesh)
+    step = make_train_step(cfg, train_cfg, optimizer, accum)
+    first = {}
+    if grads:
+        update = optimizer.update
+
+        def recording(tree, *args):
+            if not first:
+                first["grads"] = tree_map(lambda p: None if p.grad is None else p.grad.detach().clone(), tree)
+            return update(tree, *args)
+
+        optimizer.update = recording
+    _reset_peak(dev)
+    try:
+        with _Timed(dev, mesh) as timed:
+            for batch in batches:
+                batch = _on(batch, dev)
+                if mesh is not None:
+                    batch = shard_batch(mesh, batch, axis=1 if accum > 1 else 0)
+                timed.step(step, state, batch)
+    finally:
+        if grads:
+            del optimizer.update  # the class's method again: no cycle through the wrapper keeps the grads
+    record = {k: getattr(timed, k) for k in ("losses", "grad_norms", "update_ms", "allreduce_ms", "launches",
+                                             "bwd_launches", "shard_calls", "model_allreduce_ms",
+                                             "model_allreduce_calls")}
+    record["peak_gb"] = _peak_gb(dev)
+    return state, first.get("grads"), record
+
+
+def _paths(tree, prefix: str = "") -> list:
+    if isinstance(tree, dict):
+        return [item for k, v in tree.items() for item in _paths(v, f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def _max_diffs(got: dict, want: dict) -> dict:
+    """max|got - want| over the leaves of ``want`` (path -> tensor), and its
+    largest ratio to a leaf's max|want| (a leaf of zeros counts its
+    max|got|)."""
+    got = dict(_paths(got))
+    abs_err = rel_err = 0.0
+    for path, w in want.items():
+        err = float((got[path].detach().float().cpu() - w.float()).abs().max())
+        scale = float(w.abs().max())
+        abs_err, rel_err = max(abs_err, err), max(rel_err, err / scale if scale else err)
+    return {"max_abs_diff": abs_err, "max_rel_diff": rel_err}
+
+
+def _replicated_bitwise(mesh: Mesh, params: dict, specs: dict) -> bool:
+    """Whether every replicated trained leaf is bitwise the same on every
+    rank of the model group (each leaf gathered in turn; every rank
+    compares). The frozen leaves, drawn alike and never updated, are not
+    gathered."""
+    same, spec_of = True, dict(_paths(specs))
+    for path, x in _paths(params):
+        if spec_of[path] or not x.requires_grad:
+            continue
+        parts = collectives.all_gather(x[None], mesh.model_group, dim=0)
+        same = same and all(torch.equal(part, x) for part in parts)
+    flag = torch.tensor([float(same)], device=mesh.device)
+    collectives.all_reduce(flag, op=torch.distributed.ReduceOp.MIN)
+    return bool(flag[0])
+
+
+def _one_process_updates(cfg: PiZeroConfig, train_cfg: TrainingConfig, params: dict, batches: List[dict],
+                         accum: int, seed: int, everything: bool) -> dict:
+    """The updates of ``_updates`` in this process alone (no mesh: one
+    device's path) on the whole global batches. Returns the record and, on
+    the CPU by path, the trained leaves of the params after the last update
+    (with ``everything``, also of the first update's grads and of the
+    average)."""
+    state, grads, record = _updates(None, cfg, train_cfg, params, batches, accum, seed=seed, grads=everything)
+    trained = [path for path, x in _paths(state.params) if x.requires_grad]
+    trees = {"params": state.params}
+    if everything:
+        trees["grads"] = grads
+        if state.avg is not None:
+            trees["avg"] = avg_lib.gathered(state.avg, state.params)
+    return {"record": record, **{name: {path: _host(x) for path, x in _paths(tree) if path in trained}
+                                 for name, tree in trees.items()}}
+
+
+def train_rank(mesh: Mesh, cfg: PiZeroConfig, train_cfg: TrainingConfig, batches: List[dict], accum: int = 1,
+               zero1: bool = False, params_np: Optional[dict] = None, seed: int = 0,
+               reference: Optional[str] = None, keep: bool = True) -> dict:
+    """``_updates`` in fp32 on this rank's place in a (data, model) mesh:
+    its TP shard of the params (``shard_params_tp``) when the model axis is
+    above 1, ZeRO-1 with ``zero1``. The params are ``params_np`` (a JAX
+    tree of numpy leaves) or drawn on the rank's device from ``seed``,
+    quantized as ``cfg`` says. With ``reference`` (a device), rank 0 first
+    takes the same updates alone on that device (the mesh cleared: one
+    device's path) from the same params.
+
+    Returns, on rank 0: its losses and grad norms; every rank's record
+    (``_updates``) and optimizer-state bytes; the number of averaged
+    updates; whether the replicated trained leaves are bitwise equal over
+    each model group after the updates; the reference's record and the
+    params, gathered whole, against it; the program's seconds on rank 0, in
+    all and in its parts (the reference, the updates, the checks). With
+    ``keep``, also as numpy: the params, the first update's grads and the
+    average gathered whole, the optimizer state (the one-device layout on a
+    data mesh, the rank's shards under a model axis) and the reference's
+    trained leaves by path."""
+    dev = mesh.device
+    _exact_fp32()
+    t0 = time.perf_counter()
+    tp = mesh.n_model > 1
+
+    def fresh(device: torch.device) -> dict:
+        params = params_from_jax(params_np, device=device) if params_np is not None else tree_map(
+            lambda x: x.to(device), pizero.init_params(cfg, seed=seed, device=dev))
+        return lora_lib.quantize_per_model_config(params, cfg)
+
+    out, want = {}, None
+    if reference is not None and mesh.rank == 0:
+        threads = torch.get_num_threads()
+        set_mesh(None)
+        if torch.device(reference).type == "cpu":  # the other ranks wait at the barrier below meanwhile
+            torch.set_num_threads(len(os.sched_getaffinity(0)))
+        try:
+            want = _one_process_updates(cfg, train_cfg, fresh(torch.device(reference)), batches, accum, seed, keep)
+        finally:
+            set_mesh(mesh)
+            torch.set_num_threads(threads)
+        out["reference"] = want.pop("record")
+    if reference is not None:
+        torch.distributed.barrier()  # the ranks start their updates together, after the reference
+    t1 = time.perf_counter()
+    params, specs = fresh(dev), None
+    if tp:
+        specs = tp_param_specs(pizero.abstract_params(cfg), cfg, mesh.n_model)
+        params = shard_params_tp(params, cfg, mesh)
+    state, grads, record = _updates(mesh, cfg, train_cfg, params, batches, accum, zero1, seed, grads=keep)
+    t2 = time.perf_counter()
+
+    def whole(tree):
+        return gather_tp(tree, specs, mesh) if tp else tree
+
+    out.update(losses=record["losses"], grad_norms=record["grad_norms"],
+               ranks=_gather_objects(mesh, {**record, "rank": mesh.rank}),
+               moment_bytes=_gather_objects(mesh, moment_bytes(state.opt_state)),
+               n_averaged=None if state.avg is None else state.avg.n_averaged,
+               replicated_bitwise=_replicated_bitwise(mesh, state.params, specs) if tp else True)
+    trees = {"params": whole(state.params)} if reference is not None or keep else {}
+    if keep:
+        trees["grads"] = whole(grads)
+        trees["avg"] = None if state.avg is None else whole(avg_lib.gathered(state.avg, state.params))
+    if want is not None:
+        out["vs_reference"] = {name: _max_diffs(trees[name], tree) for name, tree in want.items()}
+    if keep:
+        out.update({name: None if tree is None else tree_map(lambda x: None if x is None else _numpy(x), tree)
+                    for name, tree in trees.items()})
+        out["opt"] = opt_state_numpy(state.opt_state.state_dict())
+        if want is not None:
+            out.update({f"reference_{name}": {path: x.numpy() for path, x in tree.items()}
+                        for name, tree in want.items()})
+    t3 = time.perf_counter()
+    out.update(backend=mesh.backend, card=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+               seconds=t3 - t0, parts_s={"reference": t1 - t0, "updates": t2 - t1, "checks": t3 - t2})
+    return out

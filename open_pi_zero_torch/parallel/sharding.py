@@ -34,6 +34,14 @@ each rank here runs its own program on whole heads:
       replicated while o and down split, and TP serving keeps the canonical
       layout; a quantized payload under ``q`` would be taken for the query
       kernel. JAX shards a quantized {q, scale} like its float kernel.
+  (d) training: a rank's Adam moments and EMA average are shaped as its
+      slices of the split leaves (``torch.optim`` over the rank's params),
+      where JAX places the optimizer state replicated and lets GSPMD
+      propagate the params' sharding into the update. Both rules are
+      elementwise, so the numbers are the same; ``gather_tp`` puts whole
+      leaves back together for a check. LoRA adapters, NF4 bases, int8
+      moments and ZeRO-1 are refused under a model axis
+      (``training/train_step.py``).
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from open_pi_zero_torch.config import PiZeroConfig
-from open_pi_zero_torch.models.tree import tree_leaves
+from open_pi_zero_torch.models.tree import tree_leaves, tree_map
 from open_pi_zero_torch.ops.lora import is_quantized_base
 from open_pi_zero_torch.ops.quantization import DEFAULT_BLOCK
 from open_pi_zero_torch.parallel import collectives
@@ -133,6 +141,21 @@ def shard_params_tp(params: dict, cfg: PiZeroConfig, mesh: Mesh) -> dict:
         return part.clone(memory_format=torch.contiguous_format)
 
     return walk(params, specs)
+
+
+def gather_tp(tree: dict, specs: dict, mesh: Mesh) -> dict:
+    """Whole leaves from this rank's TP tree (params, grads or an average;
+    ``specs`` from ``tp_param_specs`` of the whole tree): each split leaf
+    all-gathered over the model group along its split dim, detached; the
+    replicated leaves (and None) as they are. A collective: every rank of
+    the model group calls it."""
+
+    def leaf(x, spec):
+        if x is None or not spec:
+            return x
+        return collectives.all_gather(x, mesh.model_group, dim=spec.index(MODEL_AXIS))
+
+    return tree_map(leaf, tree, specs)
 
 
 # --------------------------------------------------------------------------- #

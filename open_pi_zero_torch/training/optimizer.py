@@ -153,12 +153,23 @@ def trainable_param_count(params: dict, train_vlm: bool = True) -> Dict[str, flo
     return {k: v / 1e9 for k, v in counts.items()}
 
 
-def global_norm(tensors: List[Optional[torch.Tensor]]) -> torch.Tensor:
+def global_norm(tensors: List[Optional[torch.Tensor]], split: Optional[List[bool]] = None, group=None) -> torch.Tensor:
     """sqrt of the sum of squares over all tensors (None skipped), in fp32:
     the norm of the per-tensor norms, which needs no squared copy of a
-    tensor."""
-    norms = [torch.linalg.vector_norm(t.detach(), dtype=torch.float32) for t in tensors if t is not None]
-    return torch.linalg.vector_norm(torch.stack(norms))
+    tensor. Under tensor parallelism (``split``: per tensor, whether it is
+    this rank's slice of a leaf split over the model ``group``) the norm of
+    the whole tree: the slices' squared norms summed over the group, the
+    replicated tensors counted once, so that every rank clips alike."""
+    kept = [(t, s) for t, s in zip(tensors, split or [False] * len(tensors)) if t is not None]
+    norms = [torch.linalg.vector_norm(t.detach(), dtype=torch.float32) for t, _ in kept]
+    if split is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+
+    def sum_of_squares(sliced: bool) -> torch.Tensor:
+        mine = [n for n, (_, s) in zip(norms, kept) if s == sliced]
+        return torch.stack(mine).square().sum() if mine else norms[0].new_zeros(())
+
+    return torch.sqrt(sum_of_squares(False) + collectives.all_reduce(sum_of_squares(True).reshape(1), group)[0])
 
 
 class Optimizer:
@@ -204,13 +215,21 @@ class Optimizer:
             lr=0.0, betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps,
         )
 
-    def update(self, params: dict, state: torch.optim.Optimizer, count: int) -> torch.Tensor:
+    def update(self, params: dict, state: torch.optim.Optimizer, count: int, split: Optional[dict] = None,
+               group=None) -> torch.Tensor:
         """Apply one update from the params' ``.grad`` (then cleared), the
         ``count``-th (0 for the first). Returns the global grad norm after
-        the surgery and before the clip."""
+        the surgery and before the clip. Under tensor parallelism ``split``
+        is a tree of bools over ``params``, True where the rank holds a
+        slice of a leaf split over the model ``group``: the norm is then
+        the whole tree's (``global_norm``)."""
         grads = apply_freeze_surgery(tree_map(lambda p: p.grad, params))
-        flat = [g for g in tree_leaves(grads) if g is not None]
-        norm = global_norm(flat)
+        leaves = tree_leaves(grads)
+        flat = [g for g in leaves if g is not None]
+        if split is None:
+            norm = global_norm(flat)
+        else:
+            norm = global_norm(flat, [s for g, s in zip(leaves, tree_leaves(split)) if g is not None], group)
         # optax.clip_by_global_norm: t if norm < max_norm else (t / norm) * max_norm
         max_norm = self.cfg.max_grad_norm
         if float(norm) >= max_norm:

@@ -21,6 +21,22 @@ whole global microbatch from the train stream and keeps its rows, so the
 DP update is the one-device update over the global batch (and a world of
 one draws what it drew before). ``shard_state_zero1`` shards the moments
 and the EMA/SWA average over the data ranks (ZeRO-1).
+
+Under a (data, model) mesh the step is also tensor-parallel, as the JAX
+package's ``make_train_step`` with ``shard_params_tp`` params: the state
+holds the rank's TP shard (``parallel.shard_params_tp``, then
+``init_train_state``: the moments and the average take the shard's shapes),
+the ranks of one data index take the same rows and draw the same flow
+times and noise, and the model's collectives carry the grads
+(``parallel/collectives.py``): every rank ends the backward with its
+slices' grads and the whole grads of the replicated leaves, bitwise alike
+over the model group. The data group's all-reduce then runs on the rank's
+own leaves, slices included; the global norm sums the slices' squares over
+the model group (``optimizer.global_norm``), so every rank clips alike;
+the replicated leaves stay bitwise equal over the model group. LoRA
+adapters, NF4 bases, int8 moments and ZeRO-1 are refused under a model
+axis: each needs TP rules that the port does not have. The TrainAgent
+stays on a data mesh, as the JAX TrainAgent does.
 """
 
 from __future__ import annotations
@@ -32,10 +48,10 @@ import torch
 
 from open_pi_zero_torch.config import PiZeroConfig, TrainingConfig
 from open_pi_zero_torch.models import pizero
-from open_pi_zero_torch.models.tree import tree_leaves
+from open_pi_zero_torch.models.tree import tree_leaves, tree_map
 from open_pi_zero_torch.parallel import collectives
 from open_pi_zero_torch.parallel.mesh import Mesh, get_mesh
-from open_pi_zero_torch.parallel.sharding import Zero1Shards
+from open_pi_zero_torch.parallel.sharding import Zero1Shards, tp_param_specs
 from open_pi_zero_torch.training import averaging as avg_lib
 from open_pi_zero_torch.training.optimizer import Optimizer, Zero1Optimizer
 from open_pi_zero_torch.training.sampling import sample_flow_time
@@ -67,7 +83,8 @@ def _rank_rows(draw: Callable[[int], torch.Tensor], b: int) -> torch.Tensor:
     """``draw(rows)`` for this rank's ``b`` rows: under a data mesh of n
     ranks every rank draws the global microbatch's n * b rows (its
     generator seeded alike) and keeps its own, so that the ranks' rows
-    differ and together are one device's draw; else ``draw(b)``."""
+    differ and together are one device's draw; else ``draw(b)``. The ranks
+    of one data index (a model group) keep the same rows."""
     mesh = get_mesh()
     if mesh is None or mesh.n_data == 1:
         return draw(b)
@@ -98,6 +115,28 @@ def batch_loss(
     )
 
 
+def tp_split(params: dict, cfg: PiZeroConfig, n_model: int) -> dict:
+    """A tree of bools over ``params`` (a rank's TP shard): True where the
+    rank holds a slice of a leaf that ``n_model`` model ranks split
+    (``parallel.sharding.tp_param_specs`` of the config's whole tree)."""
+    specs = tp_param_specs(pizero.abstract_params(cfg), cfg, n_model)
+    return tree_map(lambda _, spec: bool(spec), params, specs)
+
+
+def refuse_under_model_axis(cfg: PiZeroConfig, train_cfg: TrainingConfig) -> None:
+    """Raise for what tensor-parallel training does not take."""
+    towers = [cfg.siglip, *cfg.joint.mixtures]
+    if any(t.use_quantize for t in towers):
+        raise NotImplementedError("QLoRA's NF4 bases under a model axis: a quantized kernel has no TP rule in the "
+                                  "port (parallel/sharding.py); train on a data mesh")
+    if train_cfg.lora or any(t.use_lora for t in towers):
+        raise NotImplementedError("LoRA adapters under a model axis: the port has no TP rules for them (the JAX "
+                                  "package's are open_pi_zero_tpu/parallel/sharding.py:52-70); train on a data mesh")
+    if train_cfg.quantize_optimizer_states:
+        raise NotImplementedError("int8 Adam moments under a model axis: their blockwise scales over a rank's "
+                                  "slice are not the whole leaf's; train on a data mesh or with fp32 moments")
+
+
 def make_train_step(
     cfg: PiZeroConfig,
     train_cfg: TrainingConfig,
@@ -115,12 +154,16 @@ def make_train_step(
     Under a registered data mesh the batch is this rank's rows (axis 1
     when accumulated: ``parallel.shard_batch(mesh, batch, axis=1)``); the
     loss and the grads are all-reduced to their means over the data group
-    before the update, so every rank returns the global metrics."""
+    before the update, so every rank returns the global metrics. Under a
+    model axis the state holds the rank's TP shard and the norm is the
+    whole tree's."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         mesh = get_mesh()
+        split = group = None
         if mesh is not None and mesh.n_model > 1:
-            raise NotImplementedError("tensor-parallel training: the JAX TrainAgent trains on a data mesh only")
+            refuse_under_model_axis(cfg, train_cfg)
+            split, group = tp_split(state.params, cfg, mesh.n_model), mesh.model_group
         state.opt_state.zero_grad(set_to_none=True)
         if grad_accum == 1:
             micro = [batch]
@@ -134,7 +177,7 @@ def make_train_step(
         if mesh is not None and mesh.n_data > 1:
             grads = [p.grad for p in tree_leaves(state.params) if p.grad is not None]
             collectives.all_reduce_mean_(grads + [loss], mesh.data_group)
-        grad_norm = optimizer.update(state.params, state.opt_state, state.step)
+        grad_norm = optimizer.update(state.params, state.opt_state, state.step, split, group)
         state.step += 1
         if state.avg is not None:
             state.avg = avg_lib.maybe_update(state.avg, state.params, state.step, train_cfg)
@@ -159,6 +202,9 @@ def shard_state_zero1(state: TrainState, optimizer: Optimizer, mesh: Mesh) -> Tr
     moments that ``state`` holds already are sliced), and the average's
     slices. The params, the step and the generator stay replicated. A data
     axis of one returns ``state``, as in JAX."""
+    if mesh.n_model > 1:
+        raise NotImplementedError("ZeRO-1 under a model axis: the moments of a rank's TP slices have no ZeRO-1 "
+                                  "layout in the port; train on a data mesh")
     if mesh.n_data == 1:
         return state
     shards = zero1_shards(state.params, mesh)

@@ -69,10 +69,11 @@ def test_import_leaves_jax_and_yaml_out():
     # and the JPEG codec's, the offline resize's and the extended registry's
     for name in ("data.jpeg", "data.preprocess", "data.oxe_registry", "scripts.modify_rlds_dataset"):
         assert f"open_pi_zero_torch.{name}" in modules
-    # and data-parallel training's (the mesh, the collectives, ZeRO-1's
-    # layout, the rank programs, the multi-process dryrun)
+    # and data-parallel and tensor-parallel training's (the mesh, the
+    # collectives, ZeRO-1's layout, the rank programs, the multi-process and
+    # multi-rank dryruns)
     for name in ("parallel.mesh", "parallel.collectives", "parallel.sharding", "parallel.ranks",
-                 "scripts.dryrun_multiprocess"):
+                 "scripts.dryrun_multiprocess", "scripts.dryrun_multichip"):
         assert f"open_pi_zero_torch.{name}" in modules
     # and the last leftovers: module specs, the readiness harness and the
     # checking scripts
@@ -82,6 +83,11 @@ def test_import_leaves_jax_and_yaml_out():
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
+        # tensor-parallel training's entry points among them
+        "from open_pi_zero_torch.parallel import collectives, ranks, sharding\n"
+        "from open_pi_zero_torch.scripts import dryrun_multichip\n"
+        "assert all(map(callable, (collectives.copy_to_model_group, sharding.gather_tp, ranks.train_rank, "
+        "dryrun_multichip.main)))\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'yaml', 'safetensors', 'open_pi_zero_tpu', 'optax', 'orbax', 'tensorflow', "
         "'transformers', 'cv2', 'PIL', 'simpler_env', 'imageio'))))\n"

@@ -104,6 +104,22 @@ def test_k1_shard_in_two_ranks_matches_plain(cuda):
         assert row[f"not_close_{part}"] == 0, (part, row[f"max_abs_err_{part}"])
 
 
+def test_k1_shard_vjp_at_the_training_shape_in_two_ranks(cuda):
+    """K1-shard's VJP at the fp32 training shape with replicated K/V (one
+    KV head) in a (data=1, model=2) world sharing the card: each rank's out
+    and dq (its 4 query heads) and dk, dv after the sum over the model
+    ranks against plain autograd on the whole inputs; each rank launches
+    both backward kernels once."""
+    from open_pi_zero_torch.parallel import ranks, run_ranks
+
+    q, k, v, mask, g = (x.cpu().numpy() for x in _training_inputs("cpu", torch.float32))
+    case = dict(name="train", q=q, k=k, v=v, mask=mask, g=g, softcap=50.0, dtype="float32", tol=1e-4)
+    (row,) = run_ranks(ranks.attention_rank, 1, 2, [case], device="cuda", timeout_s=300)
+    assert row["bwd_launches"] == 2
+    for part in ("out", "dq", "dk", "dv"):
+        assert row[f"not_close_{part}"] == 0, (part, row[f"max_abs_err_{part}"])
+
+
 def test_kernel_no_softcap_and_fully_masked_rows(cuda):
     q, k, v, mask = _inputs(cuda, 1, 4, 281, 8, 1, 256, torch.float32)
     torch.testing.assert_close(

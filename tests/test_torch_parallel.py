@@ -57,11 +57,11 @@ from tests.test_torch_models import example_inputs, torch_cfg
 
 TIMEOUT_S = 120  # every collective of a world; a world takes a few seconds
 # what a rank of data-parallel training imports (torchrun-launched ranks:
-# tests/test_torch_dp_agent.py)
+# tests/test_torch_dp_agent.py), and the multi-rank dryrun's ranks
 DP_MODULES = (
     "open_pi_zero_torch.training.train_step", "open_pi_zero_torch.training.checkpoint",
     "open_pi_zero_torch.agents.train", "open_pi_zero_torch.scripts.run",
-    "open_pi_zero_torch.scripts.dryrun_multiprocess",
+    "open_pi_zero_torch.scripts.dryrun_multiprocess", "open_pi_zero_torch.scripts.dryrun_multichip",
 )
 
 ATTENTION_CASES = {
@@ -102,18 +102,28 @@ def _infer_calls(tiny):
     ]
 
 
+def _tp_train_call(tiny):
+    """One tensor-parallel update of the tiny model (``train_rank``, no
+    reference), so that the world's last program sees what TP training
+    imported."""
+    _, tcfg, jparams, batch, _ = tiny
+    actions = np.zeros((len(batch["input_ids"]), tcfg.horizon_steps, tcfg.action_dim), np.float32)
+    return (ranks.train_rank, (tcfg, t_config.TrainingConfig(), [{**batch, "actions": actions}], 1, False, jparams))
+
+
 @pytest.fixture(scope="module")
 def world_2x2(tiny):
     """One (data=2, model=2) world: K1-shard on both attention cases, the
-    tiny model's chunk with injected and with drawn noise."""
+    tiny model's chunk with injected and with drawn noise, one TP update."""
     cases = [_attention_case(name, seed) for seed, name in enumerate(ATTENTION_CASES)]
     calls = [
-        (ranks.attention_rank, (cases,)), *_infer_calls(tiny), (ranks.foreign_modules_rank, (DP_MODULES,)),
+        (ranks.attention_rank, (cases,)), *_infer_calls(tiny), _tp_train_call(tiny),
+        (ranks.foreign_modules_rank, (DP_MODULES,)),
     ]
-    attention, *infer, foreign = run_ranks(
+    attention, *infer, tp_train, foreign = run_ranks(
         ranks.sequence, 2, 2, calls, device="cpu", timeout_s=TIMEOUT_S
     )
-    return {"cases": cases, "attention": attention, "infer": infer, "foreign": foreign}
+    return {"cases": cases, "attention": attention, "infer": infer, "tp_train": tp_train, "foreign": foreign}
 
 
 @pytest.fixture(scope="module", params=[(1, 2), (2, 1)], ids=lambda m: f"{m[0]}x{m[1]}")
@@ -357,6 +367,9 @@ def test_a_failed_rank_fails_the_world_and_none_hangs(fault):
 
 
 def test_spawned_ranks_import_no_jax(world_2x2):
+    """After K1-shard, TP inference and a TP update (``train_rank``),
+    with the training and dryrun modules imported."""
+    assert world_2x2["tp_train"]["replicated_bitwise"]
     assert world_2x2["foreign"] == []
 
 
