@@ -155,8 +155,7 @@ Phases, each of which raises on failure:
                exactly 3 * 2 * 2L K1 launches and 3 * 2 * L VJPs of two
                backward launches each; finite losses; every trained leaf
                changed, the frozen ones bitwise unchanged; update time and
-               peak memory; one more update under torch.profiler, which
-               traces K1 and both backward kernels by symbol. The kernel's
+               peak memory. The kernel's
                inputs of one update are kept and replayed as the training
                path runs them (two forwards, the second with its VJP)
                through the Function, through K1 with a backward that
@@ -313,7 +312,16 @@ Phases, each of which raises on failure:
                1e-3 relative of the unsharded ones, the gathered params
                within 1e-6, the replicated leaves bitwise equal. Update ms
                per rank, the model group's all-reduce ms, peak memory per
-               rank; the kernels line's tp_launches_per_update
+               rank; the kernels line's tp_launches_per_update. Then the
+               same for configs/train/bridge.yaml's QLoRA recipe (NF4 trunk
+               and SigLIP bases, LoRA r 32, int8 Adam moments) at its
+               widths, depth TP_LAYERS, the same B, updates, eps and lr,
+               with its own checks: the gathered adapters within 1e-6 of
+               the unsharded ones, every rank's NF4 payloads bitwise as
+               drawn and alike over the ranks, the int8 moments of the
+               split leaves gathered whole the blockwise quantization of
+               their values (every code and scale, the scales alike on
+               both ranks); tp_qlora_launches_per_update
  12. dp-main — data-parallel training and ZeRO-1: configs/train/
                bridge.yaml's QLoRA recipe at full width, both towers cut to
                4 layers (DP_LAYERS; --dp-layers 0 keeps the recipe's 18 and
@@ -2053,21 +2061,6 @@ def check_train_main(dev) -> tuple:
     return result, cfg, params, state, step, batches[0]
 
 
-def profile_update(state, step, batch, expected: int) -> dict:
-    """One more update under torch.profiler (``profiled_window``; each
-    window is one more update): K1's launches and device time, each
-    backward kernel's (``expected`` / 2 VJPs), the busy share."""
-    got, traced, wall = profiled_window(
-        lambda: step(state, batch),
-        {None: None, KERNEL_SYMBOL: expected, ROWS_SYMBOL: expected // 2, KEYS_SYMBOL: expected // 2},
-        counted=(expected, expected),
-    )
-    busy = got[None][0]
-    log_profile("train-profile", traced, wall, busy)
-    return {"launches": expected, "bwd_launches": expected, "kernel_ms": got[KERNEL_SYMBOL][0],
-            "backward_ms": got[ROWS_SYMBOL][0] + got[KEYS_SYMBOL][0], "wall_ms": wall, "busy_ms": busy}
-
-
 def record_training_calls(dev, cfg, params, batch) -> list:
     """The kernel's inputs, in order, over the forwards of one update's
     GRAD_ACCUM microbatches (a rematerialized layer runs its forward again
@@ -3580,14 +3573,52 @@ def tp_train_args() -> tuple:
     return cfg, tp_training_config(), batches, GRAD_ACCUM, False, None, 0, "cuda", False
 
 
-def check_tp_train(cfg, got: dict, info: str) -> dict:
-    """tp-train: full-width fp32 TP = 2 training in 2 ranks (``got``:
-    ``ranks.train_rank`` on ``tp_train_args()``) against rank 0's
-    unsharded updates (``check_tp_update``)."""
-    checked = check_tp_update("tp-train", cfg, got)
+# the QLoRA recipe of configs/train/bridge.yaml (NF4 trunk and SigLIP bases,
+# LoRA r 32, int8 Adam moments) at its widths, both towers cut to
+# TP_LAYERS, the first update at the full lr
+TP_QLORA_OVERRIDES = ["quantize=true", "lora=true", "remat=true", "action_lr_scheduler.warmup_steps=0",
+                      "vlm_lr_scheduler.warmup_steps=0"]
+
+
+def tp_qlora_args() -> tuple:
+    """tp-train's second recipe, ``ranks.train_rank``'s arguments: the
+    QLoRA recipe (TP_QLORA_OVERRIDES) at phase 7's Adam eps, params from
+    seed 0 drawn and quantized on each rank's card; TP_UPDATES updates of
+    TP_B x GRAD_ACCUM injected rows; rank 0 first takes them alone."""
+    raw = cfg_lib.load_config(AGENT_CONFIG, overrides=TP_QLORA_OVERRIDES + dp_depth_overrides(TP_LAYERS))
+    cfg = cfg_lib.pizero_config_from_dict(raw)
+    train_cfg = dataclasses.replace(cfg_lib.training_config_from_dict(raw), adam_eps=DP_ADAM_EPS)
+    rng = np.random.default_rng(14)
+    batches = [train_batch(cfg, TP_B, rng, inject=True) for _ in range(TP_UPDATES)]
+    return cfg, train_cfg, batches, GRAD_ACCUM, False, None, 0, "cuda", False
+
+
+def check_tp_qlora(cfg, got: dict) -> dict:
+    """tp-train's QLoRA recipe (``got``: ``ranks.train_rank`` on
+    ``tp_qlora_args()``) beyond ``check_tp_update``: the gathered adapters
+    within DP_TOL's params limit of the unsharded updates'; every rank's
+    NF4 payloads bitwise as drawn and alike over the model group; the
+    gathered int8 moments of the split leaves the whole-leaf blockwise
+    quantization of their values (every code and scale), the scales alike
+    on every rank."""
+    checked = check_tp_update("tp-train QLoRA", cfg, got)
+    adapters = got["vs_reference"]["adapters"]["max_abs_diff"]
+    nf4, int8 = got["nf4"], got["int8_moments"]
+    if not adapters <= DP_TOL["params"]:
+        raise AssertionError(f"tp-train QLoRA: the gathered adapters vs unsharded max|diff| {adapters}")
+    if not (nf4["leaves"] > 0 and nf4["unchanged"] and nf4["alike"]):
+        raise AssertionError(f"tp-train QLoRA: the NF4 bases {nf4}")
+    if not (int8["leaves"] > 0 and int8["scales_alike"] and int8["codes_differ"] == int8["scales_differ"] == 0):
+        raise AssertionError(f"tp-train QLoRA: the int8 moments of the split leaves {int8}")
+    return {**checked, "adapters_max_abs_diff": adapters, "nf4": nf4, "int8_moments": int8}
+
+
+def tp_train_summary(name: str, cfg, got: dict, checked: dict, info: str) -> dict:
+    """A tp-train recipe's numbers beside its checks (``checked``), logged;
+    the unsharded updates' launches checked too."""
     ref = got["reference"]
     if set(ref["launches"]) != {checked["launches_per_update"]} or ref["bwd_launches"] != ref["launches"]:
-        raise AssertionError(f"tp-train: the unsharded updates launched K1 {ref['launches']} and the backward kernels "
+        raise AssertionError(f"{name}: the unsharded updates launched K1 {ref['launches']} and the backward kernels "
                              f"{ref['bwd_launches']} times, want {checked['launches_per_update']} per update")
     rows = got["ranks"]
     result = {
@@ -3598,23 +3629,31 @@ def check_tp_train(cfg, got: dict, info: str) -> dict:
         "model_allreduce_ms": [r["model_allreduce_ms"] for r in rows],
         "model_allreduce_calls": [r["model_allreduce_calls"][0] for r in rows],
         "peak_gb": [r["peak_gb"] for r in rows],
-        "reference": {k: got["reference"][k] for k in ("losses", "grad_norms", "update_ms", "peak_gb")},
+        "moment_bytes": got["moment_bytes"],
+        "reference": {k: ref[k] for k in ("losses", "grad_norms", "update_ms", "peak_gb")},
         "losses": rows[0]["losses"], "grad_norms": rows[0]["grad_norms"],
     }
-    log("tp-train: " + json.dumps(result))
+    log(f"{name}: " + json.dumps(result))
     cards = "sharing one card" if got["backend"] == "gloo" else "a card each"
-    log(f"tp-train: PiZeroConfig() at full width, fp32, depth {result['depth']['joint']} (SigLIP "
-        f"{result['depth']['siglip']}), remat, EMA, TP = 2 on 2 ranks over {got['backend']} ({cards}, {got['card']}), "
-        f"B = {TP_B} x {GRAD_ACCUM}: update ms per rank {[round(m, 1) for m in result['update_ms_median']]} (median "
-        f"of updates 2-{TP_UPDATES}), of it the model group's all-reduces "
-        f"{[[round(m, 1) for m in r['model_allreduce_ms']] for r in rows]} ms over "
+    log(f"{name}: depth {result['depth']['joint']} (SigLIP {result['depth']['siglip']}), TP = 2 on 2 ranks over "
+        f"{got['backend']} ({cards}, {got['card']}), B = {TP_B} x {GRAD_ACCUM}: update ms per rank "
+        f"{[round(m, 1) for m in result['update_ms_median']]} (median of updates 2-{TP_UPDATES}), of it the model "
+        f"group's all-reduces {[[round(m, 1) for m in r['model_allreduce_ms']] for r in rows]} ms over "
         f"{result['model_allreduce_calls']} calls per update; peak memory per rank "
         f"{[round(g, 3) for g in result['peak_gb']]} GB; the unsharded update on one rank "
-        f"{statistics.median(got['reference']['update_ms'][1:]):.1f} ms, peak {got['reference']['peak_gb']:.3f} GB; "
-        f"K1-shard {checked['launches_per_update']} K1 and {checked['launches_per_update']} backward launches per rank "
-        f"per update, one card's; vs unsharded relative {checked['relative']}, params max|diff| "
+        f"{statistics.median(ref['update_ms'][1:]):.1f} ms, peak {ref['peak_gb']:.3f} GB; K1-shard "
+        f"{checked['launches_per_update']} K1 and {checked['launches_per_update']} backward launches per rank per "
+        f"update, one card's; vs unsharded relative {checked['relative']}, params max|diff| "
         f"{checked['params_max_abs_diff']:.3e}, replicated leaves bitwise equal over the ranks; on {info}")
     return result
+
+
+def check_tp_train(cfg, got: dict, info: str) -> dict:
+    """tp-train: full-width fp32 TP = 2 training in 2 ranks (``got``:
+    ``ranks.train_rank`` on ``tp_train_args()``) against rank 0's
+    unsharded updates (``check_tp_update``)."""
+    checked = check_tp_update("tp-train", cfg, got)
+    return tp_train_summary("tp-train fp32 (PiZeroConfig(), remat, EMA)", cfg, got, checked, info)
 
 
 # --------------------------------------------------------------------------- #
@@ -3892,13 +3931,6 @@ def single_card_phases(dev, info: str) -> list:
     log("train-main: " + json.dumps(trained))
     log(f"train-main: update {trained['update_ms_median_after_first']:.1f} ms (median of updates 2-3), "
         f"peak memory {trained['peak_mem_gb']:.3f} GB, B={TRAIN_B} x {GRAD_ACCUM}, on {info}")
-    per_update = GRAD_ACCUM * 2 * cfg.joint.num_hidden_layers
-    update_prof = profile_update(state, step, batch, per_update)
-    log(f"train-main: K1 in the profiled update {update_prof['kernel_ms']:.3f} ms over "
-        f"{update_prof['launches']} launches, the backward kernels {update_prof['backward_ms']:.3f} ms over "
-        f"{update_prof['bwd_launches']} launches, together "
-        f"{100 * (update_prof['kernel_ms'] + update_prof['backward_ms']) / update_prof['wall_ms']:.2f}% "
-        f"of the update's {update_prof['wall_ms']:.1f} ms")
     train_calls = record_training_calls(dev, cfg, params, batch)
     del params, state, step, batch
     torch.cuda.empty_cache()
@@ -3975,8 +4007,9 @@ def single_card_phases(dev, info: str) -> list:
         "source": "open_pi_zero_torch/csrc/mot_attention_bwd.cu",
         "sources": ["open_pi_zero_torch/csrc/mot_attention.cu", "open_pi_zero_torch/csrc/mot_attention_bwd.cu"],
         "replaces": REPLACES_VJP,
-        # K1's forwards and both backward kernels' launches in the profiled update
-        "launches": update_prof["launches"] + update_prof["bwd_launches"],
+        # K1's forwards and both backward kernels' launches in one update of
+        # phase 8's counted run
+        "launches": (trained["launches"] + trained["bwd_launches"]) // 3,
         "max_abs_err": max(replayed_vjp["max_abs_err"], *vjp_errs.values(),
                            *(r[f"max_abs_err_{p}"] for r in bwd.values() for p in ("dq", "dk", "dv"))),
         # one update: the two forwards and the VJP of every (layer,
@@ -4001,13 +4034,13 @@ def mesh_phases(dev, info: str, dp_layers: int = DP_LAYERS) -> dict:
     (mesh (1, 2)), one rank program after the other, so that its
     processes start once."""
     t0 = time.time()
-    main_args, tp_args = shard_main_args(), tp_train_args()
-    attention_rows, main_path, tp_train = run_ranks(
+    main_args, tp_args, qlora_args = shard_main_args(), tp_train_args(), tp_qlora_args()
+    attention_rows, main_path, tp_train, tp_qlora = run_ranks(
         ranks.sequence, 1, 2, [(ranks.attention_rank, (shard_cases(),)), (ranks.main_path_rank, main_args),
-                               (ranks.train_rank, tp_args)],
+                               (ranks.train_rank, tp_args), (ranks.train_rank, qlora_args)],
         device="cuda", timeout_s=RANK_TIMEOUT_S)
     log(f"shard-kernel, shard-main and tp-train: their world of 2 ranks ran all three in {time.time() - t0:.1f} s "
-        f"(tp-train's program {tp_train['seconds']:.1f} s of it)")
+        f"(tp-train's programs {tp_train['seconds']:.1f} s fp32, {tp_qlora['seconds']:.1f} s QLoRA, of it)")
     shard_errs = check_shard_kernel(attention_rows)
     log("shard-kernel, 2 ranks, mesh (1, 2), max|diff| vs the plain version: " + json.dumps(shard_errs))
     log(f"phase shard-kernel ok in {time.time() - t0:.1f} s")
@@ -4025,8 +4058,13 @@ def mesh_phases(dev, info: str, dp_layers: int = DP_LAYERS) -> dict:
 
     t0 = time.time()
     tp = check_tp_train(tp_args[0], tp_train, info)
-    log(f"phase tp-train ok in {time.time() - t0:.1f} s (its ranks' run, {tp['seconds']:.1f} s, counted in "
-        "shard-kernel's)")
+    qlora = tp_train_summary(f"tp-train QLoRA ({AGENT_CONFIG} quantize, lora)", qlora_args[0], tp_qlora,
+                             check_tp_qlora(qlora_args[0], tp_qlora), info)
+    log(f"tp-train QLoRA: the gathered adapters vs unsharded max|diff| {qlora['adapters_max_abs_diff']:.3e} "
+        f"(limit {DP_TOL['params']}); NF4 bases {qlora['nf4']}; int8 moments of the split leaves "
+        f"{qlora['int8_moments']}; moment bytes per rank {qlora['moment_bytes']}")
+    log(f"phase tp-train ok in {time.time() - t0:.1f} s (its ranks' runs, {tp['seconds']:.1f} and "
+        f"{qlora['seconds']:.1f} s, counted in shard-kernel's)")
 
     t0 = time.time()
     shard_parity = check_shard_parity()
@@ -4066,6 +4104,9 @@ def mesh_phases(dev, info: str, dp_layers: int = DP_LAYERS) -> dict:
         # card's count at the same depth and accumulation)
         "tp_launches_per_update": tp_train["ranks"][0]["launches"][0],
         "tp_bwd_launches_per_update": tp_train["ranks"][0]["bwd_launches"][0],
+        # the same for tp-train's QLoRA recipe (NF4 bases, LoRA, int8 moments)
+        "tp_qlora_launches_per_update": tp_qlora["ranks"][0]["launches"][0],
+        "tp_qlora_bwd_launches_per_update": tp_qlora["ranks"][0]["bwd_launches"][0],
     }
 
 

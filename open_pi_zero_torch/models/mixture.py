@@ -30,7 +30,12 @@ of each projection that is split on the rank (q; k/v only when their heads
 split; gate/up) sums its gradient over the model group
 (``copy_to_model_group``): replicated K/V (one KV head) take none, since
 K1-shard's VJP sums dk and dv over the group already and one more sum
-would count their input gradient tp times.
+would count their input gradient tp times. A LoRA adapter follows its
+base: a split q/k/v/gate/up adds ``(x @ a) @ b_local`` to its columns, a
+split o/down adds ``(x_local @ a_local) @ b`` to the partial sum before
+the reduce. A QLoRA NF4 base stays whole on every rank; a split
+projection multiplies by its rank's slice of the decoded kernel
+(``parallel/sharding.rank_kernel``).
 """
 
 from __future__ import annotations
@@ -41,10 +46,11 @@ import torch
 import torch.nn.functional as F
 
 from open_pi_zero_torch.config import JointConfig, MixtureConfig
-from open_pi_zero_torch.ops.linear import proj
+from open_pi_zero_torch.ops.linear import out_features, proj
 from open_pi_zero_torch.ops.norms import adaptive_layerscale, adaptive_rms_norm, rms_norm
 from open_pi_zero_torch.ops.rope import apply_rope
 from open_pi_zero_torch.parallel.collectives import copy_to_model_group, sum_row_parallel
+from open_pi_zero_torch.parallel.sharding import attention_split, model_ranks, rank_kernel
 
 
 def norm(
@@ -69,9 +75,23 @@ def adaptive_scale(
     return adaptive_layerscale(x, time_cond, lp[stage]["kernel"], lp[stage]["bias"])
 
 
+def _heads_split(joint: JointConfig) -> Tuple[bool, bool]:
+    """(q/o split, k/v split) over the registered mesh's model ranks."""
+    return attention_split(joint.num_attention_heads, joint.num_key_value_heads, model_ranks())
+
+
+def _rank(lp: dict, names: Tuple[str, ...], dim: int, split: bool, dtype) -> dict:
+    """``lp`` with the kernels of ``names`` as this rank multiplies by them
+    (``rank_kernel``: a whole NF4 base of a split projection decoded and
+    cut to the rank's slice)."""
+    ranked = {n: rank_kernel(lp[n], dim, split, dtype) for n in names}
+    return lp if all(ranked[n] is lp[n] for n in names) else {**lp, **ranked}
+
+
 def q_proj(lp_attn: dict, joint: JointConfig, x: torch.Tensor, scaling: float = 1.0) -> torch.Tensor:
     b, s, _ = x.shape
-    x = copy_to_model_group(x, lp_attn["q"], joint.num_attention_heads * joint.head_dim)
+    lp_attn = _rank(lp_attn, ("q",), -1, _heads_split(joint)[0], x.dtype)
+    x = copy_to_model_group(x, out_features(lp_attn["q"]), joint.num_attention_heads * joint.head_dim)
     return proj(lp_attn, "q", x, scaling).reshape(b, s, -1, joint.head_dim)
 
 
@@ -80,7 +100,8 @@ def kv_proj(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, s, _ = x.shape
     shape = (b, s, -1, joint.head_dim)
-    x = copy_to_model_group(x, lp_attn["k"], joint.num_key_value_heads * joint.head_dim)  # k and v split alike
+    lp_attn = _rank(lp_attn, ("k", "v"), -1, _heads_split(joint)[1], x.dtype)
+    x = copy_to_model_group(x, out_features(lp_attn["k"]), joint.num_key_value_heads * joint.head_dim)  # k and v split alike
     return (
         proj(lp_attn, "k", x, scaling).reshape(shape),
         proj(lp_attn, "v", x, scaling).reshape(shape),
@@ -104,7 +125,9 @@ def qkv_proj(
 
 
 def o_proj(lp_attn: dict, joint: JointConfig, x: torch.Tensor, scaling: float = 1.0) -> torch.Tensor:
-    """x: [B, S, Hq*Dh] (this rank's heads) -> [B, S, D]."""
+    """x: [B, S, Hq*Dh] (this rank's heads) -> [B, S, D]. The adapter's
+    delta joins the rank's partial sum before the reduce."""
+    lp_attn = _rank(lp_attn, ("o",), -2, _heads_split(joint)[0], x.dtype)
     out = proj(lp_attn, "o", x, scaling)
     return sum_row_parallel(out, x.shape[-1], joint.num_attention_heads * joint.head_dim)
 
@@ -112,13 +135,16 @@ def o_proj(lp_attn: dict, joint: JointConfig, x: torch.Tensor, scaling: float = 
 def mlp(lp_mlp: dict, mix: MixtureConfig, x: torch.Tensor, scaling: float = 1.0) -> torch.Tensor:
     """geglu: down(gelu_tanh(gate(x)) * up(x)), the gelu in fp32; one fused
     gate+up projection split in half in the serving layout."""
+    split = mix.intermediate_size % model_ranks() == 0
     if "gateup" in lp_mlp:
         gate, up = proj(lp_mlp, "gateup", x).chunk(2, dim=-1)
     else:
-        x = copy_to_model_group(x, lp_mlp["gate"], mix.intermediate_size)  # gate and up split alike
+        lp_mlp = _rank(lp_mlp, ("gate", "up"), -1, split, x.dtype)
+        x = copy_to_model_group(x, out_features(lp_mlp["gate"]), mix.intermediate_size)  # gate and up split alike
         gate = proj(lp_mlp, "gate", x, scaling)
         up = proj(lp_mlp, "up", x, scaling)
     h = F.gelu(gate.to(torch.float32), approximate="tanh").to(x.dtype) * up
+    lp_mlp = _rank(lp_mlp, ("down",), -2, split, x.dtype)
     return sum_row_parallel(proj(lp_mlp, "down", h, scaling), h.shape[-1], mix.intermediate_size)
 
 

@@ -84,6 +84,16 @@ def base_matmul(x: torch.Tensor, w) -> torch.Tensor:
     )
 
 
+def out_features(w) -> int:
+    """A kernel's output columns: a float kernel's last dim; a quantized
+    dict's, from its payload (NF4 packs two columns in a byte)."""
+    if not isinstance(w, dict):
+        return w.shape[-1]
+    if "q4" in w:
+        return 2 * w["q4"].shape[-1]
+    return (w["q"] if "q" in w else w["qa"]).shape[-1]
+
+
 def linear(x: torch.Tensor, kernel, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [..., in] @ kernel [in, out] (+ bias), in x.dtype."""
     if bias is None and not isinstance(kernel, dict):

@@ -192,20 +192,31 @@ def _integer_pow(x: torch.Tensor, power: int) -> torch.Tensor:
     return acc
 
 
+def block_scale(absmax: torch.Tensor) -> torch.Tensor:
+    """A block's scale from its absmax: 1 for an all-zero block."""
+    return torch.where(absmax == 0, 1.0, absmax)
+
+
+def quantize_scaled(x: torch.Tensor, scale: torch.Tensor, power: int = 1) -> torch.Tensor:
+    """fp32 values -> their int8 codes, each by its block's ``scale``
+    (broadcast against ``x``): elementwise, so a value's code does not
+    depend on where the rest of its block lies."""
+    frac = x.abs() / scale
+    if power != 1:
+        frac = _pow_root(frac, power)
+    return torch.clamp(torch.round(torch.sign(x) * frac * 127.0), -127, 127).to(torch.int8)
+
+
 def quantize_blocks(blocks: torch.Tensor, power: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 [n_blocks, block] -> (int8 payload, fp32 scale [n_blocks, 1]),
     each block by its own absmax (1 for an all-zero block)."""
-    absmax = blocks.abs().amax(dim=1, keepdim=True)
-    scale = torch.where(absmax == 0, 1.0, absmax)
-    frac = blocks.abs() / scale
-    if power != 1:
-        frac = _pow_root(frac, power)
-    q = torch.clamp(torch.round(torch.sign(blocks) * frac * 127.0), -127, 127).to(torch.int8)
-    return q, scale
+    scale = block_scale(blocks.abs().amax(dim=1, keepdim=True))
+    return quantize_scaled(blocks, scale, power), scale
 
 
 def dequantize_blocks(q: torch.Tensor, scale: torch.Tensor, power: int = 1) -> torch.Tensor:
-    """The inverse of ``quantize_blocks``: fp32 [n_blocks, block]."""
+    """The inverse of ``quantize_blocks``: fp32 [n_blocks, block] (or any
+    payload, ``scale`` broadcast against it: elementwise)."""
     qf = q.to(torch.float32)
     # a device tensor as divisor: CUDA divides by a Python scalar as a
     # product with its reciprocal, which rounds otherwise than JAX
@@ -229,3 +240,43 @@ def dequantize_blockwise(qt: QTensor) -> torch.Tensor:
     """``QTensor`` -> the fp32 tensor of its shape."""
     n = math.prod(qt.shape)
     return dequantize_blocks(qt.q, qt.scale, qt.power).reshape(-1)[:n].reshape(qt.shape)
+
+
+@dataclass(frozen=True)
+class SliceBlocks:
+    """Where one rank's slice of a leaf split along one dim over ``count``
+    ranks falls among the whole leaf's blocks of ``block`` (its flat order,
+    as ``quantize_blockwise`` cuts it). In the whole leaf the slice is
+    ``runs`` contiguous runs of ``run`` elements, ``stride`` apart, the
+    first at ``offset``; in the slice's own flat order they follow one
+    another. A whole-leaf block may lie in one rank's slice (a column split
+    whose width per rank is a multiple of the block) or straddle several
+    ranks' (a narrower one)."""
+
+    dim: int  # the split dim, counted from the front
+    run: int
+    stride: int
+    offset: int
+    n_blocks: int  # the whole leaf's
+    block: int = DEFAULT_BLOCK
+
+    @classmethod
+    def of(cls, shape, dim: int, index: int, count: int, block: int = DEFAULT_BLOCK) -> "SliceBlocks":
+        """Rank ``index``'s slice of ``shape`` (the slice's shape) along
+        ``dim`` (counted from the front)."""
+        inner = math.prod(shape[dim + 1 :])
+        run = shape[dim] * inner
+        return cls(dim, run, run * count, index * run, -(-math.prod(shape) * count // block), block)
+
+    def ids(self, lo: int, hi: int, device) -> torch.Tensor:
+        """The whole-leaf block of each element ``lo:hi`` of the slice's
+        flat order (int64)."""
+        i = torch.arange(lo, hi, device=device)
+        return (i + (i // self.run) * (self.stride - self.run) + self.offset) // self.block
+
+    def absmax_(self, out: torch.Tensor, x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """``out`` [n_blocks], raised in place to the absmax of the slice's
+        values ``x`` (flat, at ``ids``) in each block: this rank's part of
+        the blocks' maxima, whose MAX over the ranks (zeros elsewhere) is
+        the whole leaf's."""
+        return out.scatter_reduce_(0, ids, x.abs(), "amax")

@@ -24,7 +24,9 @@ returns its input.
 
 Training's collectives: ``all_reduce_mean_``, the DP gradient all-reduce
 (the trained leaves' grads packed into flat fp32 buckets, one collective
-per bucket), and ``all_gather_ranges_``, which puts tensors back together
+per bucket), ``all_reduce_sum_``, the same packing for the grads that TP
+leaves partial on each rank (a LoRA adapter's whole factor beside a split
+one, ``parallel/sharding.partial_grads``), and ``all_gather_ranges_``, which puts tensors back together
 from the element ranges that each rank holds (ZeRO-1's updated param
 slices, its moments and averages for a checkpoint).
 """
@@ -97,6 +99,17 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
     """Each tensor replaced by its mean over ``group``, in place: packed
     into flat fp32 buckets of at most ``BUCKET_BYTES`` (one all-reduce
     each), summed, divided by the group's size, unpacked."""
+    _all_reduce_packed_(tensors, group, mean=True)
+
+
+@torch.no_grad()
+def all_reduce_sum_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Each tensor replaced by its sum over ``group``, in place, packed as
+    ``all_reduce_mean_`` packs."""
+    _all_reduce_packed_(tensors, group, mean=False)
+
+
+def _all_reduce_packed_(tensors: Sequence[torch.Tensor], group, mean: bool) -> None:
     n = _size(group)
     if n == 1:
         return
@@ -104,10 +117,13 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
     for run in _buckets(as_fp32):
         t = tensors[run[0]]
         if len(run) == 1 and t.dtype == torch.float32 and t.is_contiguous():  # a bucket of its own, no copy
-            all_reduce(t, group).div_(n)
+            all_reduce(t, group)
+            if mean:
+                t.div_(n)
             continue
-        flat = torch.cat([as_fp32[i] for i in run])
-        all_reduce(flat, group).div_(n)
+        flat = all_reduce(torch.cat([as_fp32[i] for i in run]), group)
+        if mean:
+            flat.div_(n)
         offset = 0
         for i in run:
             t = tensors[i]
@@ -202,14 +218,15 @@ def sum_row_parallel(x: torch.Tensor, local_in: int, full_in: int) -> torch.Tens
     return all_reduce(x, group)
 
 
-def copy_to_model_group(x: torch.Tensor, kernel, full_out: int) -> torch.Tensor:
-    """``x`` as the input of a projection by ``kernel`` (stored ``[in,
-    out]``), of ``full_out`` output columns: when the rank's kernel holds a
-    slice of them (a split over the model group), ``x`` with its gradient
-    all-reduced there in the backward; ``x`` itself when it holds them all
-    or without autograd. A quantized kernel (a dict) is never split
-    (``parallel/sharding.py``)."""
-    local_out = kernel.shape[-1] if torch.is_tensor(kernel) else full_out
+def copy_to_model_group(x: torch.Tensor, local_out: int, full_out: int) -> torch.Tensor:
+    """``x`` as the input of a projection of ``full_out`` output columns,
+    ``local_out`` of them computed on this rank: when that is a slice (a
+    split over the model group), ``x`` with its gradient all-reduced there
+    in the backward; ``x`` itself when the rank computes them all or
+    without autograd. The rank's column count decides, not the kernel's
+    type: a quantized base stays whole on every rank and its split
+    projection multiplies by a slice of its decoded kernel
+    (``parallel/sharding.rank_kernel``)."""
     if local_out == full_out:
         return x
     group = _model_group(local_out, full_out, "output columns")

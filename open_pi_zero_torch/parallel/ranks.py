@@ -27,12 +27,13 @@ from open_pi_zero_torch.models.tree import tree_leaves, tree_map
 from open_pi_zero_torch.ops import fused_attention as fa
 from open_pi_zero_torch.ops import lora as lora_lib
 from open_pi_zero_torch.ops.attention import mot_attention_ref
+from open_pi_zero_torch.ops.quantization import dequantize_blocks, quantize_blockwise
 from open_pi_zero_torch.parallel import collectives
 from open_pi_zero_torch.parallel.mesh import Mesh, set_mesh, shard_batch
 from open_pi_zero_torch.parallel.sharding import gather_tp, shard_params_tp, tp_param_specs
 from open_pi_zero_torch.training import averaging as avg_lib
 from open_pi_zero_torch.training import optimizer as opt_lib
-from open_pi_zero_torch.training import seeds
+from open_pi_zero_torch.training import quantized_adam, seeds
 from open_pi_zero_torch.training.train_step import init_train_state, make_train_step, shard_state_zero1
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -758,7 +759,7 @@ def megatron_rank(mesh: Mesh, x: np.ndarray, w1: np.ndarray, w2: np.ndarray, g: 
     x_t = torch.from_numpy(x).to(dev).requires_grad_()
     w1_t = torch.from_numpy(w1[:, i * width : (i + 1) * width]).to(dev).requires_grad_()
     w2_t = torch.from_numpy(w2[i * width : (i + 1) * width]).to(dev).requires_grad_()
-    hidden = torch.nn.functional.gelu(collectives.copy_to_model_group(x_t, w1_t, full) @ w1_t)
+    hidden = torch.nn.functional.gelu(collectives.copy_to_model_group(x_t, width, full) @ w1_t)
     y = collectives.sum_row_parallel(hidden @ w2_t, width, full)
     dx, dw1, dw2 = torch.autograd.grad(y, (x_t, w1_t, w2_t), torch.from_numpy(g).to(dev))
     return {"y": _numpy(y), "dx": _gather_objects(mesh, _numpy(dx)),
@@ -832,20 +833,55 @@ def _max_diffs(got: dict, want: dict) -> dict:
     return {"max_abs_diff": abs_err, "max_rel_diff": rel_err}
 
 
-def _replicated_bitwise(mesh: Mesh, params: dict, specs: dict) -> bool:
-    """Whether every replicated trained leaf is bitwise the same on every
-    rank of the model group (each leaf gathered in turn; every rank
-    compares). The frozen leaves, drawn alike and never updated, are not
-    gathered."""
-    same, spec_of = True, dict(_paths(specs))
-    for path, x in _paths(params):
-        if spec_of[path] or not x.requires_grad:
-            continue
+def _alike_over_model_group(mesh: Mesh, tensors: Sequence[torch.Tensor]) -> bool:
+    """Whether each tensor is bitwise the same on every rank of the model
+    group (each gathered in turn; every rank compares), on every rank."""
+    same = True
+    for x in tensors:
         parts = collectives.all_gather(x[None], mesh.model_group, dim=0)
         same = same and all(torch.equal(part, x) for part in parts)
     flag = torch.tensor([float(same)], device=mesh.device)
     collectives.all_reduce(flag, op=torch.distributed.ReduceOp.MIN)
     return bool(flag[0])
+
+
+def _replicated_bitwise(mesh: Mesh, params: dict, specs: dict) -> bool:
+    """Whether every replicated trained leaf is bitwise the same on every
+    rank of the model group. The frozen leaves, drawn alike and never
+    updated, are not gathered (the NF4 bases are checked apart)."""
+    spec_of = dict(_paths(specs))
+    return _alike_over_model_group(mesh, [x for path, x in _paths(params) if not spec_of[path] and x.requires_grad])
+
+
+def _nf4_leaves(params: dict) -> dict:
+    """The NF4 bases' payloads and absmax by path."""
+    return {path: x for path, x in _paths(params) if path.endswith(("/q4", "/absmax"))}
+
+
+def _int8_moments_check(mesh: Mesh, opt_state) -> Optional[dict]:
+    """The int8 moments of the rank's slices of split leaves (``AdamW8bit``
+    under a model axis), gathered whole over the model group, against
+    the whole-leaf blockwise quantization of their gathered fp32 values:
+    the codes and the scales that differ (0 when the ranks coded their
+    slices with the whole leaf's block maxima), and whether every rank
+    holds the same scales. None without such moments."""
+    if not isinstance(opt_state, quantized_adam.AdamW8bit) or not opt_state.slices:
+        return None
+    codes = scales = 0
+    moments = []
+    for p, blocks in opt_state.slices.items():
+        st = opt_state.state[p]
+        for m, power in (("mu", quantized_adam.M_POWER), ("nu", quantized_adam.V_POWER)):
+            scale = st[f"{m}_scale"]
+            moments.append(scale)
+            whole = collectives.all_gather(st[m], mesh.model_group, dim=blocks.dim).reshape(-1)
+            ids = torch.arange(whole.numel(), device=whole.device) // blocks.block
+            values = dequantize_blocks(whole, scale.view(-1)[ids], power)
+            want = quantize_blockwise(values, blocks.block, power)
+            codes += int((want.q.view(-1)[: whole.numel()] != whole).sum())
+            scales += int((want.scale != scale).sum())
+    return {"leaves": len(opt_state.slices), "codes_differ": codes, "scales_differ": scales,
+            "scales_alike": _alike_over_model_group(mesh, moments)}
 
 
 def _one_process_updates(cfg: PiZeroConfig, train_cfg: TrainingConfig, params: dict, batches: List[dict],
@@ -880,8 +916,13 @@ def train_rank(mesh: Mesh, cfg: PiZeroConfig, train_cfg: TrainingConfig, batches
     Returns, on rank 0: its losses and grad norms; every rank's record
     (``_updates``) and optimizer-state bytes; the number of averaged
     updates; whether the replicated trained leaves are bitwise equal over
-    each model group after the updates; the reference's record and the
-    params, gathered whole, against it; the program's seconds on rank 0, in
+    each model group after the updates; with NF4 bases, whether every
+    rank's are bitwise as drawn and alike over its model group (``nf4``);
+    under a model axis, the int8 moments of the rank's slices gathered
+    against the whole-leaf quantization of their values
+    (``int8_moments``, None with fp32 moments); the reference's record and
+    the params (and the LoRA adapters apart), gathered whole, against it;
+    the program's seconds on rank 0, in
     all and in its parts (the reference, the updates, the checks). With
     ``keep``, also as numpy: the params, the first update's grads and the
     average gathered whole, the optimizer state (the one-device layout on a
@@ -914,8 +955,9 @@ def train_rank(mesh: Mesh, cfg: PiZeroConfig, train_cfg: TrainingConfig, batches
     t1 = time.perf_counter()
     params, specs = fresh(dev), None
     if tp:
-        specs = tp_param_specs(pizero.abstract_params(cfg), cfg, mesh.n_model)
+        specs = tp_param_specs(params, cfg, mesh.n_model)
         params = shard_params_tp(params, cfg, mesh)
+    nf4 = {path: x.clone() for path, x in _nf4_leaves(params).items()}
     state, grads, record = _updates(mesh, cfg, train_cfg, params, batches, accum, zero1, seed, grads=keep)
     t2 = time.perf_counter()
 
@@ -927,12 +969,23 @@ def train_rank(mesh: Mesh, cfg: PiZeroConfig, train_cfg: TrainingConfig, batches
                moment_bytes=_gather_objects(mesh, moment_bytes(state.opt_state)),
                n_averaged=None if state.avg is None else state.avg.n_averaged,
                replicated_bitwise=_replicated_bitwise(mesh, state.params, specs) if tp else True)
+    if nf4:  # every rank's NF4 bases bitwise as drawn, and alike over each model group
+        after = _nf4_leaves(state.params)
+        unchanged = torch.tensor([float(all(torch.equal(x, after[path]) for path, x in nf4.items()))], device=dev)
+        collectives.all_reduce(unchanged, op=torch.distributed.ReduceOp.MIN)
+        out["nf4"] = {"leaves": len(nf4), "unchanged": bool(unchanged[0]),
+                      "alike": _alike_over_model_group(mesh, list(after.values()))}
+    if tp:
+        out["int8_moments"] = _int8_moments_check(mesh, state.opt_state)
     trees = {"params": whole(state.params)} if reference is not None or keep else {}
     if keep:
         trees["grads"] = whole(grads)
         trees["avg"] = None if state.avg is None else whole(avg_lib.gathered(state.avg, state.params))
     if want is not None:
         out["vs_reference"] = {name: _max_diffs(trees[name], tree) for name, tree in want.items()}
+        adapters = {path: x for path, x in want["params"].items() if "_lora/" in path}
+        if adapters:
+            out["vs_reference"]["adapters"] = _max_diffs(trees["params"], adapters)
     if keep:
         out.update({name: None if tree is None else tree_map(lambda x: None if x is None else _numpy(x), tree)
                     for name, tree in trees.items()})

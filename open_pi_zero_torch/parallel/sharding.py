@@ -9,8 +9,15 @@ Rules (kernels are stored ``[(L,) in, out]``), as in JAX:
   row-parallel (split the in dim):     attn o, mlp down, SigLIP fc2
   replicated:                          norms (adaLN's too), adaLN-Zero's
                                        gates, embeddings, encoders, decoders
-and a dim that does not divide over the model axis stays replicated.
-LoRA leaves raise: they are not ported.
+and a dim that does not divide over the model axis stays replicated. A
+LoRA adapter ``<name>_lora: {a [(L,) in, r], b [(L,) r, out]}`` follows
+its base (JAX's ``_spec_for``): where the base splits, a column-parallel
+base's ``b`` splits on its out dim and a row-parallel base's ``a`` on its
+in dim; the rank dim r never splits, and the other factor stays whole.
+That whole factor's grad is partial on each rank (column-parallel
+``da = xᵀ(dy_local b_localᵀ)``, row-parallel ``db = (x_local a_local)ᵀ
+dy``): ``partial_grads`` names those leaves, and the TP train step sums
+their grads over the model group once per update, after the backward.
 
 A spec is a tuple like JAX's ``PartitionSpec``: ``()`` for a replicated
 leaf, else one entry per dim with ``MODEL_AXIS`` at the split dim.
@@ -23,25 +30,37 @@ each rank here runs its own program on whole heads:
       splits the trunk's 256-wide k/v out dim at tp = 2 (Hkv = 1) and
       GSPMD gathers it again before RoPE, which rotates pairs across the
       two halves of a head; K1-shard replicates K/V in that case anyway
-      (``pallas_attention.py:236``), so the function is the same.
+      (``pallas_attention.py:236``), so the function is the same. Their
+      adapters follow: ``k_lora`` and ``v_lora`` stay whole at Hkv = 1.
   (b) biases: JAX leaves every stacked bias replicated. Here a
       column-parallel bias is split with its kernel, and a row-parallel
       bias (SigLIP o, fc2) stays whole and is added once, after the
       reduce: added on every rank it would count tp times.
-  (c) the serving layout (models/fuse.py) raises: fused qkv/gateup kernels
-      and quantized kernels. A split of a concatenated out dim would cut
-      across the q|k|v and gate|up segments, so JAX leaves fused kernels
-      replicated while o and down split, and TP serving keeps the canonical
-      layout; a quantized payload under ``q`` would be taken for the query
-      kernel. JAX shards a quantized {q, scale} like its float kernel.
+  (c) quantized kernels. QLoRA's NF4 bases ``{q4, absmax}`` are taken and
+      stay whole on every rank, as JAX leaves them (its rules match
+      ``kernel``, int8 ``q`` and LoRA's ``a`` and ``b`` only): a slice of
+      the payload is not a slice of the kernel, since the nibbles pack
+      column c with column c + out/2 and the blocks (gcd(64, out) wide)
+      straddle a column split (SigLIP's fc1: blocks of 16 across a
+      2152-column split). A split projection multiplies by its rank's
+      slice of the decoded kernel (``rank_kernel``). Refused: the int8
+      serving payloads ``{q|qa, scale}``, which JAX shards like the float
+      kernel and which would here be taken for the query kernel under
+      ``q``, and the fused serving layout (models/fuse.py), whose split of
+      a concatenated out dim would cut across the q|k|v and gate|up
+      segments; TP serving keeps the canonical layout.
   (d) training: a rank's Adam moments and EMA average are shaped as its
       slices of the split leaves (``torch.optim`` over the rank's params),
       where JAX places the optimizer state replicated and lets GSPMD
       propagate the params' sharding into the update. Both rules are
       elementwise, so the numbers are the same; ``gather_tp`` puts whole
-      leaves back together for a check. LoRA adapters, NF4 bases, int8
-      moments and ZeRO-1 are refused under a model axis
-      (``training/train_step.py``).
+      leaves back together for a check. int8 moments are the exception
+      to elementwise: their blocks run over the whole leaf's flat order,
+      and a rank codes its slice with the whole leaf's block scales
+      (``training/quantized_adam.AdamW8bit.split_over``), so the payloads
+      and scales are JAX's. Taken under a model axis: LoRA adapters, NF4
+      bases, int8 moments. Refused: ZeRO-1, which the JAX package does
+      with replicated params only (``shard_state_zero1``).
 """
 
 from __future__ import annotations
@@ -54,9 +73,10 @@ import torch
 from open_pi_zero_torch.config import PiZeroConfig
 from open_pi_zero_torch.models.tree import tree_leaves, tree_map
 from open_pi_zero_torch.ops.lora import is_quantized_base
-from open_pi_zero_torch.ops.quantization import DEFAULT_BLOCK
+from open_pi_zero_torch.ops.quantization import DEFAULT_BLOCK, dequantize_kernel_nf4
 from open_pi_zero_torch.parallel import collectives
-from open_pi_zero_torch.parallel.mesh import MODEL_AXIS, Mesh
+from open_pi_zero_torch.parallel.mesh import MODEL_AXIS, Mesh, get_mesh
+from open_pi_zero_torch.utils.monitor import annotate
 
 COLUMN = frozenset({"q", "k", "v", "gate", "up", "fc1"})
 ROW = frozenset({"o", "down", "fc2"})
@@ -72,11 +92,32 @@ def attention_split(num_heads: int, num_kv_heads: int, tp: int) -> Tuple[bool, b
     return q_split, q_split and num_kv_heads % tp == 0
 
 
+def model_ranks() -> int:
+    """The registered mesh's model-axis size (1 without a mesh)."""
+    mesh = get_mesh()
+    return 1 if mesh is None else mesh.n_model
+
+
+def _splits(path: Tuple[str, ...], name: str, width: int, cfg: PiZeroConfig, tp: int) -> bool:
+    """Whether projection ``name`` at ``path`` splits over ``tp`` model
+    ranks, ``width`` wide along its split dim."""
+    if "attn" in path:  # (a): whole heads
+        if path[0] == "siglip":
+            return cfg.siglip.num_attention_heads % tp == 0
+        q_split, kv_split = attention_split(cfg.joint.num_attention_heads, cfg.joint.num_key_value_heads, tp)
+        return kv_split if name in ("k", "v") else q_split
+    return width % tp == 0
+
+
 def _split_dim(path: Tuple[str, ...], leaf, cfg: PiZeroConfig, tp: int) -> Optional[int]:
     """The dim (counted from the end) a leaf splits along, or None."""
-    if any(name.endswith("_lora") for name in path):
-        raise NotImplementedError(f"{'/'.join(path)}: LoRA leaves are not ported to TP")
     last, parent = path[-1], (path[-2] if len(path) >= 2 else None)
+    if parent is not None and parent.endswith("_lora"):  # an adapter: b's out dim or a's in dim, as its base
+        name = parent[: -len("_lora")]
+        if name not in COLUMN | ROW or (last == "b") != (name in COLUMN):
+            return None  # the projector's, or the factor that stays whole
+        dim = -1 if name in COLUMN else -2
+        return dim if _splits(path, name, leaf.shape[dim], cfg, tp) else None
     if parent in COLUMN | ROW:
         name, part = parent, last
     elif last in COLUMN | ROW:
@@ -90,16 +131,7 @@ def _split_dim(path: Tuple[str, ...], leaf, cfg: PiZeroConfig, tp: int) -> Optio
         if name in ROW:
             return None  # (b): added once, after the reduce
         dim = -1
-    if "attn" in path:  # (a): whole heads
-        if path[0] == "siglip":
-            heads = cfg.siglip.num_attention_heads
-            q_split = kv_split = heads % tp == 0
-        else:
-            q_split, kv_split = attention_split(
-                cfg.joint.num_attention_heads, cfg.joint.num_key_value_heads, tp
-            )
-        return dim if (kv_split if name in ("k", "v") else q_split) else None
-    return dim if leaf.shape[dim] % tp == 0 else None
+    return dim if _splits(path, name, leaf.shape[dim], cfg, tp) else None
 
 
 def tp_param_specs(params: dict, cfg: PiZeroConfig, tp: int) -> dict:
@@ -109,8 +141,10 @@ def tp_param_specs(params: dict, cfg: PiZeroConfig, tp: int) -> dict:
         if isinstance(node, dict):
             where = "/".join(path)
             if is_quantized_base(node):
-                raise NotImplementedError(f"{where}: a quantized kernel under tensor parallelism; TP "
-                                          "serving keeps the canonical float layout (models/fuse.py)")
+                if "q4" in node:  # (c): NF4 stays whole
+                    return {k: () for k in node}
+                raise NotImplementedError(f"{where}: an int8 quantized serving kernel {sorted(node)} under "
+                                          "tensor parallelism; TP takes float kernels and NF4 bases (models/fuse.py)")
             if FUSED & set(node):
                 raise ValueError(f"{where}: the fused serving layout ({sorted(FUSED & set(node))}) under "
                                  "tensor parallelism; TP serving keeps the canonical layout (models/fuse.py)")
@@ -123,6 +157,48 @@ def tp_param_specs(params: dict, cfg: PiZeroConfig, tp: int) -> dict:
         return tuple(spec)
 
     return walk(params, ())
+
+
+def partial_grads(specs: dict) -> dict:
+    """A tree of bools over ``specs``: True at a LoRA adapter's whole factor
+    beside a split one (``a`` beside a column-parallel base's split ``b``,
+    ``b`` beside a row-parallel base's split ``a``), whose grad each rank
+    holds only its part of: the sum over the model group is the grad."""
+
+    def walk(node, name):
+        if name.endswith("_lora"):
+            return {"a": bool(node["b"]), "b": bool(node["a"])}
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return False
+
+    return walk(specs, "")
+
+
+def rank_kernel(w, dim: int, split: bool, dtype: torch.dtype):
+    """The kernel this rank multiplies by for a projection whose kernel is
+    ``w``, when the TP rules ``split`` it along ``dim`` (-1 the out dim, -2
+    the in dim), under a registered model axis: ``w`` as stored (a float
+    kernel is the rank's slice already, ``shard_params_tp``), but a whole
+    quantized one cut to the rank's slice: an NF4 base (c) decoded in
+    ``dtype`` first (the single-device decode, so the slice holds the
+    unsharded kernel's values); the weight-only int8 copy that
+    ``infer_action`` decodes once per call from a whole NF4 base sliced as
+    it is (its scales are per output column)."""
+    mesh = get_mesh()
+    if not (split and isinstance(w, dict) and mesh is not None and mesh.n_model > 1):
+        return w
+
+    def part(x: torch.Tensor, along: int) -> torch.Tensor:
+        size = x.shape[along] // mesh.n_model
+        return x.narrow(along, mesh.model_index * size, size)
+
+    if "q4" in w:
+        with annotate("opz_nf4_dequant"):
+            return part(dequantize_kernel_nf4(w, dtype), dim)
+    if "q" in w:
+        return {"q": part(w["q"], dim), "scale": part(w["scale"], -1) if dim == -1 else w["scale"]}
+    raise ValueError(f"a {sorted(w)} kernel under tensor parallelism: TP takes float kernels and NF4 bases")
 
 
 def shard_params_tp(params: dict, cfg: PiZeroConfig, mesh: Mesh) -> dict:

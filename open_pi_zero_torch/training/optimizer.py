@@ -44,6 +44,7 @@ from open_pi_zero_torch.models.tree import tree_leaves, tree_map
 from open_pi_zero_torch.ops.lora import is_quantized_base, lora_label_fn
 from open_pi_zero_torch.ops.quantization import DEFAULT_BLOCK
 from open_pi_zero_torch.parallel import collectives
+from open_pi_zero_torch.parallel.mesh import MODEL_AXIS, Mesh
 from open_pi_zero_torch.parallel.sharding import Zero1Shards
 from open_pi_zero_torch.training import schedules
 from open_pi_zero_torch.training.quantized_adam import AdamW8bit
@@ -216,20 +217,26 @@ class Optimizer:
         )
 
     def update(self, params: dict, state: torch.optim.Optimizer, count: int, split: Optional[dict] = None,
-               group=None) -> torch.Tensor:
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
         """Apply one update from the params' ``.grad`` (then cleared), the
         ``count``-th (0 for the first). Returns the global grad norm after
         the surgery and before the clip. Under tensor parallelism ``split``
-        is a tree of bools over ``params``, True where the rank holds a
-        slice of a leaf split over the model ``group``: the norm is then
-        the whole tree's (``global_norm``)."""
+        is the spec tree over ``params`` (``parallel.tp_param_specs``),
+        truthy where the rank holds a slice of a leaf split over the model
+        group of ``mesh``: the norm is then the whole tree's
+        (``global_norm``), and int8 moments of those slices are coded in
+        their whole leaves' blocks (``AdamW8bit.split_over``)."""
         grads = apply_freeze_surgery(tree_map(lambda p: p.grad, params))
         leaves = tree_leaves(grads)
         flat = [g for g in leaves if g is not None]
         if split is None:
             norm = global_norm(flat)
         else:
-            norm = global_norm(flat, [s for g, s in zip(leaves, tree_leaves(split)) if g is not None], group)
+            flags = [bool(s) for g, s in zip(leaves, tree_leaves(split)) if g is not None]
+            norm = global_norm(flat, flags, mesh.model_group)
+            if isinstance(state, AdamW8bit):
+                state.split_over({p: s.index(MODEL_AXIS) for p, s in zip(tree_leaves(params), tree_leaves(split))
+                                  if s and p.requires_grad}, mesh)
         # optax.clip_by_global_norm: t if norm < max_norm else (t / norm) * max_norm
         max_norm = self.cfg.max_grad_norm
         if float(norm) >= max_norm:

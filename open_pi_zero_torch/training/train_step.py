@@ -33,10 +33,16 @@ slices' grads and the whole grads of the replicated leaves, bitwise alike
 over the model group. The data group's all-reduce then runs on the rank's
 own leaves, slices included; the global norm sums the slices' squares over
 the model group (``optimizer.global_norm``), so every rank clips alike;
-the replicated leaves stay bitwise equal over the model group. LoRA
-adapters, NF4 bases, int8 moments and ZeRO-1 are refused under a model
-axis: each needs TP rules that the port does not have. The TrainAgent
-stays on a data mesh, as the JAX TrainAgent does.
+the replicated leaves stay bitwise equal over the model group. A LoRA
+adapter's whole factor beside a split one (``parallel.sharding.
+partial_grads``) ends the backward with this rank's part of its grad;
+those grads are summed over the model group once per update, after the
+accumulation, in packed buckets (``collectives.all_reduce_sum_``). QLoRA's
+NF4 bases stay whole on every rank, frozen; int8 moments of a split leaf
+are coded in the whole leaf's blocks (``AdamW8bit.split_over``). ZeRO-1
+is refused under a model axis: the JAX package's ZeRO-1 places the params
+replicated, so there is none over TP params to port. The TrainAgent stays
+on a data mesh, as the JAX TrainAgent does.
 """
 
 from __future__ import annotations
@@ -49,9 +55,10 @@ import torch
 from open_pi_zero_torch.config import PiZeroConfig, TrainingConfig
 from open_pi_zero_torch.models import pizero
 from open_pi_zero_torch.models.tree import tree_leaves, tree_map
+from open_pi_zero_torch.ops import lora as lora_lib
 from open_pi_zero_torch.parallel import collectives
 from open_pi_zero_torch.parallel.mesh import Mesh, get_mesh
-from open_pi_zero_torch.parallel.sharding import Zero1Shards, tp_param_specs
+from open_pi_zero_torch.parallel.sharding import Zero1Shards, partial_grads, tp_param_specs
 from open_pi_zero_torch.training import averaging as avg_lib
 from open_pi_zero_torch.training.optimizer import Optimizer, Zero1Optimizer
 from open_pi_zero_torch.training.sampling import sample_flow_time
@@ -116,25 +123,12 @@ def batch_loss(
 
 
 def tp_split(params: dict, cfg: PiZeroConfig, n_model: int) -> dict:
-    """A tree of bools over ``params`` (a rank's TP shard): True where the
-    rank holds a slice of a leaf that ``n_model`` model ranks split
-    (``parallel.sharding.tp_param_specs`` of the config's whole tree)."""
-    specs = tp_param_specs(pizero.abstract_params(cfg), cfg, n_model)
-    return tree_map(lambda _, spec: bool(spec), params, specs)
-
-
-def refuse_under_model_axis(cfg: PiZeroConfig, train_cfg: TrainingConfig) -> None:
-    """Raise for what tensor-parallel training does not take."""
-    towers = [cfg.siglip, *cfg.joint.mixtures]
-    if any(t.use_quantize for t in towers):
-        raise NotImplementedError("QLoRA's NF4 bases under a model axis: a quantized kernel has no TP rule in the "
-                                  "port (parallel/sharding.py); train on a data mesh")
-    if train_cfg.lora or any(t.use_lora for t in towers):
-        raise NotImplementedError("LoRA adapters under a model axis: the port has no TP rules for them (the JAX "
-                                  "package's are open_pi_zero_tpu/parallel/sharding.py:52-70); train on a data mesh")
-    if train_cfg.quantize_optimizer_states:
-        raise NotImplementedError("int8 Adam moments under a model axis: their blockwise scales over a rank's "
-                                  "slice are not the whole leaf's; train on a data mesh or with fp32 moments")
+    """The spec tree over ``params`` (a rank's TP shard; a spec is truthy
+    where the rank holds a slice of a leaf that ``n_model`` model ranks
+    split): ``parallel.sharding.tp_param_specs`` of the config's whole
+    tree, its LoRA adapters and NF4 bases included (``meta`` tensors)."""
+    whole = lora_lib.quantize_per_model_config(pizero.abstract_params(cfg), cfg)
+    return tree_map(lambda _, spec: spec, params, tp_param_specs(whole, cfg, n_model))
 
 
 def make_train_step(
@@ -158,12 +152,16 @@ def make_train_step(
     model axis the state holds the rank's TP shard and the norm is the
     whole tree's."""
 
+    layouts = {}  # n_model -> (the spec tree, its partial grads' flags), made at the first TP step
+
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         mesh = get_mesh()
-        split = group = None
+        split = partial = None
         if mesh is not None and mesh.n_model > 1:
-            refuse_under_model_axis(cfg, train_cfg)
-            split, group = tp_split(state.params, cfg, mesh.n_model), mesh.model_group
+            if mesh.n_model not in layouts:
+                specs = tp_split(state.params, cfg, mesh.n_model)
+                layouts[mesh.n_model] = specs, tree_leaves(partial_grads(specs))
+            split, partial = layouts[mesh.n_model]
         state.opt_state.zero_grad(set_to_none=True)
         if grad_accum == 1:
             micro = [batch]
@@ -174,10 +172,13 @@ def make_train_step(
             mb_loss = batch_loss(state.params, cfg, state.generator, mb)
             (mb_loss / grad_accum).backward()
             loss = loss + mb_loss.detach() / grad_accum
+        if partial is not None:
+            collectives.all_reduce_sum_([p.grad for p, part in zip(tree_leaves(state.params), partial)
+                                         if part and p.grad is not None], mesh.model_group)
         if mesh is not None and mesh.n_data > 1:
             grads = [p.grad for p in tree_leaves(state.params) if p.grad is not None]
             collectives.all_reduce_mean_(grads + [loss], mesh.data_group)
-        grad_norm = optimizer.update(state.params, state.opt_state, state.step, split, group)
+        grad_norm = optimizer.update(state.params, state.opt_state, state.step, split, mesh)
         state.step += 1
         if state.avg is not None:
             state.avg = avg_lib.maybe_update(state.avg, state.params, state.step, train_cfg)
@@ -203,8 +204,9 @@ def shard_state_zero1(state: TrainState, optimizer: Optimizer, mesh: Mesh) -> Tr
     slices. The params, the step and the generator stay replicated. A data
     axis of one returns ``state``, as in JAX."""
     if mesh.n_model > 1:
-        raise NotImplementedError("ZeRO-1 under a model axis: the moments of a rank's TP slices have no ZeRO-1 "
-                                  "layout in the port; train on a data mesh")
+        raise NotImplementedError("ZeRO-1 under a model axis: the JAX package's zero1_state_sharding places the "
+                                  "params replicated (open_pi_zero_tpu/training/train_step.py:154), so it has no "
+                                  "ZeRO-1 over TP params to port; train on a data mesh")
     if mesh.n_data == 1:
         return state
     shards = zero1_shards(state.params, mesh)

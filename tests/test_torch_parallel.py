@@ -192,9 +192,17 @@ def test_tp_param_specs_split_attention_by_whole_heads():
 
 
 def test_tp_param_specs_refuse_lora_and_quantized_leaves():
-    lora = {"attn": {"q": torch.zeros(2, 4, 4), "q_lora": {"a": torch.zeros(2, 4, 1), "b": torch.zeros(2, 1, 4)}}}
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tp_param_specs({"siglip": {"layers": lora}}, t_config.tiny_pizero_config(), 2)
+    """LoRA adapters and NF4 bases are taken now (an adapter follows its
+    base, an NF4 base stays whole); the int8 serving payloads are still
+    refused."""
+    lora = {"attn": {"q": {"kernel": torch.zeros(2, 4, 4)},
+                     "q_lora": {"a": torch.zeros(2, 4, 1), "b": torch.zeros(2, 1, 4)},
+                     "o_lora": {"a": torch.zeros(2, 4, 1), "b": torch.zeros(2, 1, 4)}},
+            "mlp": {"fc1": {"q4": torch.zeros(2, 4, 2, dtype=torch.uint8), "absmax": torch.zeros(2, 4, 1)}}}
+    specs = tp_param_specs({"siglip": {"layers": lora}}, t_config.tiny_pizero_config(), 2)["siglip"]["layers"]
+    assert specs["attn"]["q_lora"] == {"a": (), "b": (None, None, MODEL_AXIS)}
+    assert specs["attn"]["o_lora"] == {"a": (None, MODEL_AXIS, None), "b": ()}
+    assert specs["mlp"]["fc1"] == {"q4": (), "absmax": ()}
     quant = {"mlp": {"fc1": {"q": torch.zeros(2, 4, 4, dtype=torch.int8), "scale": torch.zeros(2, 4)}}}
     with pytest.raises(NotImplementedError, match="quantized"):
         tp_param_specs({"siglip": {"layers": quant}}, t_config.tiny_pizero_config(), 2)

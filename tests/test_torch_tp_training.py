@@ -318,25 +318,13 @@ def test_the_model_ranks_of_one_data_index_draw_the_same_t_and_x0():
         assert torch.equal(torch.cat([draws[(0, 0)][i], draws[(1, 0)][i]]), draws[None][i])
 
 
-REFUSED = {
-    "lora": (dict(use_lora=True), dict(lora=True), "LoRA adapters"),
-    "qlora": (dict(use_lora=True, use_quantize=True), dict(lora=True), "NF4 bases"),
-    "int8_moments": ({}, dict(quantize_optimizer_states=True), "int8 Adam moments"),
-}
-
-
-@pytest.mark.parametrize("name", list(REFUSED) + ["zero1"])
+@pytest.mark.parametrize("name", ["zero1"])
 def test_tp_training_refuses_what_it_does_not_take(name):
-    cfg = t_config.tiny_pizero_config()
-    if name == "zero1":
-        with pytest.raises(NotImplementedError, match="ZeRO-1 under a model axis"):
-            t_train.shard_state_zero1(None, None, _mesh(1, 2, 0, 0))
-        return
-    mixture, train, what = REFUSED[name]
-    vlm = dataclasses.replace(cfg.joint.mixtures[0], **mixture)
-    cfg = dataclasses.replace(cfg, joint=dataclasses.replace(cfg.joint, mixtures=(vlm, *cfg.joint.mixtures[1:])))
-    with pytest.raises(NotImplementedError, match=f"{what} under a model axis"):
-        t_train.refuse_under_model_axis(cfg, t_config.TrainingConfig(**train))
+    """ZeRO-1 under a model axis: the JAX package's ZeRO-1 places the params
+    replicated, so there is no ZeRO-1 over TP params to port."""
+    with pytest.raises(NotImplementedError, match="ZeRO-1 under a model axis: the JAX package's "
+                                                  "zero1_state_sharding places the params replicated"):
+        t_train.shard_state_zero1(None, None, _mesh(1, 2, 0, 0))
 
 
 # --------------------------------------------------------------------------- #
