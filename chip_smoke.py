@@ -133,7 +133,8 @@ Phases, each of which raises on failure:
                and its backward zero-pad: (B, Lq, Lkv, Hq, Hkv, D) = (2, 7,
                9, 4, 1, 8), (1, 4, 25, 4, 1, 24), and phase 8e's reach
                update (32, 29, 29, 4, 1, 24) and eval chunk (1, 4, 29, 4,
-               1, 24)
+               1, 24); and at the scale-up recipe's update (32, 29, 29, 8,
+               1, 32) and eval chunk (1, 4, 29, 8, 1, 32), unpadded
   7. train-parity — bridge widths at depth 2, fp32, remat on, B=2,
                grad_accum=2, injected flow times and noise, Adam eps 1e-3:
                one update on the card (kernel) against the same update on
@@ -257,9 +258,19 @@ Phases, each of which raises on failure:
                fp32_fused and w8a8_default tiers, 2 episodes each; the
                update time and batch wait printed; one more update of the
                run's agent profiled (K1's and the backward kernels' device
-               ms per reach-recipe update). Phase 6 holds K1-vjp against
-               plain autograd at this phase's update and eval chunk
-               geometries
+               ms per reach-recipe update). Then its tri_lever leg: the
+               three-family recipe (reach and pick_place in the bridge
+               family, the drawer in the fractal one with its half-size
+               coverage set, one policy with its proprio padded to 8) cut
+               to 4 demos per bridge dataset, 6 drawer demos and 3
+               coverage demos, 50 updates and 1 episode per scored task:
+               finite losses, K1 and its backward launched exactly L and
+               2 L times per update, drawer_cov trained on and not scored,
+               the drawer's episode on the card through the EDR adapter
+               and the bridge legs' with their proprio padded to 8, one
+               rate per scored task (printed, not asserted). Phase 6
+               holds K1-vjp against plain autograd at this phase's update
+               and eval chunk geometries
   8f. qlora  — open_pi_zero_torch/scripts/demo_qlora_finetune.py on 8e's
                checkpoint as the base, cut short: 24 pick_place demos and
                the reach replay set at weight 0.5, 100 updates of B = 32
@@ -1843,16 +1854,21 @@ def out_and_grads(attention, q, k, v, mask, g, softcap=50.0) -> tuple:
 # last two are phase 8e's: the reach recipe's update (B = 32, the 29-token
 # sequence) and its eval chunk (4 action tokens over the 29)
 PADDED_GEOMETRIES = ((2, 7, 9, 4, 1, 8), (1, 4, 25, 4, 1, 24), (32, 29, 29, 4, 1, 24), (1, 4, 29, 4, 1, 24))
+# the scale-up recipe's update and eval chunk (demo_closed_loop --hidden 256
+# --layers 6 --heads 8 --kv-heads 1 --head-dim 32): 8 query rows per KV head
+# at a head dim the kernels take unpadded
+SCALE_UP_GEOMETRIES = ((32, 29, 29, 8, 1, 32), (1, 4, 29, 8, 1, 32))
 
 
 def check_vjp_padded(dev) -> dict:
     """Phase 6 at PADDED_GEOMETRIES: K1-vjp (K1, then the two backward
     kernels, each at the padded head dim, scaled by the true one) against
-    plain autograd; max|diff| of the output and of each grad."""
+    plain autograd; max|diff| of the output and of each grad. The same at
+    SCALE_UP_GEOMETRIES, which no padding touches."""
     errs = {}
-    for b, lq, lkv, hq, hkv, d in PADDED_GEOMETRIES:
+    for b, lq, lkv, hq, hkv, d in PADDED_GEOMETRIES + SCALE_UP_GEOMETRIES:
         rng = np.random.default_rng(d)
-        geometry = f"B={b} Lq={lq} Lkv={lkv} D={d}"
+        geometry = f"B={b} Lq={lq} Lkv={lkv} Hq={hq} D={d}"
         shapes = ((b, lq, hq, d), (b, lkv, hkv, d), (b, lkv, hkv, d), (b, lq, hq, d))
         arrays = [rng.normal(size=s).astype(np.float32) for s in shapes]
         mask = np.where(rng.random((b, 1, lq, lkv)) > 0.3, 0.0, MASK_NEG).astype(np.float32)
@@ -3219,6 +3235,11 @@ LEARN_EPISODES = 4  # trained and random-init episodes each
 LEARN_WINDOW = 50  # updates per entry of demo_closed_loop's loss curve
 LEARN_TIERS = "fp32_fused,w8a8_default"
 LEARN_TIER_EPISODES = 2
+LEVER_DEMOS = 4  # phase 8e's tri_lever leg: demos per bridge dataset
+LEVER_DRAWER_DEMOS = 6  # its drawer set, two per target (the coverage set: half of it)
+LEVER_UPDATES = 50
+LEVER_EPISODES = 1  # trained and random-init episodes per scored task
+LEVER_TASKS = ["reach", "pick_place", "drawer"]  # scored; drawer_cov is trained on only
 QLORA_UPDATES = 100  # phase 8f, on 8e's checkpoint
 QLORA_RETENTION = 0.5
 QLORA_PAYLOADS = 26  # NF4 q4 / absmax leaves at the reach geometry (JAX: 26)
@@ -3338,6 +3359,61 @@ def check_learn(dev, info: str, tmp: str) -> dict:
     log(f"learn: e2e_tier_sweep on ckpt_{LEARN_UPDATES}, {LEARN_TIER_EPISODES} episodes per tier: {rates}, "
         f"{time.time() - t0:.1f} s")
     return {**result, "launches": launches, "tiers": rates, "profile": prof}
+
+
+def check_learn_lever(dev, info: str, tmp: str) -> dict:
+    """Phase 8e's second leg: ``demo_closed_loop.main`` on ``--task
+    tri_lever`` (reach and pick_place in the bridge family, the drawer in
+    the fractal one with its half-size coverage set, one policy with its
+    proprio padded to 8), cut to LEVER_DEMOS demos per bridge dataset,
+    LEVER_DRAWER_DEMOS drawer demos, LEVER_UPDATES updates and
+    LEVER_EPISODES episodes per scored task, in its own directory of
+    ``tmp``. The launch counts are set to 0 just before the run and read
+    just after it."""
+    work = os.path.join(tmp, "tri_lever")
+    with EvalProbe() as probe:
+        fa.launches = fa.bwd_launches = 0
+        result = demo_closed_loop.main([
+            "--task", "tri_lever", "--workdir", work, "--n-demos", str(LEVER_DEMOS), "--drawer-n-demos",
+            str(LEVER_DRAWER_DEMOS), "--n-updates", str(LEVER_UPDATES), "--n-eval-episodes", str(LEVER_EPISODES),
+            "--device", str(dev),
+        ])
+        launches = (fa.launches, fa.bwd_launches)
+    layers = result["model"]["layers"]
+    curve = result["loss_per_50_updates"]
+    if len(curve) != LEVER_UPDATES // LEARN_WINDOW or not np.all(np.isfinite(curve)):
+        raise AssertionError(f"tri_lever: the loss per {LEARN_WINDOW} updates: {curve}")
+    per_update = (result["k1_launches_per_update"], result["bwd_launches_per_update"])
+    if per_update != (layers, 2 * layers) or launches[1] != 2 * layers * LEVER_UPDATES:
+        raise AssertionError(f"tri_lever: launches per update {per_update}, want {(layers, 2 * layers)}; over the "
+                             f"run {launches}")
+    # drawer_cov: demos written and trained on (its statistics come from
+    # the pipeline), not scored
+    trained, control = result["trained_success_rate"], result["random_init_success_rate"]
+    if (set(result["expert_success_rate"]) != {*LEVER_TASKS, "drawer_cov"} or list(trained) != LEVER_TASKS
+            or list(control) != LEVER_TASKS or not os.path.exists(os.path.join(work, "statistics_drawer_cov.json"))):
+        raise AssertionError(f"tri_lever: experts {result['expert_success_rate']}, scored {trained}, control "
+                             f"{control}; statistics {sorted(os.listdir(work))}")
+    # each scored task's episodes on the card: the drawer's through the EDR
+    # sticky-gripper adapter at its own 8 dims, the bridge legs' padded to 8
+    acts = [(act["agent"], act["inputs"]["proprios"].shape[-1]) for act in probe.acts]
+    del probe
+    adapters = {(type(agent.adapter).__name__, agent.adapter.pad_proprio_to, width, agent.device.type)
+                for agent, width in acts}
+    want = {("EDRSimplerAdapter", None, 8, dev.type), ("BridgeSimplerAdapter", 8, 8, dev.type)}
+    if adapters != want:
+        raise AssertionError(f"tri_lever: the eval's acts went through {adapters}, want {want}")
+    log(f"learn tri_lever: {LEVER_DEMOS} reach and pick_place demos, {LEVER_DRAWER_DEMOS} drawer demos and "
+        f"{LEVER_DRAWER_DEMOS // 2} coverage demos (expert rates {result['expert_success_rate']}), {LEVER_UPDATES} "
+        f"updates of B = 32: update {result['update_ms']:.3f} ms (median, the first left out), batch wait "
+        f"{result['batch_wait_ms']['median_after_first']:.3f} ms (median; first "
+        f"{result['batch_wait_ms']['first']:.1f}), timings {json.dumps(result['timings_s'])} s, on {info}")
+    log(f"learn tri_lever: loss per {LEARN_WINDOW} updates {[round(x, 4) for x in curve]}; K1 {per_update[0]:g} and "
+        f"backward {per_update[1]:g} launches per update; the run's counts {launches}; {len(acts)} eval chunks "
+        f"through {sorted(adapters)}")
+    log(f"learn tri_lever: after {LEVER_UPDATES} updates, {LEVER_EPISODES} episode per task: trained {trained}, "
+        f"random-init control {control} (printed, not asserted)")
+    return {**result, "launches": launches, "acts": len(acts)}
 
 
 def check_qlora_demo(dev, info: str, tmp: str) -> dict:
@@ -3958,6 +4034,7 @@ def single_card_phases(dev, info: str) -> list:
     t0 = time.time()
     with learn_workdir() as tmp:
         check_learn(dev, info, tmp)
+        check_learn_lever(dev, info, tmp)
         log(f"phase learn ok in {time.time() - t0:.1f} s")
         t0 = time.time()
         check_qlora_demo(dev, info, tmp)

@@ -29,6 +29,14 @@ import os
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # a learned policy: JAX's reach record (0.95) less 0.10, and clear of its control
 CRITERION = {"success": 0.85, "above_control": 0.5}
+# a drawer leg is held to JAX's own rate, within about two standard errors
+# of 40 episodes near 0.3, where JAX ran the drawer code the port copies
+# (its round-4 expert and render: docs/DRAWER_INVESTIGATION.md); the drawer
+# legs of its older entries are reported beside JAX's, not held
+DRAWER_BAND = 0.15
+DRAWER_HELD = ("tri_lever", "drawer_lever_solo_round5", "drawer_solo_round4")
+# entries whose JAX run did not learn either: reported beside JAX's
+REPORTED = ("scale_up_reach",)
 # the JAX reach recipe's result keys at the root of E2E_CLOSED_LOOP.json
 # (its other recipes are entries under their keys)
 ROOT_KEYS = ("task", "n_demos", "n_updates", "n_eval_episodes", "expert_success_rate", "trained_success_rate",
@@ -60,9 +68,23 @@ def learning_curve(paths: list, multi: bool) -> dict:
     return dict(sorted(curve.items(), key=lambda kv: int(kv[0].split("_")[1])))
 
 
-def verdict(run: dict, jax: dict) -> tuple:
-    """(passed, text): each task at least CRITERION["success"] and
-    CRITERION["above_control"] above its random-init control."""
+def criterion(jax_key: str) -> dict:
+    """What an entry's legs are held to: CRITERION for the bridge legs,
+    DRAWER_BAND of JAX's rate for a drawer leg of DRAWER_HELD, nothing
+    where JAX's own run did not learn (REPORTED)."""
+    if jax_key in REPORTED:
+        return {"reported_beside_jax": True}
+    if jax_key in DRAWER_HELD:
+        return {**CRITERION, "drawer_within_jax": DRAWER_BAND}
+    return CRITERION
+
+
+def verdict(run: dict, jax: dict, jax_key: str = "") -> tuple:
+    """(passed, text): each bridge leg at least CRITERION["success"] and
+    CRITERION["above_control"] above its random-init control; a drawer leg
+    (its task named so) within DRAWER_BAND of JAX's rate where the entry is
+    in DRAWER_HELD, else reported; an entry in REPORTED is reported leg by
+    leg beside JAX's."""
     trained = per_task(run["trained_success_rate"], [run["task"]])
     tasks = list(trained)
     control = per_task(run["random_init_success_rate"], tasks)
@@ -70,13 +92,26 @@ def verdict(run: dict, jax: dict) -> tuple:
     jax_control = per_task(jax["random_init_success_rate"], tasks)
     parts, passed = [], True
     for t in tasks:
-        ok = trained[t] >= CRITERION["success"] and trained[t] - control[t] >= CRITERION["above_control"]
-        passed &= ok
+        if jax_key in REPORTED or ("drawer" in t and jax_key not in DRAWER_HELD):
+            ok, how = None, "reported"
+        elif "drawer" in t:
+            ok = abs(trained[t] - jax_trained[t]) <= DRAWER_BAND + 1e-9
+            how = f"{'within' if ok else 'outside'} {DRAWER_BAND} of JAX"
+        else:
+            ok = trained[t] >= CRITERION["success"] and trained[t] - control[t] >= CRITERION["above_control"]
+            how = "passes" if ok else "misses"
+        passed &= ok is not False
         parts.append(f"{t}: trained {trained[t]} (JAX {jax_trained[t]}), control {control[t]} "
-                     f"(JAX {jax_control[t]}): {'passes' if ok else 'misses'}")
-    bar = f"at least {CRITERION['success']} and {CRITERION['above_control']} above the control"
-    text = (f"{'PASSED' if passed else 'MISSED'} ({bar}) after {run['n_updates']} updates on "
-            f"{run['n_eval_episodes']} held-out layouts, seed {run['seed']}, on {run['device']}: " + "; ".join(parts))
+                     f"(JAX {jax_control[t]}): {how}")
+    if jax_key in REPORTED:
+        head = "REPORTED beside JAX's run, which did not learn either"
+    else:
+        bar = f"at least {CRITERION['success']} and {CRITERION['above_control']} above the control"
+        if jax_key in DRAWER_HELD:
+            bar += f"; a drawer leg within {DRAWER_BAND} of JAX's rate"
+        head = f"{'PASSED' if passed else 'MISSED'} ({bar})"
+    text = (f"{head} after {run['n_updates']} updates on {run['n_eval_episodes']} held-out layouts, seed "
+            f"{run['seed']}, on {run['device']}: " + "; ".join(parts))
     return passed, text
 
 
@@ -89,20 +124,21 @@ def jax_entry(doc: dict, key: str) -> dict:
 def entry(run: dict, command: str, curve: dict, jax_key: str, jax: dict, others: list) -> dict:
     out = {"run": command, **run}
     if curve:
+        model = run.get("model")
+        at = f" at the run's geometry (hidden {model['hidden']}, {model['layers']} layers)" if model else ""
         out["learning_curve"] = {
-            "by": "open_pi_zero_torch/scripts/eval_scaleup_ckpt.py --hidden 96 --layers 3 --heads 4: each "
-                  "checkpoint's params/ export (the EMA blend from half-way), "
-                  f"{run['n_eval_episodes']} episodes at seed 1000", **curve}
+            "by": f"open_pi_zero_torch/scripts/eval_scaleup_ckpt.py{at}: each checkpoint's params/ export (the EMA "
+                  f"blend from half-way), {run['n_eval_episodes']} episodes at seed 1000", **curve}
         if "ckpt_12000" in curve and not isinstance(run["trained_success_rate"], dict):
             out["at_12k_updates"] = curve["ckpt_12000"]["success_rate"]
     where = f"[{jax_key!r}]" if jax_key else "'s root"
     out["jax_reference"] = {"source": f"E2E_CLOSED_LOOP.json{where}: the JAX package, JPEG frames", **jax}
-    out["criterion"] = CRITERION
-    out["verdict"] = verdict(run, jax)[1]
+    out["criterion"] = criterion(jax_key)
+    out["verdict"] = verdict(run, jax, jax_key)[1]
     if others:
         out["other_seeds"] = {f"seed_{o['seed']}": {**{k: o[k] for k in (
             "trained_success_rate", "random_init_success_rate", "update_ms", "timings_s", "device",
-            "loss_per_50_updates")}, "verdict": verdict(o, jax)[1]} for o in others}
+            "loss_per_50_updates")}, "verdict": verdict(o, jax, jax_key)[1]} for o in others}
     return out
 
 

@@ -12,6 +12,11 @@ package raises with the command line that converts it
   python -m open_pi_zero_torch.scripts.eval_scaleup_ckpt --workdir build/opz_reach \\
       --ckpt ckpt_4000 --hidden 96 --layers 3 --heads 4 --kv-heads 1 \\
       --n-eval-episodes 40 [--control] [--device cpu]
+
+The scale-up recipe's checkpoints: ``--hidden 256 --layers 6 --heads 8
+--kv-heads 1 --head-dim 32``. A cross-family checkpoint (multi_family,
+tri_family, tri_lever) scores its drawer with ``--task drawer`` and a
+bridge leg with ``--proprio-dim 8``.
 """
 
 from __future__ import annotations
@@ -31,8 +36,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--heads", type=int, default=8)
     ap.add_argument("--kv-heads", type=int, default=1)
     # same default as demo_closed_loop (0 -> max(16, hidden//4)) so the
-    # geometry defaults stay in sync between the train and eval scripts
-    ap.add_argument("--head-dim", type=int, default=0)
+    # geometry defaults stay in sync between the train and eval scripts;
+    # the scale-up recipe trains at 32, so pass --head-dim 32 for it (the
+    # default gives 64 at hidden 256)
+    ap.add_argument("--head-dim", type=int, default=0, help="0 = max(16, hidden//4); the scale-up recipe's is 32")
     ap.add_argument("--proprio-dim", type=int, default=0,
                     help="0 = infer from task family (8 for drawer/fractal, "
                          "7 for bridge); pass 8 explicitly for a bridge task "

@@ -1,0 +1,25 @@
+"""The drawer family's chains end to end on the CPU: ``demo_closed_loop``
+on ``--task drawer``, ``drawer_lever`` and ``multi_family`` at the small
+size of ``tests/test_torch_demo_scripts.py`` (4 demos, 4 updates of B = 4,
+hidden 32, 1 layer, 1 episode per eval), then ``eval_scaleup_ckpt`` on each
+scored leg of the final checkpoint (``tests/demo_chains.py`` says what each
+chain must give). The results are counts and rates; no tolerance applies.
+"""
+
+import pytest
+
+from tests.demo_chains import check_result, check_scored_legs, run_chain
+
+
+@pytest.fixture(scope="module", params=["drawer", "drawer_lever", "multi_family"])
+def chain(request, tmp_path_factory):
+    work = tmp_path_factory.mktemp(request.param)
+    return request.param, work, run_chain(request.param, work)
+
+
+def test_chain_writes_trains_and_scores_each_leg(chain):
+    check_result(*chain)
+
+
+def test_eval_scaleup_scores_each_leg_of_the_checkpoint(chain):
+    check_scored_legs(*chain)
