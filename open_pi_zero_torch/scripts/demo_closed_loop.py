@@ -403,6 +403,16 @@ def train_config(args, geometry: dict, mix: str, data_dir: str, n_datasets: int,
     })
 
 
+def init_source(init_params) -> str | None:
+    """What ``--init-params`` trained from: its export's ``meta.json``
+    source; None for the seed's own init."""
+    if not init_params:
+        return None
+    from open_pi_zero_torch.training import checkpoint as ckpt_lib
+
+    return ckpt_lib._read_meta(init_params).get("source")
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -516,6 +526,7 @@ def main(argv=None) -> dict:
         # the port's own fields: the card and what its updates cost
         "device": device_info(device),
         "seed": args.seed,
+        "init": init_source(args.init_params),
         "updates_this_run": [first_update + 1, first_update + updates],  # a resumed run starts past 1
         **timed.summary(),
         "card_utilization": utilization.summary(),

@@ -2,12 +2,16 @@
 outputs: a ``demo_closed_loop`` result, the ``eval_scaleup_ckpt`` scores
 of its intermediate checkpoints, the JAX package's entry for the same
 recipe (``E2E_CLOSED_LOOP.json``) and the runs from other seeds; the
-verdict against ``CRITERION`` is written from the numbers. With
-``--tier-sweep`` instead of ``--run``: one task's entry of
-``E2E_TIER_SUCCESS_TORCH.json`` from an ``e2e_tier_sweep`` result, each
-tier beside JAX's rate on the same task (``E2E_TIER_SUCCESS.json``, its
-``tiers`` and ``control_ablations``) and both packages' distance from
-``fp32_fused``. Merge the entry with ``merge_e2e_entry``.
+verdict against ``CRITERION`` is written from the numbers (and names the
+init of a run that trained from another init than its seed's: the
+``init`` that ``demo_closed_loop --init-params`` writes). With
+``--by-n-demos`` instead of ``--run``: a data-efficiency entry from one
+run per demo count, each rate beside JAX's ``success_by_n_demos``. With ``--tier-sweep`` instead: one
+task's entry of ``E2E_TIER_SUCCESS_TORCH.json`` from an ``e2e_tier_sweep``
+result, each tier beside JAX's rate on the same task
+(``E2E_TIER_SUCCESS.json``, its ``tiers`` and ``control_ablations``) and
+both packages' distance from ``fp32_fused``. Merge the entry with
+``merge_e2e_entry``.
 
   python -m open_pi_zero_torch.scripts.demo_entry --run pick_place_s0.json \\
       --command "python -m open_pi_zero_torch.scripts.demo_closed_loop ..." \\
@@ -15,6 +19,9 @@ tier beside JAX's rate on the same task (``E2E_TIER_SUCCESS.json``, its
       --out pick_place_entry.json
   python -m open_pi_zero_torch.scripts.merge_e2e_entry --src pick_place_entry.json \\
       --dst E2E_CLOSED_LOOP_TORCH.json --key pick_place
+  python -m open_pi_zero_torch.scripts.demo_entry --by-n-demos reach_100.json reach_300.json \\
+      --command "python -m open_pi_zero_torch.scripts.demo_closed_loop ..." \\
+      --jax-key data_efficiency_reach --out data_efficiency_reach.json
   python -m open_pi_zero_torch.scripts.demo_entry --tier-sweep tiers_pick_place.json \\
       --command "python -m open_pi_zero_torch.scripts.e2e_tier_sweep ..." --jax-key pick_place \\
       --out pick_place_tiers.json
@@ -35,8 +42,11 @@ CRITERION = {"success": 0.85, "above_control": 0.5}
 # legs of its older entries are reported beside JAX's, not held
 DRAWER_BAND = 0.15
 DRAWER_HELD = ("tri_lever", "drawer_lever_solo_round5", "drawer_solo_round4")
-# entries whose JAX run did not learn either: reported beside JAX's
-REPORTED = ("scale_up_reach",)
+# entries reported beside JAX's run, not held, and why
+REPORTED = {
+    "scale_up_reach": "JAX's run, which did not learn either",
+    "drawer_single_task": "JAX's run on its round-3 drawer code (its expert and render changed since)",
+}
 # the JAX reach recipe's result keys at the root of E2E_CLOSED_LOOP.json
 # (its other recipes are entries under their keys)
 ROOT_KEYS = ("task", "n_demos", "n_updates", "n_eval_episodes", "expert_success_rate", "trained_success_rate",
@@ -104,14 +114,15 @@ def verdict(run: dict, jax: dict, jax_key: str = "") -> tuple:
         parts.append(f"{t}: trained {trained[t]} (JAX {jax_trained[t]}), control {control[t]} "
                      f"(JAX {jax_control[t]}): {how}")
     if jax_key in REPORTED:
-        head = "REPORTED beside JAX's run, which did not learn either"
+        head = f"REPORTED beside {REPORTED[jax_key]}"
     else:
         bar = f"at least {CRITERION['success']} and {CRITERION['above_control']} above the control"
         if jax_key in DRAWER_HELD:
             bar += f"; a drawer leg within {DRAWER_BAND} of JAX's rate"
         head = f"{'PASSED' if passed else 'MISSED'} ({bar})"
+    init = f", init: {run['init']}" if run.get("init") else ""
     text = (f"{head} after {run['n_updates']} updates on {run['n_eval_episodes']} held-out layouts, seed "
-            f"{run['seed']}, on {run['device']}: " + "; ".join(parts))
+            f"{run['seed']}{init}, on {run['device']}: " + "; ".join(parts))
     return passed, text
 
 
@@ -140,6 +151,41 @@ def entry(run: dict, command: str, curve: dict, jax_key: str, jax: dict, others:
             "trained_success_rate", "random_init_success_rate", "update_ms", "timings_s", "device",
             "loss_per_50_updates")}, "verdict": verdict(o, jax, jax_key)[1]} for o in others}
     return out
+
+
+def n_demos_entry(runs: list, command: str, jax_key: str, jax: dict) -> dict:
+    """A data-efficiency entry: one run per demo count, each rate beside
+    JAX's ``success_by_n_demos``. A count where JAX's policy learned (at
+    least ``CRITERION["success"]``) is held to CRITERION; one where it did
+    not (reach's 100 demos, 0.225) is reported beside it."""
+    runs = sorted(runs, key=lambda r: r["n_demos"])
+    kept = ("trained_success_rate", "random_init_success_rate", "n_updates", "seed", "update_ms", "batch_wait_ms",
+            "timings_s", "device", "loss_per_50_updates")
+    by_n, parts, passed = {}, [], True
+    for run in runs:
+        n = str(run["n_demos"])
+        rate, control = run["trained_success_rate"], run["random_init_success_rate"]
+        theirs = jax["success_by_n_demos"].get(n)
+        if theirs is None or theirs < CRITERION["success"]:
+            ok, how = None, "reported (JAX's policy did not learn at this count)"
+        else:
+            ok = rate >= CRITERION["success"] and rate - control >= CRITERION["above_control"]
+            how = "passes" if ok else "misses"
+        passed &= ok is not False
+        by_n[n] = {**{k: run[k] for k in kept if k in run}, "jax_success_rate": theirs}
+        parts.append(f"{n} demos: trained {rate} (JAX {theirs}), control {control} after {run['n_updates']} "
+                     f"updates: {how}")
+    head = f"{'PASSED' if passed else 'MISSED'} (at least {CRITERION['success']} and {CRITERION['above_control']} " \
+           f"above the control where JAX's policy learned)"
+    first = runs[0]
+    init = f", init: {first['init']}" if first.get("init") else ""
+    return {"run": command, "task": first["task"], "n_eval_episodes": first["n_eval_episodes"],
+            **({"init": first["init"]} if init else {}),
+            "success_by_n_demos": {n: r["trained_success_rate"] for n, r in by_n.items()}, "runs": by_n,
+            "jax_reference": {"source": f"E2E_CLOSED_LOOP.json[{jax_key!r}]: the JAX package, JPEG frames", **jax},
+            "criterion": {**CRITERION, "held_where_jax_learned": True},
+            "verdict": f"{head} on {first['n_eval_episodes']} held-out layouts, seed {first['seed']}{init}, on "
+                       f"{first['device']}: " + "; ".join(parts)}
 
 
 def tier_entry(sweep: dict, command: str, jax_key: str, jax_doc: dict) -> dict:
@@ -172,6 +218,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     what = ap.add_mutually_exclusive_group(required=True)
     what.add_argument("--run", help="the demo_closed_loop result the entry is of")
+    what.add_argument("--by-n-demos", nargs="+", help="demo_closed_loop results of one recipe at several "
+                                                      "demo counts (a data-efficiency entry)")
     what.add_argument("--tier-sweep", help="the e2e_tier_sweep result the entry is of")
     ap.add_argument("--command", required=True, help="its command line, as run")
     ap.add_argument("--curve", nargs="*", default=[], help="eval_scaleup_ckpt outputs of its checkpoints")
@@ -191,6 +239,9 @@ def main(argv=None) -> dict:
         REPO, "E2E_TIER_SUCCESS.json" if args.tier_sweep else "E2E_CLOSED_LOOP.json")
     if args.tier_sweep:
         result = tier_entry(load(args.tier_sweep), args.command, args.jax_key, load(jax_file))
+    elif args.by_n_demos:
+        result = n_demos_entry([load(p) for p in args.by_n_demos], args.command, args.jax_key,
+                               jax_entry(load(jax_file), args.jax_key))
     else:
         run = load(args.run)
         result = entry(run, args.command, learning_curve(args.curve, isinstance(run["trained_success_rate"], dict)),

@@ -19,6 +19,7 @@ from open_pi_zero_torch.models import pizero
 from open_pi_zero_torch.models.tree import tree_leaves
 from open_pi_zero_torch.scripts import demo_closed_loop, eval_scaleup_ckpt
 from open_pi_zero_torch.training import checkpoint as ckpt_lib
+from tests import demo_reference_inputs
 from tests.test_torch_demo_scripts import JAX_KEYS, PORT_KEYS, SMALL
 
 SCALE_UP = ["--heads", "8", "--kv-heads", "1", "--head-dim", "32"]  # the bridge recipe's 8:1, head dim 32
@@ -67,7 +68,7 @@ def check_result(name: str, work, result: dict) -> None:
     assert json.loads((work / "out.json").read_text()) == json.loads(json.dumps(result))
     task = flags[1]
     assert result["task"] == f"simpler_lite_{task}" and result["device"] == "cpu"
-    assert result["updates_this_run"] == [1, 4] and result["seed"] == 0
+    assert result["updates_this_run"] == [1, 4] and result["seed"] == 0 and result["init"] is None
     # every dataset's demos by the expert; one rate per scored leg, as the
     # JAX script's `rates` gives them (drawer_lever: the drawer's alone)
     tasks = sorted(datasets.values())
@@ -129,3 +130,25 @@ def check_scored_legs(name: str, work, result: dict) -> None:
         instructions = list(out["trained"]["success_by_instruction"])
         assert len(instructions) == 1
         assert ("drawer" in instructions[0]) == (leg == "drawer")
+
+
+def check_jax_closed_loop(name: str, work, result: dict) -> None:
+    """``tests/demo_reference_inputs.py --jax-eval`` scores the final
+    checkpoint's export in the JAX package's closed loop, leg by leg, at the
+    chain's geometry (the scale-up's heads; proprio 8 for a cross-family
+    policy, its bridge legs padded) with the leg's statistics file: one
+    episode on the layout the port's eval scores, the same instruction."""
+    _, datasets, legs, _, _ = CHAINS[name]
+    first = next(iter(datasets.values()))
+    heads = SCALE_UP if name == "scale_up" else ["--heads", "4"]
+    for leg in legs:
+        stats = work / ("statistics.json" if leg == first else f"statistics_{leg}.json")
+        proprio = "8" if name in CROSS_FAMILY or leg == "drawer" else "7"
+        got = demo_reference_inputs.main(["--jax-eval", str(work / "train" / "checkpoint" / "ckpt_4"), "--stats",
+                                          str(stats), "--task", leg, "--proprio-dim", proprio, "--hidden", "32",
+                                          "--layers", "1", *heads, "--n-eval-episodes", "1"])
+        pad = ["--proprio-dim", "8"] if name in CROSS_FAMILY and leg != "drawer" else []
+        port = eval_scaleup_ckpt.main(["--workdir", str(work), "--ckpt", "ckpt_4", "--task", leg,
+                                       *geometry_flags(name), *pad, "--n-eval-episodes", "1", "--device", "cpu"])
+        assert got["n_episodes"] == 1 and 0.0 <= got["success_rate"] <= 1.0
+        assert list(got["success_by_instruction"]) == list(port["trained"]["success_by_instruction"])

@@ -43,7 +43,7 @@ SMALL = ["--n-demos", "4", "--n-updates", "4", "--n-eval-episodes", "1", "--hidd
 JAX_KEYS = {"task", "n_demos", "n_updates", "n_eval_episodes", "expert_success_rate", "trained_success_rate",
             "random_init_success_rate", "model", "timings_s", "devices"}
 PORT_KEYS = {"device", "update_ms", "batch_wait_ms", "k1_launches_per_update", "bwd_launches_per_update",
-             "loss_per_50_updates", "updates_this_run", "card_utilization", "seed"}
+             "loss_per_50_updates", "updates_this_run", "card_utilization", "seed", "init"}
 # configs/eval/simpler_lite.yaml at model_geometry(32, 1)'s widths
 SMALL_EVAL_YAML = """\
 _base_: {base}

@@ -18,8 +18,9 @@
   frames as a multiset, bitwise (as tests/test_torch_data_pipeline.py
   compares them).
 - The diagnostic inputs of ``tests/demo_reference_inputs.py``: the JAX
-  package's init, exported, is bitwise what ``demo_closed_loop
-  --init-params`` makes the TrainAgent start from.
+  package's init, exported through its CLI at the bridge geometry, at
+  proprio 8 and at the scale-up's 8 Q / 1 KV heads of 32, is bitwise what
+  ``demo_closed_loop --init-params`` makes the TrainAgent start from.
 """
 
 import logging
@@ -230,17 +231,32 @@ def leaves_by_path(tree, prefix=""):
             yield f"{prefix}/{k}", np.asarray(v.detach() if torch.is_tensor(v) else v)
 
 
-def test_jax_init_export_is_what_init_params_trains_from(tmp_path, monkeypatch):
+@pytest.mark.parametrize("proprio_dim, heads, kv_heads, head_dim", [
+    (7, 4, 1, 0),  # the bridge family's geometry
+    (8, 4, 1, 0),  # the drawer family's and the cross-family mixes' proprio
+    (7, 8, 1, 32),  # the scale-up's 8 Q / 1 KV heads of 32
+], ids=["bridge", "proprio8", "scale_up_heads"])
+def test_jax_init_export_is_what_init_params_trains_from(proprio_dim, heads, kv_heads, head_dim, tmp_path, monkeypatch):
     monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
-    tree = demo_reference_inputs.jax_init_export(str(tmp_path / "init"), hidden=32, layers=1)
+    heads_flags = ["--heads", str(heads), "--kv-heads", str(kv_heads), "--head-dim", str(head_dim)]
+    demo_reference_inputs.main(["--init", str(tmp_path / "init"), "--hidden", "32", "--layers", "1",
+                                "--proprio-dim", str(proprio_dim), *heads_flags])
+    tree = demo_reference_inputs.jax_init_export(str(tmp_path / "again"), hidden=32, layers=1,
+                                                 proprio_dim=proprio_dim, heads=heads, kv_heads=kv_heads,
+                                                 head_dim=head_dim)
     args = demo_closed_loop.parse_args(["--workdir", str(tmp_path), "--init-params", str(tmp_path / "init"),
-                                        "--seed", "3", "--n-demos", "2", "--hidden", "32", "--layers", "1", "--device", "cpu"])
+                                        "--seed", "3", "--n-demos", "2", "--hidden", "32", "--layers", "1",
+                                        *heads_flags, "--device", "cpu"])
     mix, demo_sets = demo_closed_loop.demo_sets_of(args.task)
     data_dir = str(tmp_path / "rlds")
     demo_closed_loop.write_demos(args, demo_sets, data_dir, logging.getLogger("demo"))
-    cfg = demo_closed_loop.train_config(args, demo_closed_loop.model_geometry(32, 1), mix, data_dir, 1, False)
+    geometry = demo_closed_loop.model_geometry(32, 1, proprio_dim=proprio_dim, heads=heads, kv_heads=kv_heads,
+                                               head_dim=head_dim)
+    cfg = demo_closed_loop.train_config(args, geometry, mix, data_dir, 1, False)
     agent = TrainAgent(cfg, device="cpu")
     got, want = dict(leaves_by_path(agent.state.params)), dict(leaves_by_path(tree))
     assert agent.seed == 3 and got.keys() == want.keys()
+    assert demo_closed_loop.init_source(args.init_params) == "open_pi_zero_tpu init, jax.random.key(0)"
+    assert demo_closed_loop.init_source(None) is None
     for name in want:
         assert got[name].dtype == want[name].dtype and np.array_equal(got[name], want[name]), name

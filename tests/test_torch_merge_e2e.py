@@ -80,18 +80,90 @@ def scaleup_result(ckpt, task, rate, control=None):
     return out
 
 
-@pytest.mark.parametrize("task", ["pick_place", "multi", "reach"])
+JAX_INIT = "open_pi_zero_tpu init, jax.random.key(0)"  # demo_closed_loop.init_source of the JAX init export
+
+
+def filed_entry(task, write, tmp_path):
+    """(key, entry) of the entries that file JAX's data-efficiency sweeps,
+    the drawer's single-task control and the runs from JAX's init, each
+    checked against its JAX key."""
+    from open_pi_zero_torch.scripts import demo_entry
+
+    jax = json.loads((REPO / "E2E_CLOSED_LOOP.json").read_text())
+    out_path = str(tmp_path / "entry.json")
+    if task.startswith("data_efficiency"):
+        leg = task.removeprefix("data_efficiency_")
+        rates = {100: 0.3, 300: 0.95} if leg == "reach" else {400: 0.8}
+        runs = []
+        for n, rate in rates.items():
+            run = {**demo_result(leg, rate, 0.25 if leg == "reach" else 0.0), "n_demos": n,
+                   "n_updates": 12000 if leg == "reach" else 18000, "init": None if leg == "reach" else JAX_INIT}
+            runs.append(write(f"run_{n}.json", run))
+        out = demo_entry.main(["--by-n-demos", *runs[::-1], "--command", "demo_closed_loop ...", "--jax-key", task,
+                               "--out", out_path])
+        assert out["success_by_n_demos"] == {str(n): r for n, r in rates.items()}
+        assert out["jax_reference"]["success_by_n_demos"] == jax[task]["success_by_n_demos"]
+        assert out["runs"][str(next(iter(rates)))]["jax_success_rate"] == jax[task]["success_by_n_demos"][
+            str(next(iter(rates)))]
+        if leg == "reach":  # JAX's 100-demo policy did not learn: reported; 300 held
+            assert out["verdict"].startswith("PASSED") and "init" not in out
+            assert "100 demos: trained 0.3 (JAX 0.225), control 0.25 after 12000 updates: reported" in out["verdict"]
+            assert "300 demos: trained 0.95 (JAX 1.0), control 0.25 after 12000 updates: passes" in out["verdict"]
+        else:
+            assert out["verdict"].startswith("MISSED")
+            assert "400 demos: trained 0.8 (JAX 1.0), control 0.0 after 18000 updates: misses" in out["verdict"]
+            assert f"seed 0, init: {JAX_INIT}, on NVIDIA H100" in out["verdict"]
+        return task, out
+    if task == "drawer_single_task":
+        run = write("run.json", demo_result("drawer", 0.3, 0.05))
+        out = demo_entry.main(["--run", run, "--command", "demo_closed_loop ...", "--jax-key", task, "--out", out_path])
+        assert out["verdict"].startswith("REPORTED beside JAX's run on its round-3 drawer code")
+        assert "simpler_lite_drawer: trained 0.3 (JAX 0.325), control 0.05 (JAX 0.05): reported" in out["verdict"]
+        assert out["criterion"] == {"reported_beside_jax": True}
+        return task, out
+    jax_key = task.removesuffix("_from_jax_init")
+    if jax_key == "tri_lever":
+        run = demo_result(jax_key, {"reach": 0.95, "pick_place": 0.9, "drawer": 0.1},
+                          {"reach": 0.25, "pick_place": 0.0, "drawer": 0.0})
+    else:
+        run = demo_result(jax_key, 0.4, 0.0)
+    run["init"] = JAX_INIT
+    out = demo_entry.main(["--run", write("run.json", run), "--command", "demo_closed_loop --init-params ...",
+                           "--jax-key", jax_key if jax_key == "tri_lever" else "drawer_lever_solo_round5",
+                           "--out", out_path])
+    assert out["init"] == JAX_INIT and f"seed 0, init: {JAX_INIT}, on NVIDIA H100" in out["verdict"]
+    assert out["criterion"]["drawer_within_jax"] == demo_entry.DRAWER_BAND
+    if jax_key == "tri_lever":
+        assert out["verdict"].startswith("PASSED") and "drawer: trained 0.1 (JAX 0.0)" in out["verdict"]
+    else:
+        assert out["verdict"].startswith("MISSED") and "trained 0.4 (JAX 0.025)" in out["verdict"]
+    return task, out
+
+
+@pytest.mark.parametrize("task", ["pick_place", "multi", "reach", "data_efficiency_reach", "data_efficiency_pick_place",
+                                  "drawer_single_task", "tri_lever_from_jax_init", "drawer_lever_from_jax_init"])
 def test_demo_entry_is_merged_with_its_verdict(task, tmp_path, capsys):
     """``demo_entry`` assembles a run's entry (learning curve, JAX's
     entry, the verdict from the numbers, the other seeds' runs) and the
     port's ``merge_e2e_entry`` files it under its key. JAX's reach recipe
-    is the root of its file (``--jax-key ''``)."""
+    is the root of its file (``--jax-key ''``). The data-efficiency
+    entries (``--by-n-demos``), the drawer's single-task control (reported)
+    and the runs from JAX's init (their ``init``, held as their JAX keys)
+    are filed alike (``filed_entry``)."""
     from open_pi_zero_torch.scripts import demo_entry
 
     def write(name, obj):
         (tmp_path / name).write_text(json.dumps(obj))
         return str(tmp_path / name)
 
+    if task not in ("pick_place", "multi", "reach"):
+        key, out = filed_entry(task, write, tmp_path)
+        capsys.readouterr()
+        dst = tmp_path / "E2E.json"
+        dst.write_text(json.dumps({"reach": {"trained_success_rate": 0.15}}))
+        merge_e2e_entry.main(["--src", str(tmp_path / "entry.json"), "--dst", str(dst), "--key", key])
+        assert json.loads(dst.read_text()) == {"reach": {"trained_success_rate": 0.15}, key: out}
+        return
     if task == "multi":
         run = write("run.json", demo_result(task, {"reach": 0.95, "pick_place": 0.9},
                                             {"reach": 0.25, "pick_place": 0.0}))
